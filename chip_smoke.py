@@ -2,13 +2,15 @@
 """Smoke run of the PyTorch/CUDA port (multi_spatialmllm_tpu_torch) on one
 NVIDIA GPU. Run from the repository root:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase
+    python3 chip_smoke.py --phases 7 9 # some phases (1 and 2 always run)
 
 Phases, each printed as it ends; any failure raises (non-zero exit, no
 result line):
 
 1. Device: needs CUDA; prints the card's name and power limit.
-2. Build: compiles both hand-written kernels from ops/csrc with nvcc.
+2. Build: compiles the three kernel sources in ops/csrc with nvcc, in
+   parallel (one nvcc per source).
 3. flash_fwd (K1) against its plain version: the flagship prefill shape,
    the ViT shape with its pad segment, and small float32 cases.
 4. paged_decode (K7) against the plain gather-window version, fused write
@@ -21,12 +23,33 @@ result line):
    bf16 weights answers 16 MultiSPA-shaped requests (1-2 synthetic images
    each) through the port's serve loop; every request must finish and
    both kernels must have launched on that path.
+7. flash_bwd_dq (K2) and flash_bwd_dkv (K3), and K1 at their shapes,
+   against the plain forward and backward on float32 copies of the same
+   values: the flagship train shape, a packed row, the ViT shape, the
+   S 8192 streaming shape (which stands for K4-K6) and small float32 GQA
+   cases. bf16 results are also held, per 64-row tile, to twice the plain
+   version's own bf16 error, and a probe shows that check failing a dq
+   and a dv with one tile 10% off; timings against the bound and
+   `scaled_dot_product_attention` (timed only).
+8. Tiny training: the `tiny` config in float32, 3 steps of
+   `make_train_step` (packed rows, accum 2) on the CPU and on the card
+   from the same weights and batches; losses, grad norms, first-step
+   gradients and params must agree (tolerances below).
+9. Train: the `flagship` widths with the LLM cut to 8 of 32 layers,
+   float32 master weights and bf16 compute, 4 steps through `train_steps`
+   (what the `train` CLI calls) over a synthetic MultiSPA-shaped mixture
+   (packed 4096-token rows, max_tiles 6, batch 2, accum 2); every loss
+   finite, all three flash kernels launched, then the loss must fall at
+   each update of a fresh optimizer, on the train CLI's default schedule,
+   on one repeated batch.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
 
+import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -36,9 +59,26 @@ K1_F32_ATOL = 1e-4
 K1_LSE_ATOL = 1e-3       # lse is f32 from f32 scores in both versions
 K7_BF16_ATOL = 2e-2
 K7_F32_ATOL = 2e-5       # the JAX package's own paged-kernel tolerance
+BWD_F32_ATOL = 2e-4      # the JAX package's backward-kernel test's own
+BWD_BF16_REL = 2e-2      # bf16: max|err| <= 2e-2 * max|ref|, per tensor
+# every bf16 result also: its relative RMS error and its worst relative
+# error of a 64-row tile within NORM_RATIO of the plain version's on the
+# same bf16 values (which is bf16 rounding alone); a tile's norm is floored
+# at TILE_FLOOR of the tensor's RMS tile norm
+NORM_RATIO = 2.0
+TILE_FLOOR = 1e-2
+TRAIN_REL = 1e-4         # phase 8: losses, grad norms, first gradients
 MARGIN = 1e-4            # phase 5's near-tie threshold (CPU logits, f32)
 N_SERVE = 16
+TRAIN_LAYERS = 8         # phase 9: LLM depth cut from 32 (see PERF.md)
+# phase 9's steps on one repeated batch run a fresh optimizer on the train
+# CLI's default schedule (--lr 1e-5, --warmup 100, --steps 1000)
+REPEAT_LR, REPEAT_WARMUP, REPEAT_TOTAL = 1e-5, 100, 1000
+REPEAT_STEPS = 5
 SEED = 0
+# published dense peaks of one H100 SXM (NVIDIA data sheet), for bounds
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 
 
 def log(msg):
@@ -75,38 +115,72 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-class ByteTokenizer:
-    """Special tokens then UTF-8 bytes, with the ids of the JAX package's
-    SpatialTokenizer (pad 0, bos 1, eos 2, IMG_CONTEXT 3, ..., bytes from
-    8): its vocabulary minus the word tokens, enough to drive the serve
-    loop without importing that package."""
+def bound_ms(flops, n_bytes, peak_flops=PEAK_BF16_FLOPS):
+    """The least time the card could take: the larger of operations over
+    the peak rate and bytes over the memory rate; and which one bounds."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
-    SPECIALS = ("<pad>", "<s>", "</s>", "<IMG_CONTEXT>", "<img>", "</img>",
-                "<|human|>", "<|assistant|>")
-    pad_id, bos_id, eos_id = 0, 1, 2
 
-    def encode(self, text):
-        ids, pos = [], 0
-        while pos < len(text):
-            sp = next((s for s in self.SPECIALS
-                       if text.startswith(s, pos)), None)
-            if sp:
-                ids.append(self.SPECIALS.index(sp))
-                pos += len(sp)
-            else:
-                ids += [len(self.SPECIALS) + b
-                        for b in text[pos].encode("utf-8")]
-                pos += 1
-        return ids
+def attended_pairs(torch, b, s, causal, seg):
+    """(query, key) pairs one head attends to, summed over the batch: the
+    score entries the mask keeps, counted from this run's segment ids."""
+    if seg is None:
+        return b * (s * (s + 1) // 2 if causal else s * s)
+    total = 0
+    for row in seg:
+        _, lens = torch.unique_consecutive(row, return_counts=True)
+        lens = lens.double()
+        total += int((lens * (lens + 1) / 2 if causal else lens * lens)
+                     .sum().item())
+    return total
 
-    def decode(self, ids):
-        n = len(self.SPECIALS)
-        return bytes(int(i) - n for i in ids
-                     if n <= int(i) < n + 256).decode("utf-8", "replace")
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def tile_norms(x):
+    """Frobenius norms of the 64-row tiles along S of x `[B, H, S, D]`,
+    the kernels' tiles (the last one may be short)."""
+    import torch.nn.functional as F
+
+    b, h, s, d = x.shape
+    return F.pad(x, (0, 0, 0, -s % 64)).reshape(b * h, -1, 64 * d).norm(
+        dim=-1)
+
+
+def normalised_errors(got, ref):
+    """`got` against `ref` `[B, H, S, D]`: (relative RMS error, worst
+    relative error of a 64-row tile). Unlike max|err| against max|ref|,
+    the tile error reads small tiles at their own scale (the late keys of
+    a causal row have dv far below the first keys'). A tile's norm is
+    floored at TILE_FLOOR of the RMS tile norm."""
+    err = got.float() - ref
+    e, r = tile_norms(err), tile_norms(ref)
+    rms = r.norm() / r.numel() ** 0.5
+    worst = (e / (r + TILE_FLOOR * rms)).max()
+    return (err.norm() / ref.norm()).item(), worst.item()
+
+
+def verdict(got, ref, tol, plain=None):
+    """(ok, max|err|, text) of `got` against the float32 reference `ref`:
+    max|err| <= tol and, for a bf16 result (`plain`: the plain version on
+    the same bf16 values), both normalised errors within NORM_RATIO of the
+    plain version's."""
+    err = (got.float() - ref).abs().max().item()
+    ok = err <= tol
+    text = f"max|err| {err:.3e} (tol {tol:.3e})"
+    if plain is not None:
+        g, p = normalised_errors(got, ref), normalised_errors(plain, ref)
+        ok = ok and all(a <= NORM_RATIO * b for a, b in zip(g, p))
+        text += (f", rms {g[0]:.3e} (plain {p[0]:.3e}), worst tile "
+                 f"{g[1]:.3e} (plain {p[1]:.3e})")
+    return ok, err, text
 
 
 def phase_k1(torch, A):
-    """K1 cases; returns (max abs err over cases, kernel ms, plain ms)."""
+    """K1 cases; returns (max abs err over cases, timings)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -123,19 +197,19 @@ def phase_k1(torch, A):
             seg[:, pad_from:] = 1
         o, lse = A.flash_attention_fwd_cuda(q, k, v, causal, seg)
         # the plain version on float32 copies of the same inputs: the exact
-        # answer for them (in bf16 the plain path rounds its own scores)
+        # answer for them; in bf16 the plain version on the bf16 values is
+        # the yardstick of bf16 rounding (it rounds its own scores)
         o_ref, lse_ref = A.flash_attention_fwd_plain(
             q.float(), k.float(), v.float(), causal, seg)
-        o_pl, _ = A.flash_attention_fwd_plain(q, k, v, causal, seg)
+        o_pl = None
+        if dtype == torch.bfloat16:
+            o_pl, _ = A.flash_attention_fwd_plain(q, k, v, causal, seg)
         torch.cuda.synchronize()
-        err = (o.float() - o_ref).abs().max().item()
+        ok, err, text = verdict(o, o_ref, atol, o_pl)
         err_lse = (lse - lse_ref).abs().max().item()
-        err_pl = (o.float() - o_pl.float()).abs().max().item()
-        ok = err <= atol and err_lse <= K1_LSE_ATOL
-        log(f"  K1 {name}: max|o-ref|={err:.3e} (atol {atol:g}) "
-            f"max|lse-ref|={err_lse:.3e} (atol {K1_LSE_ATOL:g}) "
-            f"max|o-plain({str(dtype)[6:]})|={err_pl:.3e} "
-            f"{'ok' if ok else 'FAIL'}")
+        ok = ok and err_lse <= K1_LSE_ATOL
+        log(f"  K1 {name}: o {text}; lse max|err| {err_lse:.3e} (atol "
+            f"{K1_LSE_ATOL:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"flash_fwd disagrees with its plain version on {name}")
         return err, (q, k, v, causal, seg)
@@ -158,13 +232,57 @@ def phase_k1(torch, A):
     for label, args in (("prefill", prefill), ("vit", vit)):
         t_k = cuda_ms(torch, lambda: A.flash_attention_fwd_cuda(*args))
         t_p = cuda_ms(torch, lambda: A.flash_attention_fwd_plain(*args))
-        log(f"  K1 {label} timing: kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
-        timings[label] = (t_k, t_p)
+        q, k, v, causal, seg = args
+        flops = 4 * q.shape[1] * q.shape[3] * attended_pairs(
+            torch, q.shape[0], q.shape[2], causal, seg)
+        bound = bound_ms(flops, 2 * nbytes(q, k, v) - nbytes(k, v)
+                         + q.numel() // q.shape[3] * 4)
+        t_lib = sdpa_fwd_ms(torch, q, k, v, causal, seg)
+        log(f"  K1 {label} timing: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+            f"sdpa {t_lib:.4f} ms, bound {bound[0]:.4f} ms "
+            f"({bound[1]}; {flops / 1e9:.1f} GFLOP)")
+        timings[label] = (t_k, t_p, t_lib, bound)
     return max(errs), timings
 
 
+def sdpa_mask(torch, s, causal, seg):
+    """The boolean mask `scaled_dot_product_attention` needs for segment
+    ids (None when `is_causal` alone says it)."""
+    if seg is None:
+        return None
+    mask = seg[:, None, :, None] == seg[:, None, None, :]
+    if causal:
+        mask = mask & torch.ones(s, s, dtype=torch.bool,
+                                 device=seg.device).tril()
+    return mask
+
+
+def sdpa_fwd_ms(torch, q, k, v, causal, seg):
+    """`scaled_dot_product_attention` forward on the same inputs (timed as
+    the library yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+
+    mask = sdpa_mask(torch, q.shape[2], causal, seg)
+    return cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True), iters=10)
+
+
+def sdpa_bwd_ms(torch, q, k, v, do, causal, seg):
+    """Its backward (dq, dk, dv) through `torch.autograd.grad`."""
+    import torch.nn.functional as F
+
+    mask = sdpa_mask(torch, q.shape[2], causal, seg)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(
+        *leaves, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True)
+    return cuda_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), iters=10)
+
+
 def phase_k7(torch, P):
-    """K7 cases; returns (max abs err over cases, kernel ms, plain ms)."""
+    """K7 cases; returns (max abs err over cases, timings)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
 
@@ -214,9 +332,260 @@ def phase_k7(torch, P):
         q, kp, vp, pt, idx, kn, vn))
     t_p = cuda_ms(torch, lambda: P.paged_decode_attention_plain(
         q, kp, vp, pt, idx, kn, vn))
-    log(f"  K7 decode timing (8 slots, {int(idx.sum()) + 8} live rows per "
-        f"kv head): kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
-    return max(errs), (t_k, t_p)
+    rows = int(idx.sum()) + len(index)          # live rows per kv head
+    hd, kvh, h = q.shape[3], kp.shape[1], q.shape[1]
+    # K and V of the live rows read once, q read and o written once, the
+    # new rows written once; 4 flops per (head, row, dim)
+    n_bytes = 2 * rows * kvh * hd * 2 + 2 * nbytes(q) + nbytes(kn, vn)
+    bound = bound_ms(4 * h * rows * hd, n_bytes)
+    log(f"  K7 decode timing (8 slots, {rows} live rows per kv head): "
+        f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {bound[0]:.4f} ms "
+        f"({bound[1]}; {n_bytes / 1e6:.2f} MB)")
+    return max(errs), (t_k, t_p, bound)
+
+
+def probe_bulk_fault(name, got, ref, tol, plain):
+    """The bf16 check must see a fault in the bulk of the tiles: a copy of
+    the kernel's result with one 64-row tile of the last quarter (head 0)
+    10% off must fail it. Prints whether max|err| alone would see it."""
+    bad = got.clone()
+    s = bad.shape[2]
+    bad[:, 0, 3 * s // 4:3 * s // 4 + 64] *= 1.1
+    ok, err, text = verdict(bad, ref, tol, plain)
+    log(f"  fault probe, {name} with one 64-row tile of the last quarter "
+        f"10% off: {text}; max|err| alone "
+        f"{'passes' if err <= tol else 'fails'} it, the whole check "
+        f"{'passes' if ok else 'fails'} it")
+    if ok:
+        fail(f"the bf16 check passes a {name} with one tile 10% off")
+
+
+def phase_bwd(torch, A):
+    """K2/K3 (and K1 at their shapes; at S 8192 they stand for K4-K6)
+    against the plain versions; returns (max abs err of dq, of dk/dv, of
+    K1's o, timings)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def normal(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def case(name, b, h, kvh, s, d, causal, dtype, seg=None, probe=False):
+        q, do = (normal(b, h, s, d, dtype=dtype) for _ in range(2))
+        k, v = (normal(b, kvh, s, d, dtype=dtype) for _ in range(2))
+        o, lse = A.flash_attention_fwd_cuda(q, k, v, causal, seg)
+        got = (o,) + A.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal,
+                                                seg)
+        # the reference: the plain forward and backward on float32 copies,
+        # so that no side uses K1's o and lse
+        qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+        o_ref, lse_ref = A.flash_attention_fwd_plain(qf, kf, vf, causal, seg)
+        want = (o_ref,) + A.flash_attention_bwd_plain(
+            qf, kf, vf, o_ref, lse_ref, dof, causal, seg)
+        plain = (None,) * 4
+        if dtype == torch.bfloat16:   # the plain version on the bf16 values
+            o_pl, lse_pl = A.flash_attention_fwd_plain(q, k, v, causal, seg)
+            plain = (o_pl,) + A.flash_attention_bwd_plain(
+                q, k, v, o_pl, lse_pl, do, causal, seg)
+        torch.cuda.synchronize()
+        err_lse = (lse - lse_ref).abs().max().item()
+        ok = err_lse <= K1_LSE_ATOL
+        errs = {}
+        parts = [f"lse max|err| {err_lse:.3e} (atol {K1_LSE_ATOL:g})"]
+        for n, g, w, p in zip(("o", "dq", "dk", "dv"), got, want, plain):
+            if dtype == torch.float32:
+                tol = K1_F32_ATOL if n == "o" else BWD_F32_ATOL
+            else:
+                tol = K1_BF16_ATOL if n == "o" else \
+                    BWD_BF16_REL * w.abs().max().item()
+            ok_n, errs[n], text = verdict(g, w, tol, p)
+            ok = ok and ok_n
+            parts.append(f"{n} {text}")
+        log(f"  {name}: " + "; ".join(parts) + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"flash attention disagrees with its plain version on "
+                 f"{name}")
+        for i, n in ((1, "dq"), (3, "dv")) if probe else ():
+            probe_bulk_fault(n, got[i], want[i],
+                             BWD_BF16_REL * want[i].abs().max().item(),
+                             plain[i])
+        return errs, (q, k, v, o, lse, do, causal, seg)
+
+    def packed_segments(s, n_seg, pad):
+        lens = torch.full((n_seg,), (s - pad) // n_seg)
+        lens[: (s - pad) - int(lens.sum())] += 1
+        ids = torch.repeat_interleave(torch.arange(1, n_seg + 1), lens)
+        ids = torch.cat([ids, torch.zeros(pad, dtype=ids.dtype)])
+        return ids[None].to(dev, torch.int32)
+
+    vit_seg = torch.zeros(6, 1152, dtype=torch.int32, device=dev)
+    vit_seg[:, 1025:] = 1
+    bf = torch.bfloat16
+    results = [
+        case("K2/K3 flagship train B1 H32 KVH8 S4096 hd128 causal bf16",
+             1, 32, 8, 4096, 128, True, bf, probe=True),
+        case("K2/K3 packed S4096 16 segments + pad 96 (id 0) causal bf16",
+             1, 32, 8, 4096, 128, True, bf, packed_segments(4096, 16, 96)),
+        case("K2/K3 ViT 6 tiles H16 S1152 (pad from 1025) hd64 bf16",
+             6, 16, 16, 1152, 64, False, bf, vit_seg),
+        case("K1/K2/K3 at S 8192 (K4-K6) B1 H8 KVH2 hd128 causal bf16",
+             1, 8, 2, 8192, 128, True, bf),
+        case("K2/K3 f32 GQA B2 H4 KVH2 S200 hd32 causal", 2, 4, 2, 200, 32,
+             True, torch.float32),
+        case("K2/K3 f32 GQA B1 H4 KVH1 S192 hd64 non-causal packed", 1, 4,
+             1, 192, 64, False, torch.float32,
+             torch.tensor([[1] * 100 + [2] * 60 + [0] * 32], device=dev,
+                          dtype=torch.int32)),
+    ]
+    err_dq = max(r[0]["dq"] for r in results)
+    err_dkv = max(max(r[0]["dk"], r[0]["dv"]) for r in results)
+    err_fwd = max(r[0]["o"] for r in results)
+
+    timings = {}
+    for label, (_, args) in (("train", results[0]), ("xl", results[3])):
+        q, k, v, o, lse, do, causal, seg = args
+        delta = A._delta(o, do)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        shape = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3],
+                 int(causal), q.shape[3] ** -0.5, 1)
+
+        def run_dq():
+            A.FLASH_BWD_DQ(A.ptr(q), A.ptr(k), A.ptr(v), A.ptr(do),
+                           A.ptr(lse), A.ptr(delta), A.ptr(seg), A.ptr(dq),
+                           *shape)
+
+        def run_dkv():
+            A.FLASH_BWD_DKV(A.ptr(q), A.ptr(k), A.ptr(v), A.ptr(do),
+                            A.ptr(lse), A.ptr(delta), A.ptr(seg), A.ptr(dk),
+                            A.ptr(dv), *shape)
+
+        t_dq, t_dkv = cuda_ms(torch, run_dq), cuda_ms(torch, run_dkv)
+        t_fwd = cuda_ms(torch, lambda: A.flash_attention_fwd_cuda(
+            q, k, v, causal, seg))
+        t_plain = cuda_ms(torch, lambda: A.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal, seg), iters=3, warmup=1)
+        t_plain_fwd = cuda_ms(torch, lambda: A.flash_attention_fwd_plain(
+            q, k, v, causal, seg), iters=3, warmup=1)
+        t_lib_bwd = sdpa_bwd_ms(torch, q, k, v, do, causal, seg)
+        t_lib_fwd = sdpa_fwd_ms(torch, q, k, v, causal, seg)
+        prod = 2 * q.shape[1] * q.shape[3] * attended_pairs(
+            torch, q.shape[0], q.shape[2], causal, seg)  # one S x S x hd product
+        rows = q.numel() // q.shape[3] * 4    # an f32 [B, H, S] vector
+        io = nbytes(q, k, v, do) + 2 * rows
+        b_dq = bound_ms(3 * prod, io + nbytes(dq))
+        b_dkv = bound_ms(4 * prod, io + nbytes(dk, dv))
+        b_fwd = bound_ms(2 * prod, nbytes(q, k, v, o) + rows)
+        log(f"  {label} timing ({tuple(q.shape)}, kv {tuple(k.shape)}): "
+            f"dq kernel {t_dq:.4f} ms (bound {b_dq[0]:.4f}), dk/dv kernel "
+            f"{t_dkv:.4f} ms (bound {b_dkv[0]:.4f}), plain backward "
+            f"{t_plain:.4f} ms, sdpa backward {t_lib_bwd:.4f} ms; forward "
+            f"kernel {t_fwd:.4f} ms (bound {b_fwd[0]:.4f}), plain "
+            f"{t_plain_fwd:.4f} ms, sdpa {t_lib_fwd:.4f} ms")
+        timings[label] = dict(dq=(t_dq, b_dq), dkv=(t_dkv, b_dkv),
+                              fwd=(t_fwd, b_fwd), plain=t_plain,
+                              plain_fwd=t_plain_fwd, lib_bwd=t_lib_bwd,
+                              lib_fwd=t_lib_fwd)
+    return err_dq, err_dkv, err_fwd, timings
+
+
+def tiny_train_batches(cfg, n, seed):
+    """n packed numpy batches of the tiny config: 4 rows of 128 tokens,
+    two conversations a row (one tile each) and a trailing pad."""
+    import numpy as np
+
+    from multi_spatialmllm_tpu_torch.models.data import (
+        DataConfig,
+        pack_samples,
+    )
+
+    rng = np.random.default_rng(seed)
+    data_cfg = DataConfig(max_seq_len=128, max_tiles=2)
+    batches = []
+    for _ in range(n):
+        enc = []
+        for _ in range(8):
+            length = int(rng.integers(40, 62))
+            ids = rng.integers(10, cfg.llm.vocab_size,
+                               size=length).astype(np.int32)
+            ids[0] = 1
+            ids[1:1 + cfg.tokens_per_tile] = cfg.img_context_id
+            labels = ids.copy()
+            labels[:1 + cfg.tokens_per_tile] = -100
+            tiles = rng.standard_normal(
+                (1, cfg.vit.image_size, cfg.vit.image_size, 3)
+            ).astype(np.float32)
+            enc.append((ids, labels, tiles))
+        rows = list(pack_samples(enc, data_cfg, 0))[:4]
+        batches.append({k: np.stack([r[k] for r in rows]) for k in rows[0]})
+    return batches
+
+
+def phase_tiny_train(torch, M, T, cli):
+    """3 tiny f32 steps on the CPU (plain versions) and on the card."""
+    cfg = M.with_dtype(M.tiny_config(), "float32")
+    tcfg = T.TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=3)
+    batches = tiny_train_batches(cfg, 3, SEED + 7)
+    runs = {}
+    for name, dev in (("cpu", "cpu"), ("card", "cuda")):
+        model = M.MultiFrameMLLM(cfg, device=dev, param_dtype=torch.float32)
+        if name == "cpu":
+            M.init_random_weights(model, SEED)
+            init = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(init)
+        opt = T.AdamW(list(model.named_parameters()), tcfg)
+        step = T.make_train_step(model, opt, accum_steps=2)
+        first_mu = []
+
+        def keep_first_moments(n, opt=opt, first_mu=first_mu):
+            if n == 1:   # lr 0 at count 0: mu = (1 - b1) * clipped grads
+                first_mu.extend(m.detach().cpu().clone() for m in opt.mu)
+
+        _, history = cli.train_steps(step, iter(batches), 3, dev,
+                                     log=lambda *a, **k: None,
+                                     after_step=keep_first_moments)
+        runs[name] = (history, first_mu,
+                      {k: v.detach().cpu() for k, v in
+                       model.state_dict().items()})
+    (h_c, mu_c, p_c), (h_g, mu_g, p_g) = runs["cpu"], runs["card"]
+    worst = {}
+    for key in ("loss", "grad_norm"):
+        worst[key] = max(abs(a[key] - b[key]) / abs(a[key])
+                         for a, b in zip(h_c, h_g))
+    worst["first gradients"] = max(
+        ((a - b).abs().max() / a.abs().max().clamp_min(1e-30)).item()
+        for a, b in zip(mu_c, mu_g))
+    lr_sum = sum(T.learning_rate(tcfg, i) for i in range(3))
+    worst_param = max((p_c[k] - p_g[k]).abs().max().item() for k in p_c)
+    log(f"  tiny train, 3 steps, accum 2, packed: losses CPU "
+        f"{[round(h['loss'], 6) for h in h_c]} card "
+        f"{[round(h['loss'], 6) for h in h_g]}")
+    log(f"  worst relative difference: loss {worst['loss']:.3e}, grad norm "
+        f"{worst['grad_norm']:.3e}, first-step gradients "
+        f"{worst['first gradients']:.3e} (tol {TRAIN_REL:g}); params "
+        f"max|diff| {worst_param:.3e} (tol: lr summed over the steps, "
+        f"{lr_sum:.3e})")
+    if max(worst.values()) > TRAIN_REL or worst_param > lr_sum:
+        fail("tiny f32 training differs between the CPU and the card")
+
+
+def serve_lines_for(cfg, n, K):
+    """n JSONL request lines (1-2 images each) and their image tiles."""
+    reqs = K.make_serve_requests(cfg, n, seed=SEED + 5)
+    tiles = {f"frame{i}.jpg": t for i, (_, t) in enumerate(reqs)}
+    questions = (
+        "How did the camera move between these two frames?",
+        "What is the distance between the chair and the table in meters?",
+        "Which point in the second image corresponds to the marked point?",
+        "Estimate the depth of the highlighted object.")
+    lines = []
+    for i in range(n):
+        images = [f"frame{i}.jpg"] if i % 2 == 0 else \
+            [f"frame{i}.jpg", f"frame{(i + 1) % n}.jpg"]
+        text = "".join("<image>\n" for _ in images) + questions[i % 4]
+        lines.append(json.dumps({"id": f"req{i}", "text": text,
+                                 "image": images}))
+    return lines, tiles
 
 
 def top2_margin(torch, model, ids, tiles, generated, step):
@@ -263,26 +632,20 @@ def phase_tiny(torch, M, K):
         f"(card vs CPU), tokens {sum(len(w) for w in want)}")
 
 
-def serve_lines_for(cfg, n, K):
-    """n JSONL request lines (1-2 images each) and their image tiles."""
-    reqs = K.make_serve_requests(cfg, n, seed=SEED + 5)
-    tiles = {f"frame{i}.jpg": t for i, (_, t) in enumerate(reqs)}
-    questions = (
-        "How did the camera move between these two frames?",
-        "What is the distance between the chair and the table in meters?",
-        "Which point in the second image corresponds to the marked point?",
-        "Estimate the depth of the highlighted object.")
-    lines = []
-    for i in range(n):
-        images = [f"frame{i}.jpg"] if i % 2 == 0 else \
-            [f"frame{i}.jpg", f"frame{(i + 1) % n}.jpg"]
-        text = "".join("<image>\n" for _ in images) + questions[i % 4]
-        lines.append(json.dumps({"id": f"req{i}", "text": text,
-                                 "image": images}))
-    return lines, tiles
+def serve_tokenizer():
+    """The builtin tokenizer, decoding ids past its 783-token vocabulary
+    to nothing: random weights sample the whole 92,544-row head."""
+    from multi_spatialmllm_tpu_torch.models.tokenizer import SpatialTokenizer
+
+    class ServeTokenizer(SpatialTokenizer):
+        def decode(self, ids):
+            return super().decode([i for i in ids
+                                   if 0 <= int(i) < self.vocab_size])
+
+    return ServeTokenizer()
 
 
-def phase_serve(torch, M, K, A, P, cli):
+def phase_serve(torch, M, K, A, P, cli, tok):
     cfg = M.flagship_config()
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -293,7 +656,6 @@ def phase_serve(torch, M, K, A, P, cli):
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  flagship: {n_params / 1e9:.3f} B params on the card, built in "
         f"{time.perf_counter() - t0:.1f} s")
-    tok = ByteTokenizer()
     batcher = K.PagedBatcher(
         model, K.PagedConfig(slots=8, page_size=64, num_pages=256,
                              max_prompt_len=2048, max_new_tokens=32),
@@ -369,7 +731,175 @@ def phase_serve(torch, M, K, A, P, cli):
     return launches
 
 
-def main():
+def write_mixture(root, tok, n_records, seed):
+    """A two-dataset mixture shaped like MultiSPA's under `root`: a meta
+    JSON and JSONL records of 1-2 `<image>` frames with questions and
+    answers drawn from the template banks the tokenizer was built from."""
+    import numpy as np
+
+    from multi_spatialmllm_tpu_torch.models._vocab_templates import (
+        TEMPLATE_CORPUS,
+    )
+
+    rng = np.random.default_rng(seed)
+    texts = [t.replace("<image>", "").strip() for t in TEMPLATE_CORPUS]
+    meta = {}
+    for d, (name, repeat) in enumerate((("multispa", 1.0),
+                                        ("general", 0.5))):
+        with open(os.path.join(root, f"{name}.jsonl"), "w") as f:
+            for i in range(n_records):
+                n_img = 1 + int(rng.integers(0, 2))
+                head = "".join(f"Image-{j + 1}: <image>\n"
+                               for j in range(n_img))
+                q, a = (texts[int(rng.integers(0, len(texts)))]
+                        for _ in range(2))
+                f.write(json.dumps({
+                    "id": f"{name}-{i}",
+                    "image": [f"frame_{d}_{i}_{j}.jpg" for j in range(n_img)],
+                    "conversations": [
+                        {"from": "human", "value": head + q},
+                        {"from": "gpt", "value": a}]}) + "\n")
+        meta[name] = {"root": "frames", "annotation": f"{name}.jsonl",
+                      "repeat_time": repeat, "length": n_records}
+    path = os.path.join(root, "mix.json")
+    with open(path, "w") as f:
+        json.dump(meta, f)
+    return path
+
+
+def synthetic_frame(path):
+    """A seeded 448x448 RGB uint8 frame for an image path (no decode)."""
+    import zlib
+
+    import numpy as np
+
+    rng = np.random.default_rng(zlib.crc32(os.path.basename(path).encode()))
+    return rng.integers(0, 256, (448, 448, 3), dtype=np.uint8)
+
+
+def phase_train(torch, M, A, T, cli, tok, dev="cuda", base=None):
+    """Training at the flagship widths (`base`, by default the flagship
+    config) through `train_steps` on `dev`; returns (launches on the train
+    path, the summary, peak GiB)."""
+    import dataclasses
+    import gc
+    import itertools
+    import tempfile
+
+    from multi_spatialmllm_tpu_torch.models.data import DataConfig
+    from multi_spatialmllm_tpu_torch.models.mixture import (
+        load_meta,
+        mixture_batches,
+    )
+    from multi_spatialmllm_tpu_torch.models.preprocess import (
+        PreprocessConfig,
+    )
+
+    base = base or M.flagship_config()
+    cfg = dataclasses.replace(base, llm=dataclasses.replace(
+        base.llm, num_layers=TRAIN_LAYERS))
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    model = M.MultiFrameMLLM(cfg, device=dev, param_dtype=torch.float32)
+    M.init_random_weights(model, SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = T.AdamW(list(model.named_parameters()), T.TrainConfig(
+        learning_rate=1e-5, warmup_steps=2, total_steps=4))
+    step = T.make_train_step(model, opt, accum_steps=2)
+    torch.cuda.synchronize()
+    log(f"  model: ViT {cfg.vit.hidden_size} x {cfg.vit.num_layers}, LLM "
+        f"{cfg.llm.hidden_size} x {TRAIN_LAYERS} of {base.llm.num_layers} "
+        f"layers, "
+        f"{n_params / 1e9:.3f} B float32 params (bf16 compute), with "
+        f"AdamW moments: {torch.cuda.memory_allocated() / 2**30:.3f} GiB, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+
+    with tempfile.TemporaryDirectory() as root:
+        meta = write_mixture(root, tok, 64, SEED + 9)
+        data_cfg = DataConfig(max_seq_len=4096, max_tiles=6,
+                              preprocess=PreprocessConfig(
+                                  tile_size=cfg.vit.image_size, max_tiles=6,
+                                  resize_hw=None))
+        batches = mixture_batches(load_meta(meta), tok, cfg, synthetic_frame,
+                                  2, data_cfg, seed=SEED, packed=True)
+        first = next(batches)
+        real = int((first["segment_ids"] > 0).sum())
+        log(f"  batch: {first['input_ids'].shape} tokens ({real} in "
+            f"segments), tiles {first['tiles'].shape}")
+        torch.cuda.reset_peak_memory_stats()
+        for kern in (A.FLASH_FWD, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV):
+            kern.launches = 0
+        summary, history = cli.train_steps(
+            step, itertools.chain([first], batches), 4, dev, log_every=1,
+            log=lambda kind, **kw: log(f"  {kind} {kw}"))
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in
+                    (A.FLASH_FWD, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV)}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  train: {summary}")
+    log(f"  step seconds {[round(h['step_s'], 4) for h in history]}; "
+        f"torch.cuda.max_memory_allocated {peak:.3f} GiB; launches on the "
+        f"train path: {launches}; card {card_name_and_power_limit()}")
+    if summary["steps"] != 4:
+        fail(f"{summary['steps']}/4 train steps")
+    bad = [h for h in history if not all(
+        map(lambda x: x == x and abs(x) < float("inf"),
+            (h["loss"], h["grad_norm"])))]
+    if bad:
+        fail(f"non-finite loss or grad norm: {bad}")
+    if min(launches.values()) <= 0:
+        fail(f"a flash kernel never launched on the train path: {launches}")
+
+    # a fresh optimizer on the train CLI's default schedule takes
+    # REPEAT_STEPS steps on the first batch, repeated (the old moments are
+    # freed first)
+    del step, opt
+    gc.collect()
+    opt = T.AdamW(list(model.named_parameters()), T.TrainConfig(
+        learning_rate=REPEAT_LR, warmup_steps=REPEAT_WARMUP,
+        total_steps=REPEAT_TOTAL))
+    step = T.make_train_step(model, opt, accum_steps=2)
+    _, history = cli.train_steps(step, itertools.repeat(first), REPEAT_STEPS,
+                                 dev, log=lambda *a, **k: None)
+    losses = [h["loss"] for h in history]
+    log(f"  repeated batch, lr {REPEAT_LR:g} warmup {REPEAT_WARMUP} (the "
+        f"CLI's defaults): losses {losses}")
+    # the first update has lr 0; every one after it must lower the loss
+    if not all(b < a for a, b in zip(losses[1:], losses[2:])):
+        fail(f"the loss did not fall on a repeated batch: {losses}")
+    del step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, summary, peak
+
+
+def build_all(kernels):
+    """Build every kernel source with one nvcc each, all at once, then
+    bind the remaining entry points of each library."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    firsts = list({k.source: k for k in kernels}.values())
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(firsts)) as pool:
+        list(pool.map(lambda k: k.build(), firsts))
+    for kern in kernels:
+        kern.build()
+    for kern in firsts:
+        log(f"[2/9] built {kern.source}.cu in {kern.build_seconds:.1f} s")
+        for line in kern.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"      ptxas: {line.strip()}")
+    log(f"      all kernels built in {time.perf_counter() - t0:.1f} s")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--phases", type=int, nargs="*",
+                        default=list(range(3, 10)),
+                        help="phases to run after the device and the build")
+    phases = set(parser.parse_args(argv).phases)
+    # fewer fragments for the training phase's large, short-lived tensors
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -381,43 +911,86 @@ def main():
     from multi_spatialmllm_tpu_torch.models import paged_kv as K
     from multi_spatialmllm_tpu_torch.ops import attention as A
     from multi_spatialmllm_tpu_torch.ops import paged_attention as P
+    from multi_spatialmllm_tpu_torch.parallel import train as T
 
     # float32 paths compare against float32 references: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     card = card_name_and_power_limit()
-    log(f"[1/6] device: {torch.cuda.get_device_name(0)} "
+    log(f"[1/9] device: {torch.cuda.get_device_name(0)} "
         f"(count {torch.cuda.device_count()}), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
+    build_all([A.FLASH_FWD, P.PAGED_DECODE, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV])
+    tok = serve_tokenizer()
+    res = {}
+    if 3 in phases:
+        log("[3/9] flash_fwd (K1) against its plain version")
+        res["k1"] = phase_k1(torch, A)
+    if 4 in phases:
+        log("[4/9] paged_decode (K7) against the plain gather-window version")
+        res["k7"] = phase_k7(torch, P)
+    if 5 in phases:
+        log("[5/9] tiny f32: PagedBatcher on the CPU vs on the card")
+        phase_tiny(torch, M, K)
+    if 6 in phases:
+        log("[6/9] flagship serve: 16 requests through the serve loop")
+        res["serve"] = phase_serve(torch, M, K, A, P, cli, tok)
+        torch.cuda.empty_cache()
+    if 7 in phases:
+        log("[7/9] flash backward (K2, K3; K4-K6 at S 8192) against the "
+            "plain version")
+        res["bwd"] = phase_bwd(torch, A)
+        torch.cuda.empty_cache()
+    if 8 in phases:
+        log("[8/9] tiny f32 training: 3 steps on the CPU vs on the card")
+        phase_tiny_train(torch, M, T, cli)
+    if 9 in phases:
+        log(f"[9/9] flagship-width training, LLM cut to {TRAIN_LAYERS} "
+            f"layers: 4 steps through train_steps")
+        res["train"] = phase_train(torch, M, A, T, cli, tok)
+    log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
-    for kern in (A.FLASH_FWD, P.PAGED_DECODE):
-        kern.build()
-        log(f"[2/6] built {kern.name} in {kern.build_seconds:.1f} s")
-        for line in kern.build_log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"      ptxas: {line.strip()}")
-
-    log("[3/6] flash_fwd (K1) against its plain version")
-    k1_err, k1_times = phase_k1(torch, A)
-    log("[4/6] paged_decode (K7) against the plain gather-window version")
-    k7_err, k7_times = phase_k7(torch, P)
-    log("[5/6] tiny f32: PagedBatcher on the CPU vs on the card")
-    phase_tiny(torch, M, K)
-    log("[6/6] flagship serve: 16 requests through the serve loop")
-    launches = phase_serve(torch, M, K, A, P, cli)
-
+    if phases != set(range(3, 10)):
+        return 0      # a partial run prints no result line
+    k1_err, k1 = res["k1"]
+    k7_err, k7 = res["k7"]
+    err_dq, err_dkv, err_fwd, bwd = res["bwd"]
+    train_launches = res["train"][0]
+    tr = bwd["train"]
+    src = "multi_spatialmllm_tpu_torch/ops/csrc/"
+    jax_attn = "multi_spatialmllm_tpu/ops/attention.py"
     kernels = [
-        {"name": "flash_fwd", "route": "cuda",
-         "source": "multi_spatialmllm_tpu_torch/ops/csrc/flash_fwd.cu",
-         "replaces": "multi_spatialmllm_tpu/ops/attention.py:92",
-         "launches": launches["flash_fwd"], "max_abs_err": k1_err,
-         "ms": k1_times["prefill"][0], "plain_ms": k1_times["prefill"][1]},
+        {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
+         "replaces": f"{jax_attn}:92 (K1); :483 (K4, streaming)",
+         "launches": res["serve"]["flash_fwd"] + train_launches["flash_fwd"],
+         "launches_by_path": {"serve": res["serve"]["flash_fwd"],
+                              "train": train_launches["flash_fwd"]},
+         "max_abs_err": max(k1_err, err_fwd),
+         "ms": k1["prefill"][0], "plain_ms": k1["prefill"][1],
+         "bound_ms": k1["prefill"][3][0], "bound_by": k1["prefill"][3][1],
+         "library_ms": k1["prefill"][2]},
+        {"name": "flash_bwd_dq", "route": "cuda",
+         "source": src + "flash_bwd.cu",
+         "replaces": f"{jax_attn}:269 (K2); :592 (K5, streaming)",
+         "launches": train_launches["flash_bwd_dq"], "max_abs_err": err_dq,
+         "ms": tr["dq"][0], "plain_ms": tr["plain"],
+         "bound_ms": tr["dq"][1][0], "bound_by": tr["dq"][1][1],
+         "library_ms": tr["lib_bwd"]},
+        {"name": "flash_bwd_dkv", "route": "cuda",
+         "source": src + "flash_bwd.cu",
+         "replaces": f"{jax_attn}:324 (K3); :645 (K6, streaming)",
+         "launches": train_launches["flash_bwd_dkv"], "max_abs_err": err_dkv,
+         "ms": tr["dkv"][0], "plain_ms": tr["plain"],
+         "bound_ms": tr["dkv"][1][0], "bound_by": tr["dkv"][1][1],
+         "library_ms": tr["lib_bwd"]},
         {"name": "paged_decode", "route": "cuda",
-         "source": "multi_spatialmllm_tpu_torch/ops/csrc/paged_decode.cu",
+         "source": src + "paged_decode.cu",
          "replaces": "multi_spatialmllm_tpu/ops/paged_attention.py:95",
-         "launches": launches["paged_decode"], "max_abs_err": k7_err,
-         "ms": k7_times[0], "plain_ms": k7_times[1]},
+         "launches": res["serve"]["paged_decode"], "max_abs_err": k7_err,
+         "ms": k7[0], "plain_ms": k7[1], "bound_ms": k7[2][0],
+         "bound_by": k7[2][1], "library_ms": None},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,17 +3,36 @@
 Commands:
 
   serve   JSONL serving loop (stdin -> stdout) over the paged batcher
+  train   SFT on a data-mixture meta JSON (one device) -> rolling torch
+          checkpoints
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import sys
+import time
 from typing import Callable, Iterable
 
 import numpy as np
+
+
+def log_event(kind: str, **fields) -> None:
+    """One human-readable event line on stderr (`[train] kind k=v ...`)."""
+    print(f"[train] {kind} " + " ".join(f"{k}={v}" for k, v in
+                                        fields.items()), file=sys.stderr)
+
+
+def _read_image(path: str) -> np.ndarray:
+    import cv2
+
+    img = cv2.imread(path)
+    if img is None:
+        raise ValueError(f"unreadable image: {path}")
+    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
 
 
 def make_request_builder(cfg, tokenizer, batcher, tiles_for: Callable):
@@ -116,26 +135,15 @@ def cmd_serve(args) -> None:
     """
     import torch
 
-    from multi_spatialmllm_tpu.models.preprocess import (
-        PreprocessConfig,
-        tile_image,
-    )
-    from multi_spatialmllm_tpu.models.tokenizer import load_tokenizer
-
     from .models import mllm as M
     from .models.paged_kv import PagedBatcher, PagedConfig
+    from .models.preprocess import PreprocessConfig, tile_image
+    from .models.tokenizer import load_tokenizer
 
-    cfg = M.CONFIGS[args.config]()
-    if args.vocab_size:
-        import dataclasses
-
-        cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
-            cfg.llm, vocab_size=args.vocab_size))
+    cfg = _config(args)
     device = torch.device(args.device)
     model = M.MultiFrameMLLM(cfg, device=device)
-    state = torch.load(os.path.abspath(args.checkpoint), map_location=device,
-                       weights_only=True)
-    model.load_state_dict(state)
+    model.load_state_dict(_load_params(args.checkpoint, device))
     model.eval()
     tok = load_tokenizer(args.tokenizer)
     pre = PreprocessConfig(tile_size=cfg.vit.image_size,
@@ -157,12 +165,8 @@ def cmd_serve(args) -> None:
         stop_ids=tuple(args.stop_id or ()))
 
     def tiles_for(path):
-        import cv2
-
-        img = cv2.imread(os.path.join(args.images_root, path))
-        if img is None:
-            raise ValueError(f"unreadable image: {path}")
-        return tile_image(cv2.cvtColor(img, cv2.COLOR_BGR2RGB), pre)
+        return tile_image(_read_image(os.path.join(args.images_root, path)),
+                          pre)
 
     def more_buffered() -> bool:
         """True when another stdin line can be read without blocking."""
@@ -182,6 +186,218 @@ def cmd_serve(args) -> None:
           file=sys.stderr)
 
 
+def _config(args):
+    from .models import mllm as M
+
+    cfg = M.CONFIGS[args.config]()
+    if args.vocab_size:
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+            cfg.llm, vocab_size=args.vocab_size))
+    return cfg
+
+
+def _load_params(path: str, device):
+    """A state dict from a `torch.save`d file, or the params of a train
+    save (a step directory or a rolling root with `LATEST`)."""
+    import torch
+
+    from .parallel.train import restore_checkpoint
+
+    path = os.path.abspath(path)
+    if os.path.isdir(path):
+        return restore_checkpoint(path, map_location=device)["params"]
+    return torch.load(path, map_location=device, weights_only=True)
+
+
+def train_steps(step_fn: Callable, batches: Iterable[dict], steps: int,
+                device, start_step: int = 0, log_every: int = 10,
+                log: Callable = log_event,
+                after_step: Callable[[int], None] | None = None):
+    """Run `step_fn` (parallel/train.make_train_step) over numpy `batches`
+    from step `start_step` until step `steps`, moving each batch to
+    `device`. Returns `(summary, history)`: the JAX `train` summary's
+    numbers (`steps`, `first_loss`, `last_loss`, and the steady-state
+    `steps_per_s` / `tokens_per_s` that leave out the first step and the
+    time spent in `after_step`, counting padded tokens as the JAX CLI
+    does) and one `{"loss", "grad_norm", "step_s"}` per step taken.
+    `after_step(n)` runs after the n-th step (checkpoints)."""
+    import torch
+
+    def to_device(batch):
+        return {k: torch.from_numpy(np.asarray(v)).to(
+                    device, dtype=torch.long if v.dtype.kind in "iu"
+                    else None) for k, v in batch.items()}
+
+    history: list[dict] = []
+    steady_t0 = mark = time.perf_counter()
+    steady_tokens = steady_steps = 0
+    pause_s = 0.0
+    for step, batch in enumerate(batches, start=start_step):
+        if step >= steps:
+            break
+        metrics = step_fn(to_device(batch))
+        loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        now = time.perf_counter()
+        history.append({"loss": loss, "grad_norm": grad_norm,
+                        "step_s": now - mark})
+        if len(history) == 1:            # the first step paid the warm-up
+            steady_t0 = now
+        else:
+            steady_tokens += int(np.prod(batch["input_ids"].shape))
+            steady_steps += 1
+        if step % log_every == 0 or step == steps - 1:
+            log("step", step=step, loss=round(loss, 6),
+                grad_norm=round(grad_norm, 6),
+                step_s=round(history[-1]["step_s"], 4))
+        if after_step is not None:
+            t0 = time.perf_counter()
+            after_step(step + 1)
+            pause_s += time.perf_counter() - t0
+        mark = time.perf_counter()
+    steady_s = (mark - steady_t0 - pause_s) if steady_steps else 0.0
+    summary = {
+        "steps": len(history),
+        "first_loss": history[0]["loss"] if history else None,
+        "last_loss": history[-1]["loss"] if history else None,
+        "steps_per_s": round(steady_steps / steady_s, 4)
+        if steady_steps else None,
+        "tokens_per_s": round(steady_tokens / steady_s, 1)
+        if steady_steps else None}
+    return summary, history
+
+
+def _refuse_unported_train_flags(args) -> None:
+    unported = {
+        "--lora-rank": args.lora_rank,
+        "--moe-experts": args.moe_experts, "--moe-group": args.moe_group,
+        "--moe-kernel": args.moe_kernel, "--moe-impl": args.moe_impl,
+        "--model-parallel > 1": args.model_parallel > 1,
+        "--seq-parallel > 1": args.seq_parallel > 1,
+        "--expert-parallel > 1": args.expert_parallel > 1,
+        "--data-parallel > 1": args.data_parallel > 1,
+        "--fsdp": args.fsdp, "--eval-jsonl": args.eval_jsonl,
+        "--eval-every": args.eval_every,
+        "--eval-images-root": args.eval_images_root is not None,
+        "--eval-limit": args.eval_limit,
+        "--eval-max-new-tokens": args.eval_max_new_tokens is not None,
+        "--mc-logprob": args.mc_logprob, "--async-save": args.async_save,
+        "--trace-dir": args.trace_dir}
+    asked = [flag for flag, val in unported.items() if val]
+    if asked:
+        raise NotImplementedError(
+            f"train {', '.join(asked)}: not ported yet (the port trains on "
+            f"one device; see ROADMAP.md)")
+
+
+def cmd_train(args) -> None:
+    """SFT from the CLI: data-mixture meta JSON x model config -> rolling
+    torch checkpoints, on one device (`--device`, the card by default).
+    Deterministic mixture streaming (models/mixture.py), padded or packed
+    batches, float32 master weights with the config's compute dtype, and
+    the optax-equivalent AdamW step (parallel/train.py); prints the JAX
+    CLI's summary line."""
+    _refuse_unported_train_flags(args)
+    import torch
+
+    from .models import mllm as M
+    from .models.data import DataConfig, prefetch_iterator
+    from .models.mixture import (
+        load_meta,
+        mixture_batches,
+        mixture_stats,
+        validate_mixture,
+    )
+    from .models.preprocess import PreprocessConfig
+    from .models.tokenizer import load_tokenizer
+    from .parallel.train import (
+        AdamW,
+        TrainConfig,
+        make_train_step,
+        restore_checkpoint,
+        save_checkpoint_rolling,
+    )
+
+    cfg = _config(args)
+    tok = load_tokenizer(args.tokenizer)
+    if tok.vocab_size > cfg.llm.vocab_size:
+        raise ValueError(f"tokenizer vocab {tok.vocab_size} > model vocab "
+                         f"{cfg.llm.vocab_size}")
+    if tok.img_context_id != cfg.img_context_id:
+        raise ValueError(f"IMG_CONTEXT id {tok.img_context_id} != "
+                         f"{cfg.img_context_id}")
+    if args.save_every and not args.output:
+        raise ValueError("--save-every needs --output")
+    if args.resume and not args.init_checkpoint:
+        raise ValueError("--resume needs --init-checkpoint")
+
+    entries = load_meta(args.meta)
+    log_event("mixture", **mixture_stats(entries))
+    if args.validate_only:
+        report = validate_mixture(entries, image_loader=_read_image,
+                                  sample=args.validate_sample,
+                                  seed=args.seed)
+        print(json.dumps(report))
+        if not report["ok"]:
+            raise SystemExit(1)
+        return
+
+    data_cfg = DataConfig(
+        max_seq_len=args.seq_len, max_tiles=args.max_tiles,
+        preprocess=PreprocessConfig(
+            tile_size=cfg.vit.image_size, max_tiles=args.tiles_per_image,
+            resize_hw=None))
+    batches = mixture_batches(entries, tok, cfg, _read_image,
+                              args.batch_size, data_cfg, seed=args.seed,
+                              packed=args.packed,
+                              shard_index=args.data_shard,
+                              num_shards=args.data_num_shards)
+    if args.prefetch:
+        batches = prefetch_iterator(batches, depth=args.prefetch)
+
+    device = torch.device(args.device)
+    model = M.MultiFrameMLLM(cfg, device=device, param_dtype=torch.float32)
+    M.init_random_weights(model, args.seed)
+    opt = AdamW(list(model.named_parameters()),
+                TrainConfig(learning_rate=args.lr, warmup_steps=args.warmup,
+                            total_steps=args.steps))
+    start_step = 0
+    if args.init_checkpoint:
+        if args.resume:
+            state = restore_checkpoint(os.path.abspath(args.init_checkpoint),
+                                       map_location=device)
+            model.load_state_dict(state["params"])
+            opt.load_state_dict(state["opt_state"])
+            start_step = int(state["step"])
+        else:
+            model.load_state_dict(_load_params(args.init_checkpoint, device))
+        log_event("restored", path=os.path.abspath(args.init_checkpoint),
+                  step=start_step)
+    step_fn = make_train_step(model, opt, accum_steps=args.accum)
+
+    def save(step):
+        where = save_checkpoint_rolling(os.path.abspath(args.output), model,
+                                        opt, step=step, keep=args.keep)
+        log_event("checkpoint", path=where, step=step)
+
+    def after_step(n):
+        if args.save_every and n % args.save_every == 0:
+            save(n)
+
+    if start_step:
+        # the mixture replays deterministically: skip the trained batches
+        for _ in itertools.islice(batches, start_step):
+            pass
+    summary, history = train_steps(step_fn, batches, args.steps, device,
+                                   start_step=start_step,
+                                   log_every=args.log_every,
+                                   after_step=after_step)
+    if args.output:
+        save(start_step + len(history))
+    print(json.dumps({**summary, "devices": 1, "device": str(device)}))
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(prog="multi_spatialmllm_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -190,7 +406,8 @@ def main(argv=None) -> None:
                        help="JSONL serving loop (stdin -> stdout) over "
                             "the paged batcher")
     p.add_argument("--checkpoint", required=True,
-                   help="torch.save'd state dict of MultiFrameMLLM")
+                   help="torch.save'd state dict of MultiFrameMLLM, or a "
+                        "train save (step dir or rolling root)")
     p.add_argument("--config", choices=("flagship", "bench", "tiny"),
                    default="flagship")
     p.add_argument("--device", default="cuda")
@@ -222,6 +439,76 @@ def main(argv=None) -> None:
     p.add_argument("--speculate", type=int, default=0)
     p.add_argument("--logprobs", action="store_true")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("train",
+                       help="SFT on a data-mixture meta JSON -> rolling "
+                            "torch checkpoints (one device)")
+    p.add_argument("--meta", required=True,
+                   help="InternVL-style mixture meta JSON")
+    p.add_argument("--config", choices=("flagship", "bench", "tiny"),
+                   default="flagship")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--tokenizer", default=None,
+                   help="HF tokenizer.json (default: builtin word-level)")
+    p.add_argument("--vocab-size", type=int, default=0)
+    p.add_argument("--init-checkpoint", default=None,
+                   help="params to start from: a torch.save'd state dict "
+                        "or a previous train save")
+    p.add_argument("--resume", action="store_true",
+                   help="also restore the optimizer state and step from "
+                        "--init-checkpoint (a train save)")
+    p.add_argument("--output", default=None,
+                   help="checkpoint root: rolling step_N dirs + LATEST "
+                        "pointer (crash-safe; restore resolves it)")
+    p.add_argument("--save-every", type=int, default=0)
+    p.add_argument("--keep", type=int, default=2,
+                   help="rolling checkpoints retained under --output")
+    p.add_argument("--steps", type=int, default=1000)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--seq-len", type=int, default=4096)
+    p.add_argument("--max-tiles", type=int, default=14,
+                   help="tile budget per sample across all frames")
+    p.add_argument("--tiles-per-image", type=int, default=6,
+                   help="dynamic-tiling cap per frame")
+    p.add_argument("--packed", action="store_true",
+                   help="sequence-packed rows (segment_ids/positions)")
+    p.add_argument("--lr", type=float, default=1e-5)
+    p.add_argument("--warmup", type=int, default=100)
+    p.add_argument("--accum", type=int, default=1,
+                   help="gradient-accumulation microbatches")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--prefetch", type=int, default=2,
+                   help="batches assembled ahead in a producer thread "
+                        "(0 = synchronous)")
+    p.add_argument("--validate-only", action="store_true",
+                   help="schema-check every record + open sampled images, "
+                        "print the report, and exit (nonzero on issues)")
+    p.add_argument("--validate-sample", type=int, default=200)
+    p.add_argument("--data-shard", type=int, default=0)
+    p.add_argument("--data-num-shards", type=int, default=1)
+    # the JAX CLI's further training options: accepted, and each raises
+    # NotImplementedError until it is ported
+    p.add_argument("--lora-rank", type=int, default=0)
+    p.add_argument("--data-parallel", type=int, default=0)
+    p.add_argument("--model-parallel", type=int, default=1)
+    p.add_argument("--seq-parallel", type=int, default=1)
+    p.add_argument("--expert-parallel", type=int, default=1)
+    p.add_argument("--moe-experts", type=int, default=0)
+    p.add_argument("--moe-group", type=int, default=0)
+    p.add_argument("--moe-kernel", choices=("xla", "pallas"), default=None)
+    p.add_argument("--moe-impl", choices=("einsum", "ragged"), default=None)
+    p.add_argument("--fsdp", action="store_true")
+    p.add_argument("--async-save", action="store_true")
+    p.add_argument("--trace-dir", default=None)
+    p.add_argument("--eval-jsonl", default=None)
+    p.add_argument("--eval-every", type=int, default=0)
+    # (no defaults here: any value given is refused)
+    p.add_argument("--eval-images-root", default=None)
+    p.add_argument("--eval-limit", type=int, default=0)
+    p.add_argument("--eval-max-new-tokens", type=int, default=None)
+    p.add_argument("--mc-logprob", action="store_true")
+    p.set_defaults(fn=cmd_train)
 
     args = parser.parse_args(argv)
     args.fn(args)

@@ -1,13 +1,18 @@
 """LLaMA/InternLM2-style decoder (RMSNorm, RoPE, GQA, SwiGLU) in PyTorch.
 
-Port of multi_spatialmllm_tpu/models/llm.py, serving branches only:
-prompt prefill (causal flash attention over the fresh prompt kv, which is
-returned as the contiguous row cache) and the one-token paged decode step
-(the paged decode op lands the new kv row in the pools and attends).
+Port of multi_spatialmllm_tpu/models/llm.py: the training forward and
+prompt prefill (causal flash attention through the trainable op, with
+per-segment positions and a block-diagonal mask for packed rows; prefill
+returns the fresh kv as the contiguous row cache), the one-token paged
+decode step (the paged decode op lands the new kv row in the pools and
+attends), and the masked next-token losses.
+
 Numerics follow the Flax modules: RMSNorm and RoPE compute in float32 and
-cast back; RoPE rotates split halves; weights live in the config dtype
-(Flax casts its float32 params to that dtype before every matmul, so this
-is the same arithmetic), norm scales stay float32.
+cast back; RoPE rotates split halves; every weight is cast to the config
+dtype at use, as Flax `Dense`/`Embed` cast their float32 params, so a model
+may hold float32 master weights (training) or weights already in the
+compute dtype (serving, where the casts are no-ops); norm scales stay
+float32. `remat` checkpoints each whole layer (`torch.utils.checkpoint`).
 """
 
 from __future__ import annotations
@@ -17,8 +22,12 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import flash_attention_fwd
+from ..ops.attention import (
+    trainable_flash_attention,
+    trainable_flash_attention_packed,
+)
 from ..ops.paged_attention import paged_decode_attention
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -36,6 +45,7 @@ class LLMConfig:
     norm_eps: float = 1e-5
     max_seq_len: int = 8192
     dtype: str = "bfloat16"
+    remat: bool = False  # recompute each layer's activations in backward
 
     @property
     def head_dim(self) -> int:
@@ -72,6 +82,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return rotate(x, rope_tables(positions, x.shape[-1], theta))
 
 
+class Linear(nn.Linear):
+    """`nn.Linear` with Flax `Dense(dtype=...)` semantics: input, weight and
+    bias are cast to the compute dtype (the dtype it was built in) at use,
+    whatever dtype the parameters are held in."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = True,
+                 device=None, dtype=None):
+        super().__init__(d_in, d_out, bias=bias, device=device, dtype=dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        cd = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(cd)
+        return F.linear(x.to(cd), self.weight.to(cd), bias)
+
+
+class Embedding(nn.Embedding):
+    """`nn.Embedding` with Flax `Embed(dtype=...)` semantics: rows come out
+    in the compute dtype (gathered, then cast: the same values as casting
+    the table first)."""
+
+    def __init__(self, n: int, d: int, device=None, dtype=None):
+        super().__init__(n, d, device=device, dtype=dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight).to(self.compute_dtype)
+
+
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -91,17 +130,18 @@ class Attention(nn.Module):
         self.cfg = cfg
         kw = {"bias": False, "device": device, "dtype": DTYPES[cfg.dtype]}
         hd, d = cfg.head_dim, cfg.hidden_size
-        self.wq = nn.Linear(d, cfg.num_heads * hd, **kw)
-        self.wk = nn.Linear(d, cfg.num_kv_heads * hd, **kw)
-        self.wv = nn.Linear(d, cfg.num_kv_heads * hd, **kw)
-        self.wo = nn.Linear(cfg.num_heads * hd, d, **kw)
+        self.wq = Linear(d, cfg.num_heads * hd, **kw)
+        self.wk = Linear(d, cfg.num_kv_heads * hd, **kw)
+        self.wv = Linear(d, cfg.num_kv_heads * hd, **kw)
+        self.wo = Linear(cfg.num_heads * hd, d, **kw)
 
-    def forward(self, x, rope, paged=None):
-        """`rope`: `rope_tables` of the positions. Prefill (`paged`
-        None): causal attention over the fresh kv, returning
-        `(out, (k, v))` with k/v `[B, KVH, T, hd]`. Paged decode
-        (`paged` a dict of k_pages, v_pages, page_table, index; T == 1):
-        returns `(out, None)`, the pools updated in place."""
+    def forward(self, x, rope, paged=None, segment_ids=None):
+        """`rope`: `rope_tables` of the positions. Training and prefill
+        (`paged` None): causal attention over the fresh kv (block-diagonal
+        within equal `segment_ids` `[B, T]` for packed rows), returning
+        `(out, (k, v))` with k/v `[B, KVH, T, hd]`. Paged decode (`paged`
+        a dict of k_pages, v_pages, page_table, index; T == 1): returns
+        `(out, None)`, the pools updated in place."""
         cfg = self.cfg
         b, t, _ = x.shape
         hd = cfg.head_dim
@@ -110,7 +150,11 @@ class Attention(nn.Module):
         v = self.wv(x).view(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
         q, k = rotate(q, rope), rotate(k, rope)
         if paged is None:
-            out, _ = flash_attention_fwd(q, k, v, causal=True)
+            if segment_ids is None:
+                out = trainable_flash_attention(q, k, v, True)
+            else:
+                out = trainable_flash_attention_packed(q, k, v, segment_ids,
+                                                       True)
             kv = (k, v)
         else:
             if t != 1:
@@ -130,9 +174,9 @@ class MLP(nn.Module):
     def __init__(self, cfg: LLMConfig, device=None):
         super().__init__()
         kw = {"bias": False, "device": device, "dtype": DTYPES[cfg.dtype]}
-        self.gate = nn.Linear(cfg.hidden_size, cfg.ffn_size, **kw)
-        self.up = nn.Linear(cfg.hidden_size, cfg.ffn_size, **kw)
-        self.down = nn.Linear(cfg.ffn_size, cfg.hidden_size, **kw)
+        self.gate = Linear(cfg.hidden_size, cfg.ffn_size, **kw)
+        self.up = Linear(cfg.hidden_size, cfg.ffn_size, **kw)
+        self.down = Linear(cfg.ffn_size, cfg.hidden_size, **kw)
 
     def forward(self, x):
         return self.down(F.silu(self.gate(x)) * self.up(x))
@@ -146,8 +190,8 @@ class DecoderLayer(nn.Module):
         self.mlp_norm = RMSNorm(cfg.hidden_size, cfg.norm_eps, device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x, rope, paged=None):
-        attn_out, kv = self.attn(self.attn_norm(x), rope, paged)
+    def forward(self, x, rope, paged=None, segment_ids=None):
+        attn_out, kv = self.attn(self.attn_norm(x), rope, paged, segment_ids)
         x = x + attn_out
         return x + self.mlp(self.mlp_norm(x)), kv
 
@@ -160,21 +204,46 @@ class DecoderLM(nn.Module):
         super().__init__()
         self.cfg = cfg
         dtype = DTYPES[cfg.dtype]
-        self.embed = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                  device=device, dtype=dtype)
+        self.embed = Embedding(cfg.vocab_size, cfg.hidden_size,
+                               device=device, dtype=dtype)
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, device) for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.norm_eps, device)
-        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
-                                 device=device, dtype=dtype)
+        self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
+                              device=device, dtype=dtype)
 
-    def forward(self, input_embeds, positions, paged=None):
-        """`paged`: None for prefill, else one pool dict per layer (see
-        Attention.forward). Returns `(logits, kv rows per layer)`."""
+    def forward(self, input_embeds, positions, paged=None, segment_ids=None):
+        """`paged`: None for training and prefill, else one pool dict per
+        layer (see Attention.forward); `segment_ids` `[B, T]` for packed
+        rows (with per-segment `positions`). Returns `(logits, kv rows per
+        layer)`."""
         x = input_embeds
         rope = rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        remat = self.cfg.remat and paged is None and torch.is_grad_enabled()
         kvs = []
         for i, layer in enumerate(self.layers):
-            x, kv = layer(x, rope, None if paged is None else paged[i])
+            if remat:
+                x, kv = checkpoint(layer, x, rope, None, segment_ids,
+                                   use_reentrant=False)
+            else:
+                x, kv = layer(x, rope, None if paged is None else paged[i],
+                              segment_ids)
             kvs.append(kv)
         return self.lm_head(self.final_norm(x)), kvs
+
+
+def cross_entropy_sum(logits, labels, ignore_index: int = -100):
+    """Masked next-token loss, unnormalised: `(nll_sum, token_count)` with
+    the log-softmax in float32. Summing these over microbatches and dividing
+    once makes gradient accumulation equal to the single-batch mean."""
+    mask = labels != ignore_index
+    safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return (nll * mask).sum(), mask.sum()
+
+
+def cross_entropy_loss(logits, labels, ignore_index: int = -100):
+    """Masked next-token loss; `labels` are already shifted by the caller."""
+    nll_sum, count = cross_entropy_sum(logits, labels, ignore_index)
+    return nll_sum / count.clamp_min(1)

@@ -1,8 +1,13 @@
 """Multi-frame spatial MLLM in PyTorch: ViT + pixel-shuffle projector +
 decoder, with vision features spliced into the token stream at
-IMG_CONTEXT positions. Port of multi_spatialmllm_tpu/models/mllm.py
-(inference entry points: `encode_tiles`, `spliced_embeds`, `prefill`, and
-the plain forward)."""
+IMG_CONTEXT positions. Port of multi_spatialmllm_tpu/models/mllm.py: the
+training forward (`forward`, padded or packed rows) and `loss_fn`, and the
+inference entry points `encode_tiles`, `spliced_embeds` and `prefill`.
+
+A model built with `param_dtype=torch.float32` holds float32 master
+weights and computes in its config dtype, as the Flax modules do with
+their float32 params (training); without it, the weights are held in the
+compute dtype (serving)."""
 
 from __future__ import annotations
 
@@ -12,7 +17,7 @@ import math
 import torch
 from torch import nn
 
-from .llm import DTYPES, DecoderLM, LLMConfig
+from .llm import DTYPES, DecoderLM, Linear, LLMConfig, cross_entropy_loss
 from .vit import LayerNorm, ViTConfig, VisionTransformer, gelu
 
 IMG_CONTEXT_ID_DEFAULT = 3  # reserved token id for vision-token slots
@@ -45,20 +50,22 @@ class Projector(nn.Module):
         d_in = cfg.vit.hidden_size * cfg.downsample ** 2
         d = cfg.llm.hidden_size
         self.norm = LayerNorm(d_in, 1e-6, dtype, device)
-        self.fc1 = nn.Linear(d_in, d, device=device, dtype=dtype)
-        self.fc2 = nn.Linear(d, d, device=device, dtype=dtype)
+        self.fc1 = Linear(d_in, d, device=device, dtype=dtype)
+        self.fc2 = Linear(d, d, device=device, dtype=dtype)
 
     def forward(self, vision_tokens):
         return self.fc2(gelu(self.fc1(self.norm(vision_tokens))))
 
 
 class MultiFrameMLLM(nn.Module):
-    def __init__(self, cfg: MLLMConfig, device=None):
+    def __init__(self, cfg: MLLMConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
         self.vision = VisionTransformer(cfg.vit, device)
         self.projector = Projector(cfg, device)
         self.llm = DecoderLM(cfg.llm, device)
+        if param_dtype is not None:
+            self.to(param_dtype)
 
     def encode_tiles(self, tiles: torch.Tensor) -> torch.Tensor:
         """`[N_tiles, H, W, 3] -> [N_tiles, tokens_per_tile, llm_hidden]`."""
@@ -86,9 +93,19 @@ class MultiFrameMLLM(nn.Module):
         return torch.where(is_ctx[..., None], gathered.to(embeds.dtype),
                            embeds)
 
-    def forward(self, input_ids: torch.Tensor, tiles: torch.Tensor):
-        """Logits `[B, T, vocab]` of the unpacked forward."""
-        return self.prefill(input_ids, tiles)[0]
+    def forward(self, input_ids: torch.Tensor, tiles: torch.Tensor,
+                positions: torch.Tensor | None = None,
+                segment_ids: torch.Tensor | None = None):
+        """Training forward: logits `[B, T, vocab]`. `positions` and
+        `segment_ids` `[B, T]` come with packed rows (models/data
+        `pack_samples`): per-segment RoPE positions and a block-diagonal
+        causal mask; without them, positions count from 0 and attention is
+        causal over the whole row."""
+        embeds = self.spliced_embeds(input_ids, tiles)
+        b, t, _ = embeds.shape
+        if positions is None:
+            positions = torch.arange(t, device=embeds.device).expand(b, t)
+        return self.llm(embeds, positions, segment_ids=segment_ids)[0]
 
     def prefill(self, input_ids: torch.Tensor, tiles: torch.Tensor):
         """Prompt prefill -> `(logits, kv rows per layer)`. Right padding
@@ -99,6 +116,16 @@ class MultiFrameMLLM(nn.Module):
         b, t, _ = embeds.shape
         positions = torch.arange(t, device=embeds.device).expand(b, t)
         return self.llm(embeds, positions)
+
+
+def loss_fn(model: MultiFrameMLLM, batch: dict):
+    """Masked next-token loss over a batch dict of tensors with
+    `input_ids`, `tiles`, `labels` (already shifted, -100 = ignore) and,
+    for packed rows, `positions` and `segment_ids`."""
+    logits = model(batch["input_ids"], batch["tiles"],
+                   positions=batch.get("positions"),
+                   segment_ids=batch.get("segment_ids"))
+    return cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:])
 
 
 @torch.no_grad()
@@ -135,12 +162,13 @@ def tiny_config(**overrides) -> MLLMConfig:
 
 def bench_1chip_config() -> MLLMConfig:
     """The JAX package's `bench` config: flagship-shaped, ~700M params
-    (GQA 2:1, SwiGLU, hd 128)."""
+    (GQA 2:1, SwiGLU, hd 128), remat on (whole layers here; the JAX
+    config's selective policy is not ported)."""
     vit = ViTConfig(image_size=448, patch_size=14, hidden_size=1024,
-                    num_layers=6, num_heads=16)
+                    num_layers=6, num_heads=16, remat=True)
     llm = LLMConfig(vocab_size=32000, hidden_size=2048, num_layers=8,
                     num_heads=16, num_kv_heads=8, ffn_size=8192,
-                    max_seq_len=4096)
+                    max_seq_len=4096, remat=True)
     return MLLMConfig(vit=vit, llm=llm)
 
 

@@ -3,16 +3,7 @@
 from __future__ import annotations
 
 from .mllm import MLLMConfig
-
-# The conversation markers of the JAX package's tokenizer
-# (multi_spatialmllm_tpu/models/tokenizer.py; the tests hold the two
-# equal). Kept here so that building a prompt imports nothing of that
-# package: the tokenizer itself is the caller's.
-IMG_CONTEXT = "<IMG_CONTEXT>"
-IMG_START = "<img>"
-IMG_END = "</img>"
-HUMAN = "<|human|>"
-ASSISTANT = "<|assistant|>"
+from .tokenizer import ASSISTANT, HUMAN, IMG_CONTEXT, IMG_END, IMG_START
 
 
 def build_prompt_ids(sample: dict, tokenizer, model_cfg: MLLMConfig,

@@ -2,10 +2,11 @@
 
 Port of multi_spatialmllm_tpu/models/vit.py: pre-norm ViT with learned
 position embeddings and a class token. Tiles come in NHWC, as in the JAX
-package. Attention goes through the flash forward op with the token
-count (1 + grid^2 = 1025 at 448/14) padded to a multiple of 128 and the
-pads in their own segment, so they are masked exactly and the kernel
-skips their tiles.
+package. Attention goes through the trainable flash op (forward K1,
+backward K2/K3) with the token count (1 + grid^2 = 1025 at 448/14) padded
+to a multiple of 128 and the pads in their own segment, so they are masked
+exactly and the kernels skip their tiles. Weights are cast to the config
+dtype at use (see models/llm.py); `remat` checkpoints each block.
 """
 
 from __future__ import annotations
@@ -15,9 +16,10 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import flash_attention_fwd
-from .llm import DTYPES
+from ..ops.attention import trainable_flash_attention_packed
+from .llm import DTYPES, Linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +32,7 @@ class ViTConfig:
     mlp_ratio: float = 4.0
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
+    remat: bool = False  # recompute each block's activations in backward
 
     @property
     def num_patches(self) -> int:
@@ -76,11 +79,11 @@ class ViTBlock(nn.Module):
         d = cfg.hidden_size
         kw = {"device": device, "dtype": dtype}
         self.norm1 = LayerNorm(d, cfg.norm_eps, dtype, device)
-        self.qkv = nn.Linear(d, 3 * d, **kw)       # out laid out (3, H, hd)
-        self.proj = nn.Linear(d, d, **kw)
+        self.qkv = Linear(d, 3 * d, **kw)          # out laid out (3, H, hd)
+        self.proj = Linear(d, d, **kw)
         self.norm2 = LayerNorm(d, cfg.norm_eps, dtype, device)
-        self.fc1 = nn.Linear(d, int(d * cfg.mlp_ratio), **kw)
-        self.fc2 = nn.Linear(int(d * cfg.mlp_ratio), d, **kw)
+        self.fc1 = Linear(d, int(d * cfg.mlp_ratio), **kw)
+        self.fc2 = Linear(int(d * cfg.mlp_ratio), d, **kw)
 
     def forward(self, x):
         cfg = self.cfg
@@ -90,15 +93,11 @@ class ViTBlock(nn.Module):
         qkv = self.qkv(h).view(b, t, 3, cfg.num_heads, hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         pad = (-t) % 128
-        seg = None
-        if pad:
-            q, k, v = (F.pad(a, (0, 0, 0, pad)) for a in (q, k, v))
-            seg = torch.cat([
-                torch.zeros(b, t, dtype=torch.int32, device=x.device),
-                torch.ones(b, pad, dtype=torch.int32, device=x.device)],
-                dim=1)
-        attn, _ = flash_attention_fwd(q, k, v, causal=False,
-                                      segment_ids=seg)
+        q, k, v = (F.pad(a, (0, 0, 0, pad)) for a in (q, k, v))
+        seg = torch.cat([
+            torch.zeros(b, t, dtype=torch.int32, device=x.device),
+            torch.ones(b, pad, dtype=torch.int32, device=x.device)], dim=1)
+        attn = trainable_flash_attention_packed(q, k, v, seg, False)
         attn = attn[:, :, :t].transpose(1, 2).reshape(b, t, d)
         x = x + self.proj(attn)
         return x + self.fc2(gelu(self.fc1(self.norm2(x))))
@@ -123,11 +122,16 @@ class VisionTransformer(nn.Module):
     def forward(self, pixels):
         """pixels `[B, H, W, 3]` normalized tiles -> `[B, 1 + P, D]`."""
         dtype = DTYPES[self.cfg.dtype]
-        x = self.patch_embed(pixels.to(dtype).permute(0, 3, 1, 2))
+        conv = self.patch_embed
+        x = F.conv2d(pixels.to(dtype).permute(0, 3, 1, 2),
+                     conv.weight.to(dtype), conv.bias.to(dtype),
+                     stride=conv.stride)
         x = x.flatten(2).transpose(1, 2)             # [B, P, D], row-major
         b = x.shape[0]
-        x = torch.cat([self.cls_token.expand(b, -1, -1), x], dim=1)
-        x = x + self.pos_embed
+        x = torch.cat([self.cls_token.to(dtype).expand(b, -1, -1), x], dim=1)
+        x = x + self.pos_embed.to(dtype)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            x = checkpoint(block, x, use_reentrant=False) if remat \
+                else block(x)
         return x

@@ -1,7 +1,8 @@
 """Builds the hand-written CUDA kernels at first use and binds them.
 
-Each kernel is one `csrc/<name>.cu` file with a plain C entry point of the
-same name. It is compiled with `nvcc` for `sm_90a` into a shared library
+Each kernel source is one `csrc/<source>.cu` file with one or more plain C
+entry points (a wrapper per entry point; the source defaults to the entry
+point's name). It is compiled with `nvcc` for `sm_90a` into a shared library
 under `_build/` (listed in `.gitignore`), loaded with `ctypes`, and
 launched on PyTorch's current stream. The sources include no PyTorch
 header, so a build takes seconds rather than the minutes an extension
@@ -45,8 +46,9 @@ class CudaKernel:
     `launches` counts the launches made through this wrapper; a run can
     reset it to show that a path went through the kernel."""
 
-    def __init__(self, name: str, argtypes: list):
+    def __init__(self, name: str, argtypes: list, source: str | None = None):
         self.name = name
+        self.source = source or name
         self.argtypes = argtypes
         self.launches = 0
         self.build_seconds: float | None = None
@@ -64,11 +66,11 @@ class CudaKernel:
         if nvcc is None:
             raise RuntimeError(
                 f"kernel {self.name!r}: nvcc not found (set CUDA_HOME)")
-        src = os.path.join(CSRC_DIR, f"{self.name}.cu")
+        src = os.path.join(CSRC_DIR, f"{self.source}.cu")
         with open(src, "rb") as f:
             digest = hashlib.sha256(
                 f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        lib_path = os.path.join(BUILD_DIR, f"lib{self.name}-{digest}.so")
+        lib_path = os.path.join(BUILD_DIR, f"lib{self.source}-{digest}.so")
         t0 = time.perf_counter()
         if not os.path.exists(lib_path):
             os.makedirs(BUILD_DIR, exist_ok=True)

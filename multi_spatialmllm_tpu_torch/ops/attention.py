@@ -1,10 +1,17 @@
-"""Attention: the plain reference and the flash-attention forward op.
+"""Attention: the plain reference, the flash-attention forward and
+backward ops, and the trainable op built on them.
 
 `flash_attention_fwd` is backed by the hand-written CUDA kernel
-`csrc/flash_fwd.cu` (it replaces the Pallas TPU kernel `_flash_fwd_kernel`
-of multi_spatialmllm_tpu/ops/attention.py) when its tensors lie on a CUDA
-device, and by `flash_attention_fwd_plain` when they lie on the CPU. That
-device is the only switch.
+`csrc/flash_fwd.cu` (it replaces the Pallas TPU kernels `_flash_fwd_kernel`
+and `_flash_fwd_xl_kernel` of multi_spatialmllm_tpu/ops/attention.py);
+`flash_attention_bwd` by the two kernels of `csrc/flash_bwd.cu` (dq, and
+fused dk/dv; they replace `_flash_bwd_dq_kernel`/`_flash_bwd_dq_xl_kernel`
+and `_flash_bwd_dkv_kernel`/`_flash_bwd_dkv_xl_kernel`). Each op launches
+its kernels when its tensors lie on a CUDA device and runs its plain
+version when they lie on the CPU. That device is the only switch.
+`trainable_flash_attention` and `trainable_flash_attention_packed` are the
+`torch.autograd.Function` over the pair, as the JAX package's custom-VJP
+functions of the same names are.
 """
 
 from __future__ import annotations
@@ -25,6 +32,23 @@ FLASH_FWD = CudaKernel("flash_fwd", [
     ctypes.c_int, ctypes.c_int,                          # S, D
     ctypes.c_int, ctypes.c_float, ctypes.c_int,          # causal, scale, bf16
 ])
+_BWD_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # dO, lse, delta
+    ctypes.c_void_p,                                     # seg (or NULL)
+]
+_BWD_SHAPE = [
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, H, KVH
+    ctypes.c_int, ctypes.c_int,                          # S, D
+    ctypes.c_int, ctypes.c_float, ctypes.c_int,          # causal, scale, bf16
+]
+FLASH_BWD_DQ = CudaKernel(
+    "flash_bwd_dq", [*_BWD_ARGS, ctypes.c_void_p, *_BWD_SHAPE],   # dq
+    source="flash_bwd")
+FLASH_BWD_DKV = CudaKernel(
+    "flash_bwd_dkv",
+    [*_BWD_ARGS, ctypes.c_void_p, ctypes.c_void_p, *_BWD_SHAPE],  # dk, dv
+    source="flash_bwd")
 KERNEL_HEAD_DIMS = (32, 64, 128)
 
 
@@ -86,24 +110,33 @@ def flash_attention_fwd_plain(q, k, v, causal, segment_ids=None):
     return torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), v), lse
 
 
+def _check_kernel_operands(name, q, k, v, segment_ids):
+    """Raise unless q `[B, H, S, D]` and k/v `[B, KVH, S, D]` are what the
+    kernels take; returns the normalised int32 segment ids (or None)."""
+    b, h, s, d = q.shape
+    kvh = k.shape[1]
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: unsupported dtype {q.dtype}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {KERNEL_HEAD_DIMS}")
+    if kvh == 0 or h % kvh:
+        raise ValueError(f"{name}: {h} heads over {kvh} kv heads")
+    check_cuda_operand("q", q, q.device, q.dtype, (b, h, s, d))
+    check_cuda_operand("k", k, q.device, q.dtype, (b, kvh, s, d))
+    check_cuda_operand("v", v, q.device, q.dtype, (b, kvh, s, d))
+    if segment_ids is None:
+        return None
+    seg = normalize_segments(segment_ids).contiguous()
+    check_cuda_operand("segment_ids", seg, q.device, torch.int32, (b, s))
+    return seg
+
+
 def flash_attention_fwd_cuda(q, k, v, causal, segment_ids=None):
     """Launch the flash forward kernel: contiguous q `[B, H, S, D]`,
     k/v `[B, KVH, S, D]`, float32 or bfloat16, D in 32/64/128."""
     b, h, s, d = q.shape
     kvh = k.shape[1]
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"flash_fwd: unsupported dtype {q.dtype}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_fwd: head dim {d} not in {KERNEL_HEAD_DIMS}")
-    if kvh == 0 or h % kvh:
-        raise ValueError(f"flash_fwd: {h} heads over {kvh} kv heads")
-    check_cuda_operand("q", q, q.device, q.dtype, (b, h, s, d))
-    check_cuda_operand("k", k, q.device, q.dtype, (b, kvh, s, d))
-    check_cuda_operand("v", v, q.device, q.dtype, (b, kvh, s, d))
-    seg = None
-    if segment_ids is not None:
-        seg = normalize_segments(segment_ids).contiguous()
-        check_cuda_operand("segment_ids", seg, q.device, torch.int32, (b, s))
+    seg = _check_kernel_operands("flash_fwd", q, k, v, segment_ids)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     FLASH_FWD(ptr(q), ptr(k), ptr(v), ptr(seg), ptr(o), ptr(lse),
@@ -125,3 +158,102 @@ def flash_attention_fwd(q, k, v, causal, segment_ids=None):
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, segment_ids)
     raise ValueError(f"flash_attention_fwd: unsupported device {q.device}")
+
+
+def _delta(o, do):
+    """rowsum(dO * O) in f32, `[B, H, S]` (an XLA pass outside the kernels
+    in the JAX package too)."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal, segment_ids=None):
+    """Plain version of the flash backward: `(dq, dk, dv)` by the kernels'
+    formulas in f32, p re-made from the saved `lse`; p and ds are rounded
+    to the operand dtype before their products, as the kernels round them.
+    dk/dv carry KVH heads: the group's q heads are summed."""
+    dtype = q.dtype
+    b, h, s, d = q.shape
+    kvh = k.shape[1]
+    scale = d ** -0.5
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    kr, vr = _repeat_kv(qf, kf, vf)
+    sc = _masked_scores(qf, kr, causal, scale, None, segment_ids)
+    p = torch.exp(sc - lse[..., None].float())
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vr)
+    ds = p * (dp - _delta(o, do)[..., None]) * scale
+    p, ds = p.to(dtype).float(), ds.to(dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dk = dk.reshape(b, kvh, h // kvh, s, d).sum(2)
+    dv = dv.reshape(b, kvh, h // kvh, s, d).sum(2)
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, segment_ids=None):
+    """Launch the two backward kernels: dq, then fused dk/dv. Contiguous
+    operands as for `flash_attention_fwd_cuda`, `o`/`do` shaped like q,
+    `lse` the forward's f32 `[B, H, S]`."""
+    b, h, s, d = q.shape
+    kvh = k.shape[1]
+    seg = _check_kernel_operands("flash_bwd", q, k, v, segment_ids)
+    check_cuda_operand("do", do, q.device, q.dtype, (b, h, s, d))
+    check_cuda_operand("lse", lse, q.device, torch.float32, (b, h, s))
+    delta = _delta(o, do)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    shape = (b, h, kvh, s, d, int(causal), d ** -0.5,
+             int(q.dtype == torch.bfloat16))
+    FLASH_BWD_DQ(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
+                 ptr(seg), ptr(dq), *shape)
+    FLASH_BWD_DKV(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
+                  ptr(seg), ptr(dk), ptr(dv), *shape)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal, segment_ids=None):
+    """Flash-attention backward `(dq, dk, dv)` from the forward's `o` and
+    `lse` and the output gradient `do`; dk/dv at KVH heads. On CUDA
+    tensors this runs the kernels (or raises); on CPU tensors the plain
+    version."""
+    if q.is_cuda:
+        return flash_attention_bwd_cuda(
+            q.contiguous(), k.contiguous(), v.contiguous(), o,
+            lse.contiguous(), do.contiguous(), causal, segment_ids)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                         segment_ids)
+    raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward through `flash_attention_fwd`, saving `(q, k, v, o, lse)`;
+    backward through `flash_attention_bwd` (no forward recompute)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, causal):
+        o, lse = flash_attention_fwd(q, k, v, causal, segment_ids)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.segment_ids, ctx.causal = segment_ids, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
+                                         ctx.segment_ids)
+        return dq, dk, dv, None, None
+
+
+def trainable_flash_attention(q, k, v, causal=True):
+    """Differentiable flash attention: q `[B, H, S, hd]`, k/v
+    `[B, KVH, S, hd]` (GQA native; dk/dv come back at KVH heads)."""
+    return _FlashAttention.apply(q, k, v, None, causal)
+
+
+def trainable_flash_attention_packed(q, k, v, segment_ids, causal):
+    """`trainable_flash_attention` with a block-diagonal segment mask:
+    queries see only keys of the same id in `segment_ids` `[B, S]`
+    (packed training rows; the ViT's pad segment with `causal=False`)."""
+    return _FlashAttention.apply(q, k, v, segment_ids, causal)

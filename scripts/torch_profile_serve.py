@@ -49,8 +49,9 @@ def profile(torch, fn, label, out_dir, n_rows=30):
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
               f"{e.count:6d}x  {e.key[:90]}")
     return {"wall_ms": wall * 1e3, "device_ms": device_us / 1e3,
-            "top": [(e.key, e.self_device_time_total / 1e3, e.count)
-                    for e in top]}
+            "kernels": [(e.key, e.self_device_time_total / 1e3, e.count)
+                        for e in sorted(kernels, key=lambda e:
+                                        -e.self_device_time_total)]}
 
 
 def main():
@@ -73,7 +74,7 @@ def main():
     model = M.MultiFrameMLLM(cfg, device="cuda")
     M.init_random_weights(model, smoke.SEED)
     model.eval()
-    tok = smoke.ByteTokenizer()
+    tok = smoke.serve_tokenizer()
     pcfg = K.PagedConfig(slots=8, page_size=64, num_pages=256,
                          max_prompt_len=2048, max_new_tokens=32)
     batcher = K.PagedBatcher(model, pcfg, pad_id=tok.pad_id,

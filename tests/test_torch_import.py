@@ -1,13 +1,16 @@
 """Import boundary and build rules of the port: importing every module of
-multi_spatialmllm_tpu_torch loads neither jax nor the JAX package; a
-kernel build on a host without CUDA raises instead of falling back; and
-chip_smoke.py refuses to run (non-zero exit, no result line) without a
-CUDA device or outside the repository."""
+multi_spatialmllm_tpu_torch loads neither jax nor the JAX package, and its
+`train` and `serve` commands run end to end with that package made
+unimportable; a kernel build on a host without CUDA raises instead of
+falling back; and chip_smoke.py refuses to run (non-zero exit, no result
+line) without a CUDA device or outside the repository."""
 
+import json
 import os
 import shutil
 import subprocess
 import sys
+import textwrap
 
 import pytest
 import torch
@@ -21,18 +24,29 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "multi_spatialmllm_tpu_torch",
     "multi_spatialmllm_tpu_torch.__main__",
+    "multi_spatialmllm_tpu_torch.core",
+    "multi_spatialmllm_tpu_torch.core.rng",
     "multi_spatialmllm_tpu_torch.ops._build",
     "multi_spatialmllm_tpu_torch.ops.attention",
     "multi_spatialmllm_tpu_torch.ops.paged_attention",
+    "multi_spatialmllm_tpu_torch.models._vocab_templates",
     "multi_spatialmllm_tpu_torch.models.convert",
+    "multi_spatialmllm_tpu_torch.models.data",
     "multi_spatialmllm_tpu_torch.models.generate",
     "multi_spatialmllm_tpu_torch.models.llm",
+    "multi_spatialmllm_tpu_torch.models.mixture",
     "multi_spatialmllm_tpu_torch.models.mllm",
     "multi_spatialmllm_tpu_torch.models.paged_kv",
+    "multi_spatialmllm_tpu_torch.models.preprocess",
     "multi_spatialmllm_tpu_torch.models.runner",
     "multi_spatialmllm_tpu_torch.models.serving",
+    "multi_spatialmllm_tpu_torch.models.tokenizer",
     "multi_spatialmllm_tpu_torch.models.vit",
+    "multi_spatialmllm_tpu_torch.parallel",
+    "multi_spatialmllm_tpu_torch.parallel.train",
 ]
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "multi_spatialmllm_tpu")
+KERNELS = [TA.FLASH_FWD, TA.FLASH_BWD_DQ, TA.FLASH_BWD_DKV, TP.PAGED_DECODE]
 
 
 def _env():
@@ -46,9 +60,8 @@ def test_port_never_imports_jax_or_the_jax_package():
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
-        "'multi_spatialmllm_tpu'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{BLOCKED!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], env=_env(),
@@ -62,8 +75,79 @@ def test_prompt_markers_match_the_jax_tokenizer():
         assert getattr(TR, name) == getattr(JT, name), name
 
 
-@pytest.mark.parametrize("kernel", [TA.FLASH_FWD, TP.PAGED_DECODE],
-                         ids=lambda k: k.name)
+# a finder that refuses the JAX package and JAX itself: any import of them
+# (lazy ones included) fails the run
+_BLOCKER = textwrap.dedent(f"""
+    import importlib.abc, sys
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in {BLOCKED!r}:
+                raise ImportError("blocked: " + name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    from multi_spatialmllm_tpu_torch.__main__ import main
+    main(sys.argv[1:])
+""")
+
+
+def _run_blocked(args, tmp_path, stdin=""):
+    proc = subprocess.run([sys.executable, "-c", _BLOCKER, *args],
+                          env=_env(), cwd=tmp_path, input=stdin,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith("{")]
+
+
+def test_train_and_serve_run_with_the_jax_package_unimportable(tmp_path):
+    """`train` (packed rows, accumulation, a rolling checkpoint) then
+    `serve` from that checkpoint, on the tiny config on the CPU."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    (tmp_path / "imgs").mkdir()
+    recs = []
+    for i in range(6):
+        cv2.imwrite(str(tmp_path / "imgs" / f"im{i}.png"),
+                    rng.integers(0, 255, (56, 56, 3), dtype=np.uint8))
+        recs.append({"id": f"s{i}", "image": [f"im{i}.png"],
+                     "conversations": [
+                         {"from": "human",
+                          "value": "<image>\nhow far is the point?"},
+                         {"from": "gpt", "value": f"{100 + i} mm"}]})
+    (tmp_path / "train.jsonl").write_text(
+        "".join(json.dumps(r) + "\n" for r in recs))
+    (tmp_path / "mix.json").write_text(json.dumps(
+        {"spa": {"root": "imgs", "annotation": "train.jsonl",
+                 "repeat_time": 1}}))
+    out = tmp_path / "ckpt"
+    [report] = _run_blocked(
+        ["train", "--meta", "mix.json", "--config", "tiny", "--device",
+         "cpu", "--steps", "2", "--batch-size", "2", "--accum", "2",
+         "--seq-len", "128", "--max-tiles", "2", "--tiles-per-image", "1",
+         "--packed", "--warmup", "1", "--lr", "1e-3", "--log-every", "1",
+         "--vocab-size", "800", "--output", str(out)], tmp_path)
+    assert report["steps"] == 2 and report["device"] == "cpu"
+    assert all(v is not None for v in report.values())
+    assert (out / "LATEST").read_text().strip() == "step_00000002"
+
+    lines = "".join(json.dumps({"id": f"q{i}", "image": [f"im{i}.png"],
+                                "text": "<image>\nhow far?"}) + "\n"
+                    for i in range(2))
+    results = _run_blocked(
+        ["serve", "--checkpoint", str(out), "--config", "tiny", "--device",
+         "cpu", "--vocab-size", "800", "--images-root", "imgs",
+         "--max-new-tokens", "4", "--slots", "2", "--page-size", "16",
+         "--num-pages", "32", "--max-prompt-len", "128"], tmp_path,
+        stdin=lines)
+    assert sorted(r["id"] for r in results) == ["q0", "q1"]
+    assert all(0 < len(r["token_ids"]) <= 4 for r in results)
+
+
+@pytest.mark.parametrize("kernel", KERNELS, ids=lambda k: k.name)
 def test_kernel_build_without_cuda_raises(kernel, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
@@ -74,6 +158,9 @@ def test_unsupported_device_raises_not_falls_back():
     q = torch.empty(1, 2, 128, 32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         TA.flash_attention_fwd(q, q, q, True)
+    lse = torch.empty(1, 2, 128, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        TA.flash_attention_bwd(q, q, q, q, lse, q, True)
     qd = torch.empty(1, 2, 1, 32, device="meta")
     pool = torch.empty(4, 2, 16, 32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -113,9 +200,18 @@ def test_cuda_wrappers_check_operands_before_launch():
     q = torch.zeros(1, 2, 64, 48)                      # head dim 48
     with pytest.raises(ValueError, match="head dim"):
         TA.flash_attention_fwd_cuda(q, q, q, True)
+    lse = torch.zeros(1, 2, 64)
+    with pytest.raises(ValueError, match="head dim"):
+        TA.flash_attention_bwd_cuda(q, q, q, q, lse, q, True)
     q16 = torch.zeros(1, 2, 64, 32, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         TA.flash_attention_fwd_cuda(q16, q16, q16, True)
+    with pytest.raises(ValueError, match="dtype"):
+        TA.flash_attention_bwd_cuda(q16, q16, q16, q16, lse, q16, True)
+    q32 = torch.zeros(1, 2, 64, 32)
+    with pytest.raises(ValueError, match="lse"):
+        TA.flash_attention_bwd_cuda(q32, q32, q32, q32, lse[:, :1], q32,
+                                    True)
     qd = torch.zeros(2, 4, 1, 32)
     pool = torch.zeros(5, 2, 16, 32)
     with pytest.raises(ValueError, match="page_table"):
@@ -123,4 +219,4 @@ def test_cuda_wrappers_check_operands_before_launch():
             qd, pool, pool, torch.zeros(2, 3, dtype=torch.int64),
             torch.zeros(2, dtype=torch.int32), torch.zeros(2, 2, 32),
             torch.zeros(2, 2, 32))
-    assert all(k.launches == 0 for k in (TA.FLASH_FWD, TP.PAGED_DECODE))
+    assert all(k.launches == 0 for k in KERNELS)

@@ -5,10 +5,13 @@ a machine without it (tests/conftest.py imports jax; skip it there):
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
 
-Tolerances: float32 outputs 1e-4 (flash) and 2e-5 (paged decode, the
-JAX package's own); bf16 outputs 2e-2 on unit-normal inputs, against the
-plain version run in float32 on the same (bf16) values; pools after the
-fused write bit-equal."""
+Tolerances: float32 outputs 1e-4 (flash forward), 2e-4 (flash backward,
+the JAX backward test's own) and 2e-5 (paged decode, the JAX package's
+own); bf16 outputs 2e-2 on unit-normal inputs (backward: 2e-2 of each
+gradient's largest magnitude, and its relative RMS and worst 64-row-tile
+errors within 2x those of the plain version on the same bf16 values),
+against the plain version run in float32 on the same (bf16) values;
+pools after the fused write bit-equal."""
 
 import pytest
 import torch
@@ -63,6 +66,81 @@ def test_flash_fwd_matches_plain(dev, case, dtype):
     assert o.dtype == dtype and o.shape == q.shape
     assert (o.float() - o_ref).abs().max().item() <= ATOL[dtype]
     assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_bwd_matches_plain(dev, case, dtype):
+    b, h, kvh, s, d, causal, pad_from = FLASH_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, do = (_normal(gen, dev, dtype, b, h, s, d) for _ in range(2))
+    k, v = (_normal(gen, dev, dtype, b, kvh, s, d) for _ in range(2))
+    seg = None
+    if pad_from is not None:
+        seg = torch.zeros(b, s, dtype=torch.int32, device=dev)
+        seg[:, pad_from:] = 1
+    o, lse = TA.flash_attention_fwd(q, k, v, causal, seg)
+    got = TA.flash_attention_bwd(q, k, v, o, lse, do, causal, seg)
+    # the reference takes its o and lse from the plain forward, not K1
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    o_ref, lse_ref = TA.flash_attention_fwd_plain(qf, kf, vf, causal, seg)
+    want = TA.flash_attention_bwd_plain(qf, kf, vf, o_ref, lse_ref, dof,
+                                        causal, seg)
+    o_pl, lse_pl = TA.flash_attention_fwd_plain(q, k, v, causal, seg)
+    plain = TA.flash_attention_bwd_plain(q, k, v, o_pl, lse_pl, do, causal,
+                                         seg)
+    torch.cuda.synchronize()
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    for name, g, w, p in zip(("dq", "dk", "dv"), got, want, plain):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        err = (g.float() - w).abs().max().item()
+        tol = 2e-4 if dtype == torch.float32 else \
+            2e-2 * w.abs().max().item()
+        assert err <= tol, (name, err, tol)
+        if dtype == torch.bfloat16:
+            mine, yard = _normalised_errors(g, w), _normalised_errors(p, w)
+            assert all(a <= 2 * b for a, b in zip(mine, yard)), \
+                (name, mine, yard)
+
+
+def _normalised_errors(got, ref):
+    """(relative RMS error, worst relative error of a 64-row tile along S,
+    a tile's norm floored at 1% of the RMS tile norm): small tiles are
+    read at their own scale, which max|err| against max|ref| does not."""
+    def tile_norms(x):
+        b, h, s, d = x.shape
+        x = torch.nn.functional.pad(x, (0, 0, 0, -s % 64))
+        return x.reshape(b * h, -1, 64 * d).norm(dim=-1)
+
+    err = got.float() - ref
+    e, r = tile_norms(err), tile_norms(ref)
+    rms = r.norm() / r.numel() ** 0.5
+    worst = (e / (r + 1e-2 * rms)).max()
+    return (err.norm() / ref.norm()).item(), worst.item()
+
+
+def test_trainable_flash_attention_grads_on_the_card(dev):
+    """The autograd op on CUDA tensors: K1 forward, K2/K3 backward, against
+    autograd through the plain reference (f32)."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn(2, 4, 192, 64, generator=gen, device=dev)
+    k, v = (torch.randn(2, 2, 192, 64, generator=gen, device=dev)
+            for _ in range(2))
+    seg = torch.tensor([1] * 100 + [2] * 60 + [0] * 32, device=dev)[None]
+    seg = seg.expand(2, -1).contiguous()
+    do = torch.randn(2, 4, 192, 64, generator=gen, device=dev)
+    before = (TA.FLASH_FWD.launches, TA.FLASH_BWD_DQ.launches,
+              TA.FLASH_BWD_DKV.launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    TA.trainable_flash_attention_packed(*leaves, seg, True).backward(do)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    TA.reference_attention(*ref, causal=True, segment_ids=seg).backward(do)
+    torch.cuda.synchronize()
+    for a, r in zip(leaves, ref):
+        assert (a.grad - r.grad).abs().max().item() <= 2e-4
+    assert (TA.FLASH_FWD.launches, TA.FLASH_BWD_DQ.launches,
+            TA.FLASH_BWD_DKV.launches) == tuple(n + 1 for n in before)
 
 
 def test_flash_fwd_counts_launches(dev):
