@@ -3,16 +3,17 @@
 NVIDIA GPU. Run from the repository root:
 
     python3 chip_smoke.py              # every phase
-    python3 chip_smoke.py --phases 7 9 # some phases (1 and 2 always run)
+    python3 chip_smoke.py --phases 10 13 # some phases (1 and 2 always run)
 
 Phases, each printed as it ends; any failure raises (non-zero exit, no
 result line):
 
 1. Device: needs CUDA; prints the card's name and power limit.
-2. Build: compiles the three kernel sources in ops/csrc with nvcc, in
+2. Build: compiles the four kernel sources in ops/csrc with nvcc, in
    parallel (one nvcc per source).
 3. flash_fwd (K1) against its plain version: the flagship prefill shape,
-   the ViT shape with its pad segment, and small float32 cases.
+   the ViT shape with its pad segment, the bench MoE prefill shape (H16
+   over KVH8, S 512) and small float32 cases.
 4. paged_decode (K7) against the plain gather-window version, fused write
    included (pools must be bit-equal).
 5. Model check: the `tiny` config in float32 with seeded weights through
@@ -42,6 +43,33 @@ result line):
    finite, all three flash kernels launched, then the loss must fall at
    each update of a fresh optimizer, on the train CLI's default schedule,
    on one repeated batch.
+10. gmm, gmm_t and tgmm (K8) against their plain versions on float32
+   copies: the preflight shape (NK 16384, D = F = 2048, E 4, uniform and
+   skewed groups), the MoE train shape (NK 8192, D 2048, F 8192, and the
+   down projection), gmm at the MoE serve shapes (a decode step's 16 rows
+   in four groups, one empty, and a 512-row prefill, both projections)
+   and small float32 cases (an empty group, boundaries inside a tile,
+   rows past the groups' total). bf16 results are held as
+   in phase 7 (tgmm per group and 64-row tile of K), a probe shows the
+   check failing a tgmm with one tile of one group 10% off; timings
+   against the bound and `torch._grouped_mm` (timed only, where it exists
+   and computes the same function).
+11. paged_decode_int8 (K7 int8) against its plain version (quantised
+   write, dequantised window): pools and scale pools bit-equal after the
+   fused write, outputs within the K7 tolerances; timed beside native K7.
+12. Tiny MoE: `tiny_moe_config` in float32 with the einsum impl and with
+   the ragged impl on K8 (`moe_kernel="pallas"`): phase 8's 3 train steps
+   and phase 5's greedy serving with int8 kv pools, CPU vs card.
+13. MoE train at full width, nothing cut: `--config bench --moe-experts 4
+   --moe-impl ragged --moe-kernel pallas` (through the CLI's config
+   rules), as phase 9 (the train CLI's tile defaults, 14 and 6); every
+   loss finite, the flash kernels and gmm, gmm_t and tgmm launched (their
+   launches a step printed), then the repeated-batch check.
+14. MoE serve at full width: the same model in bf16 with seeded weights,
+   `bench_paged_config(kv_dtype="int8")` (8 slots, page 128, 53 pages,
+   prompts up to 512, 128 new tokens), 16 one-image requests through the
+   serve loop; every request finishes, flash_fwd, gmm and
+   paged_decode_int8 launched.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -71,6 +99,9 @@ TRAIN_REL = 1e-4         # phase 8: losses, grad norms, first gradients
 MARGIN = 1e-4            # phase 5's near-tie threshold (CPU logits, f32)
 N_SERVE = 16
 TRAIN_LAYERS = 8         # phase 9: LLM depth cut from 32 (see PERF.md)
+# phase 13: the train CLI's --max-tiles and --tiles-per-image defaults
+MOE_MAX_TILES, MOE_TILES_PER_IMAGE = 14, 6
+N_PHASES = 14
 # phase 9's steps on one repeated batch run a fresh optimizer on the train
 # CLI's default schedule (--lr 1e-5, --warmup 100, --steps 1000)
 REPEAT_LR, REPEAT_WARMUP, REPEAT_TOTAL = 1e-5, 100, 1000
@@ -223,6 +254,9 @@ def phase_k1(torch, A):
                   7, 16, 16, 1152, 64, False, torch.bfloat16, K1_BF16_ATOL,
                   pad_from=1025)
     errs.append(e)
+    errs.append(case("bench MoE prefill B1 H16 KVH8 S512 hd128 causal bf16",
+                     1, 16, 8, 512, 128, True, torch.bfloat16,
+                     K1_BF16_ATOL)[0])
     errs.append(case("f32 causal GQA B2 H4 KVH2 S200 hd32", 2, 4, 2, 200,
                      32, True, torch.float32, K1_F32_ATOL)[0])
     errs.append(case("f32 non-causal pad segment B2 H2 S150 hd64", 2, 2, 2,
@@ -520,9 +554,10 @@ def tiny_train_batches(cfg, n, seed):
     return batches
 
 
-def phase_tiny_train(torch, M, T, cli):
-    """3 tiny f32 steps on the CPU (plain versions) and on the card."""
-    cfg = M.with_dtype(M.tiny_config(), "float32")
+def phase_tiny_train(torch, M, T, cli, cfg=None, label="tiny"):
+    """3 tiny f32 steps on the CPU (plain versions) and on the card (`cfg`:
+    the tiny config by default)."""
+    cfg = cfg or M.with_dtype(M.tiny_config(), "float32")
     tcfg = T.TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=3)
     batches = tiny_train_batches(cfg, 3, SEED + 7)
     runs = {}
@@ -557,7 +592,7 @@ def phase_tiny_train(torch, M, T, cli):
         for a, b in zip(mu_c, mu_g))
     lr_sum = sum(T.learning_rate(tcfg, i) for i in range(3))
     worst_param = max((p_c[k] - p_g[k]).abs().max().item() for k in p_c)
-    log(f"  tiny train, 3 steps, accum 2, packed: losses CPU "
+    log(f"  {label} train, 3 steps, accum 2, packed: losses CPU "
         f"{[round(h['loss'], 6) for h in h_c]} card "
         f"{[round(h['loss'], 6) for h in h_g]}")
     log(f"  worst relative difference: loss {worst['loss']:.3e}, grad norm "
@@ -566,11 +601,12 @@ def phase_tiny_train(torch, M, T, cli):
         f"max|diff| {worst_param:.3e} (tol: lr summed over the steps, "
         f"{lr_sum:.3e})")
     if max(worst.values()) > TRAIN_REL or worst_param > lr_sum:
-        fail("tiny f32 training differs between the CPU and the card")
+        fail(f"{label} f32 training differs between the CPU and the card")
 
 
-def serve_lines_for(cfg, n, K):
-    """n JSONL request lines (1-2 images each) and their image tiles."""
+def serve_lines_for(cfg, n, K, max_images=2):
+    """n JSONL request lines (1 to `max_images` images each) and their
+    image tiles."""
     reqs = K.make_serve_requests(cfg, n, seed=SEED + 5)
     tiles = {f"frame{i}.jpg": t for i, (_, t) in enumerate(reqs)}
     questions = (
@@ -580,7 +616,7 @@ def serve_lines_for(cfg, n, K):
         "Estimate the depth of the highlighted object.")
     lines = []
     for i in range(n):
-        images = [f"frame{i}.jpg"] if i % 2 == 0 else \
+        images = [f"frame{i}.jpg"] if i % 2 == 0 or max_images == 1 else \
             [f"frame{i}.jpg", f"frame{(i + 1) % n}.jpg"]
         text = "".join("<image>\n" for _ in images) + questions[i % 4]
         lines.append(json.dumps({"id": f"req{i}", "text": text,
@@ -596,9 +632,10 @@ def top2_margin(torch, model, ids, tiles, generated, step):
     return float(top[0] - top[1])
 
 
-def phase_tiny(torch, M, K):
-    """Greedy tokens of the tiny config, f32: CPU (plain) vs card."""
-    cfg = M.with_dtype(M.tiny_config(), "float32")
+def phase_tiny(torch, M, K, cfg=None, label="tiny", kv_dtype="native"):
+    """Greedy tokens of a tiny config in f32 (`cfg`, the tiny config by
+    default): CPU (plain) vs card."""
+    cfg = cfg or M.with_dtype(M.tiny_config(), "float32")
     cpu_model = M.MultiFrameMLLM(cfg)
     M.init_random_weights(cpu_model, SEED)
     cpu_model.eval()
@@ -606,7 +643,8 @@ def phase_tiny(torch, M, K):
     gpu_model.load_state_dict(cpu_model.state_dict())
     gpu_model.eval()
     pcfg = dict(slots=3, page_size=16, num_pages=64, max_prompt_len=256,
-                max_new_tokens=12, chunk=4, length_bucket=64)
+                max_new_tokens=12, chunk=4, length_bucket=64,
+                kv_dtype=kv_dtype)
     requests = K.make_serve_requests(cfg, 6, seed=SEED + 5)
     want = K.PagedBatcher(cpu_model, K.PagedConfig(**pcfg)).generate_all(
         requests)
@@ -621,15 +659,15 @@ def phase_tiny(torch, M, K):
         k = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b),
                  min(len(g), len(w)))
         if k == min(len(g), len(w)):
-            fail(f"tiny request {i}: token streams differ in length only")
+            fail(f"{label} request {i}: token streams differ in length only")
         margin = top2_margin(torch, cpu_model, ids, tiles, w, k)
-        log(f"  tiny request {i}: first difference at step {k} "
+        log(f"  {label} request {i}: first difference at step {k} "
             f"(card {g[k]}, CPU {w[k]}), CPU top-2 margin {margin:.3e}")
         if margin >= MARGIN:
-            fail(f"tiny request {i} differs at step {k} with margin "
+            fail(f"{label} request {i} differs at step {k} with margin "
                  f"{margin:.3e} >= {MARGIN:g}")
-    log(f"  tiny f32: {n_same}/{len(requests)} requests token-identical "
-        f"(card vs CPU), tokens {sum(len(w) for w in want)}")
+    log(f"  {label} f32, {kv_dtype} kv: {n_same}/{len(requests)} requests "
+        f"token-identical (card vs CPU), tokens {sum(len(w) for w in want)}")
 
 
 def serve_tokenizer():
@@ -645,8 +683,14 @@ def serve_tokenizer():
     return ServeTokenizer()
 
 
-def phase_serve(torch, M, K, A, P, cli, tok):
-    cfg = M.flagship_config()
+def phase_serve(torch, M, K, cli, tok, kernels, cfg=None, pcfg=None,
+                max_images=2, label="flagship"):
+    """16 requests through the serve loop at full width (`cfg`, the
+    flagship config by default) with seeded bf16 weights; each of
+    `kernels` must launch on that path. Returns its launches."""
+    cfg = cfg or M.flagship_config()
+    pcfg = pcfg or K.PagedConfig(slots=8, page_size=64, num_pages=256,
+                                 max_prompt_len=2048, max_new_tokens=32)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     model = M.MultiFrameMLLM(cfg, device=dev)
@@ -654,13 +698,11 @@ def phase_serve(torch, M, K, A, P, cli, tok):
     model.eval()
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"  flagship: {n_params / 1e9:.3f} B params on the card, built in "
-        f"{time.perf_counter() - t0:.1f} s")
-    batcher = K.PagedBatcher(
-        model, K.PagedConfig(slots=8, page_size=64, num_pages=256,
-                             max_prompt_len=2048, max_new_tokens=32),
-        pad_id=tok.pad_id, eos_id=tok.eos_id)
-    lines, tiles = serve_lines_for(cfg, N_SERVE, K)
+    log(f"  {label}: {n_params / 1e9:.3f} B params on the card, built in "
+        f"{time.perf_counter() - t0:.1f} s; {pcfg}")
+    batcher = K.PagedBatcher(model, pcfg, pad_id=tok.pad_id,
+                             eos_id=tok.eos_id)
+    lines, tiles = serve_lines_for(cfg, N_SERVE, K, max_images)
     to_request = cli.make_request_builder(cfg, tok, batcher, tiles.get)
     events = []
 
@@ -668,14 +710,13 @@ def phase_serve(torch, M, K, A, P, cli, tok):
         events.append((time.perf_counter(), obj))
 
     torch.cuda.reset_peak_memory_stats()
-    A.FLASH_FWD.launches = 0
-    P.PAGED_DECODE.launches = 0
+    for kern in kernels:
+        kern.launches = 0
     t_start = time.perf_counter()
     cli.serve_lines(batcher, lines, to_request, tok, emit, stream=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
-    launches = {"flash_fwd": A.FLASH_FWD.launches,
-                "paged_decode": P.PAGED_DECODE.launches}
+    launches = {k.name: k.launches for k in kernels}
 
     errors = [o for _, o in events if "error" in o]
     if errors:
@@ -689,8 +730,8 @@ def phase_serve(torch, M, K, A, P, cli, tok):
     if len(done) != N_SERVE:
         fail(f"{len(done)}/{N_SERVE} requests finished")
     for rid, toks in tokens.items():
-        if len(toks) > 32 or any(not 0 <= t < cfg.llm.vocab_size
-                                 for t in toks):
+        if len(toks) > pcfg.max_new_tokens or any(
+                not 0 <= t < cfg.llm.vocab_size for t in toks):
             fail(f"{rid}: bad token stream {toks[:8]}...")
     if min(launches.values()) <= 0:
         fail(f"a kernel never launched on the serve path: {launches}")
@@ -723,11 +764,12 @@ def phase_serve(torch, M, K, A, P, cli, tok):
     if logits.shape != (1, seq.shape[1], cfg.llm.vocab_size):
         fail(f"logits shape {tuple(logits.shape)}")
     if not torch.isfinite(logits).all():
-        fail("non-finite logits at the flagship width")
+        fail(f"non-finite logits at the {label} width")
     pred = logits[0, len(ids) - 1:-1].argmax(-1).tolist()
     agree = sum(int(a == b) for a, b in zip(pred, served))
     log(f"  req0: teacher-forced argmax agrees with {agree}/{len(served)} "
         f"served tokens (bf16)")
+    del batcher, model
     return launches
 
 
@@ -777,9 +819,11 @@ def synthetic_frame(path):
     return rng.integers(0, 256, (448, 448, 3), dtype=np.uint8)
 
 
-def phase_train(torch, M, A, T, cli, tok, dev="cuda", base=None):
-    """Training at the flagship widths (`base`, by default the flagship
-    config) through `train_steps` on `dev`; returns (launches on the train
+def phase_train(torch, M, T, cli, tok, kernels, dev="cuda", base=None,
+                layers=TRAIN_LAYERS, max_tiles=6, tiles_per_image=6):
+    """Training at full width (`base`, by default the flagship config, its
+    LLM cut to `layers` layers unless None) through `train_steps` on
+    `dev`; each of `kernels` must launch. Returns (launches on the train
     path, the summary, peak GiB)."""
     import dataclasses
     import gc
@@ -796,8 +840,8 @@ def phase_train(torch, M, A, T, cli, tok, dev="cuda", base=None):
     )
 
     base = base or M.flagship_config()
-    cfg = dataclasses.replace(base, llm=dataclasses.replace(
-        base.llm, num_layers=TRAIN_LAYERS))
+    cfg = base if layers is None else dataclasses.replace(
+        base, llm=dataclasses.replace(base.llm, num_layers=layers))
     dev = torch.device(dev)
     t0 = time.perf_counter()
     model = M.MultiFrameMLLM(cfg, device=dev, param_dtype=torch.float32)
@@ -808,17 +852,19 @@ def phase_train(torch, M, A, T, cli, tok, dev="cuda", base=None):
     step = T.make_train_step(model, opt, accum_steps=2)
     torch.cuda.synchronize()
     log(f"  model: ViT {cfg.vit.hidden_size} x {cfg.vit.num_layers}, LLM "
-        f"{cfg.llm.hidden_size} x {TRAIN_LAYERS} of {base.llm.num_layers} "
-        f"layers, "
+        f"{cfg.llm.hidden_size} x {cfg.llm.num_layers} of "
+        f"{base.llm.num_layers} layers, {cfg.llm.moe_experts} experts "
+        f"({cfg.llm.moe_impl}, {cfg.llm.moe_kernel}), "
         f"{n_params / 1e9:.3f} B float32 params (bf16 compute), with "
         f"AdamW moments: {torch.cuda.memory_allocated() / 2**30:.3f} GiB, "
         f"built in {time.perf_counter() - t0:.1f} s")
 
     with tempfile.TemporaryDirectory() as root:
         meta = write_mixture(root, tok, 64, SEED + 9)
-        data_cfg = DataConfig(max_seq_len=4096, max_tiles=6,
+        data_cfg = DataConfig(max_seq_len=4096, max_tiles=max_tiles,
                               preprocess=PreprocessConfig(
-                                  tile_size=cfg.vit.image_size, max_tiles=6,
+                                  tile_size=cfg.vit.image_size,
+                                  max_tiles=tiles_per_image,
                                   resize_hw=None))
         batches = mixture_batches(load_meta(meta), tok, cfg, synthetic_frame,
                                   2, data_cfg, seed=SEED, packed=True)
@@ -827,14 +873,13 @@ def phase_train(torch, M, A, T, cli, tok, dev="cuda", base=None):
         log(f"  batch: {first['input_ids'].shape} tokens ({real} in "
             f"segments), tiles {first['tiles'].shape}")
         torch.cuda.reset_peak_memory_stats()
-        for kern in (A.FLASH_FWD, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV):
+        for kern in kernels:
             kern.launches = 0
         summary, history = cli.train_steps(
             step, itertools.chain([first], batches), 4, dev, log_every=1,
             log=lambda kind, **kw: log(f"  {kind} {kw}"))
         torch.cuda.synchronize()
-        launches = {k.name: k.launches for k in
-                    (A.FLASH_FWD, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV)}
+        launches = {k.name: k.launches for k in kernels}
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  train: {summary}")
     log(f"  step seconds {[round(h['step_s'], 4) for h in history]}; "
@@ -848,7 +893,7 @@ def phase_train(torch, M, A, T, cli, tok, dev="cuda", base=None):
     if bad:
         fail(f"non-finite loss or grad norm: {bad}")
     if min(launches.values()) <= 0:
-        fail(f"a flash kernel never launched on the train path: {launches}")
+        fail(f"a kernel never launched on the train path: {launches}")
 
     # a fresh optimizer on the train CLI's default schedule takes
     # REPEAT_STEPS steps on the first batch, repeated (the old moments are
@@ -873,6 +918,245 @@ def phase_train(torch, M, A, T, cli, tok, dev="cuda", base=None):
     return launches, summary, peak
 
 
+def grouped_library(torch, form, a, b, sizes):
+    """`torch._grouped_mm` on the same inputs, where this torch has it and
+    it computes the same function (checked against the plain version by
+    the caller): a callable, or None. Timed only; the port never calls
+    it."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    if form == "gmm":
+        call = lambda: fn(a, b, offs=offs)                     # noqa: E731
+    elif form == "gmm_t":
+        call = lambda: fn(a, b.transpose(-2, -1), offs=offs)   # noqa: E731
+    else:   # tgmm: [K, M] x [M, N] per group of M
+        call = lambda: fn(a.t(), b, offs=offs)                 # noqa: E731
+    try:
+        call()
+        torch.cuda.synchronize()
+    except Exception as exc:  # noqa: BLE001 (a yardstick, not the port)
+        log(f"    torch._grouped_mm ({form}) not usable here: "
+            f"{type(exc).__name__}: {str(exc).splitlines()[0][:120]}")
+        return None
+    return call
+
+
+def phase_k8(torch, G):
+    """gmm, gmm_t and tgmm (K8) against their plain versions on float32
+    copies: the preflight shape (NK 16384, D = F = 2048, E 4; uniform and
+    skewed groups), the MoE train shape (NK 8192, D 2048, F 8192, and the
+    down projection F -> D), gmm at the serve shapes (16 decode rows, 512
+    prefill rows), and small f32 cases with an empty group and a boundary
+    inside a tile. Returns (max abs err per entry, timings)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    errs = {"gmm": 0.0, "gmm_t": 0.0, "tgmm": 0.0}
+
+    def case(name, m, k, n, sizes, dtype, probe=False,
+             forms=("gmm", "gmm_t", "tgmm")):
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        e = len(sizes)
+        lhs = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+        rhs = (torch.randn(e, k, n, generator=gen, device=dev)
+               * k ** -0.5).to(dtype)
+        dy = torch.randn(m, n, generator=gen, device=dev).to(dtype)
+        entries = {
+            "gmm": (lambda: G.gmm(lhs, rhs, gs),
+                    lambda x, w, d: G.gmm_plain(x, w, gs)),
+            "gmm_t": (lambda: G.gmm(dy, rhs, gs, transpose_rhs=True),
+                      lambda x, w, d: G.gmm_plain(d, w, gs, True)),
+            "tgmm": (lambda: G.tgmm(lhs, dy, gs),
+                     lambda x, w, d: G.tgmm_plain(x, d, gs))}
+        parts, ok = [], True
+        for form in forms:
+            kern, plain = entries[form]
+            got = kern()
+            want = plain(lhs.float(), rhs.float(), dy.float())
+            pl = plain(lhs, rhs, dy) if dtype == torch.bfloat16 else None
+            torch.cuda.synchronize()
+            # as [B, H, S, D] for the 64-row tile check: gmm/gmm_t tiles
+            # of rows, tgmm tiles of K within each group
+            view = (lambda x: x[:, None]) if form == "tgmm" else \
+                (lambda x: x[None, None])
+            tol = (K1_F32_ATOL if dtype == torch.float32
+                   else BWD_BF16_REL * want.abs().max().item())
+            ok_f, err, text = verdict(view(got), view(want), tol,
+                                      None if pl is None else view(pl))
+            ok = ok and ok_f
+            errs[form] = max(errs[form], err)
+            parts.append(f"{form} {text}")
+            if probe and form == "tgmm":   # one tile of group 1, 10% off
+                bad = got.clone()
+                r0 = 3 * k // 4
+                bad[1, r0:r0 + 64] *= 1.1
+                ok_b, err_b, text_b = verdict(view(bad), view(want), tol,
+                                              view(pl))
+                log(f"  fault probe, tgmm with one 64-row tile of group 1 "
+                    f"10% off: {text_b}; max|err| alone "
+                    f"{'passes' if err_b <= tol else 'fails'} it, the whole"
+                    f" check {'passes' if ok_b else 'fails'} it")
+                if ok_b:
+                    fail("the bf16 check passes a tgmm with one tile 10% "
+                         "off")
+        log(f"  K8 {name}: " + "; ".join(parts) +
+            f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"grouped matmul disagrees with its plain version on {name}")
+        return lhs, rhs, dy, gs
+
+    bf = torch.bfloat16
+    pre = case("preflight NK16384 D2048 F2048 E4 uniform bf16", 16384, 2048,
+               2048, [4096] * 4, bf, probe=True)
+    case("preflight skewed groups [9001, 4000, 3000, 383] bf16", 16384, 2048,
+         2048, [9001, 4000, 3000, 383], bf)
+    train = case("train gate/up NK8192 D2048 -> F8192 E4 bf16", 8192, 2048,
+                 8192, [2500, 1800, 2200, 1692], bf)
+    down = case("train down NK8192 F8192 -> D2048 E4 bf16", 8192, 8192, 2048,
+                [2500, 1800, 2200, 1692], bf)
+    # the serve path's shapes (gmm only; serving takes no gradient): a
+    # decode step's 16 rows (8 slots, top 2) with all four groups, one of
+    # them empty, inside one partial 128-row tile, and a prefill's rows
+    decode = case("serve decode gate/up 16 rows D2048 -> F8192 groups "
+                  "[5, 0, 7, 4] bf16", 16, 2048, 8192, [5, 0, 7, 4], bf,
+                  forms=("gmm",))
+    case("serve decode down 16 rows F8192 -> D2048 groups [5, 0, 7, 4] "
+         "bf16", 16, 8192, 2048, [5, 0, 7, 4], bf, forms=("gmm",))
+    for name, k, n in (("gate/up", 2048, 8192), ("down", 8192, 2048)):
+        case(f"serve prefill {name} 512 rows {k} -> {n} groups "
+             f"[190, 141, 97, 84] bf16", 512, k, n, [190, 141, 97, 84], bf,
+             forms=("gmm",))
+    case("f32 M300 K64 N96, an empty group, boundaries mid-tile", 300, 64,
+         96, [70, 0, 150, 60], torch.float32)
+    case("f32 M256 K128 N136, rows past the groups' total", 256, 128, 136,
+         [10, 100, 40], torch.float32)
+
+    timings = {}
+    all_forms = ("gmm", "gmm_t", "tgmm")
+    for label, (lhs, rhs, dy, gs), timed in (
+            ("preflight", pre, all_forms), ("train", train, all_forms),
+            ("down", down, all_forms), ("decode", decode, ("gmm",))):
+        m, k = lhs.shape
+        n = rhs.shape[2]
+        rows = int(gs.sum())
+        flops = 2 * rows * k * n
+        # the weights of an empty group need not be read
+        dead_b = nbytes(rhs) * int((gs == 0).sum()) // gs.numel()
+        for form, kern, plain, args, out_b in (
+                ("gmm", lambda: G.gmm(lhs, rhs, gs),
+                 lambda: G.gmm_plain(lhs, rhs, gs), (lhs, rhs), m * n * 2),
+                ("gmm_t", lambda: G.gmm(dy, rhs, gs, transpose_rhs=True),
+                 lambda: G.gmm_plain(dy, rhs, gs, True), (dy, rhs),
+                 m * k * 2),
+                ("tgmm", lambda: G.tgmm(lhs, dy, gs),
+                 lambda: G.tgmm_plain(lhs, dy, gs), (lhs, dy),
+                 rhs.numel() * 2)):
+            if form not in timed:
+                continue
+            t_k = cuda_ms(torch, kern)
+            t_p = cuda_ms(torch, plain, iters=3, warmup=1)
+            lib = grouped_library(torch, form, *args, gs)
+            t_l = None
+            if lib is not None:
+                # it must compute the same function on the groups' rows
+                ref, got = plain(), lib()
+                rows_ok = ref[:rows] if form != "tgmm" else ref
+                got = got[:rows] if form != "tgmm" else got
+                same = (got.float() - rows_ok.float()).abs().max().item() \
+                    <= BWD_BF16_REL * rows_ok.float().abs().max().item()
+                t_l = cuda_ms(torch, lib) if same else None
+                if not same:
+                    log(f"    torch._grouped_mm ({form}) computes another "
+                        f"function here; not timed")
+            in_b = nbytes(*args) - (dead_b if form != "tgmm" else 0)
+            bound = bound_ms(flops, in_b + out_b + nbytes(gs))
+            log(f"  K8 {form} {label} ({m}x{k}x{n}, {rows} rows in groups) "
+                f"timing: kernel {t_k:.4f} ms "
+                f"({flops / t_k / 1e9:.1f} TFLOP/s), plain {t_p:.4f} ms, "
+                f"torch._grouped_mm "
+                f"{'none' if t_l is None else f'{t_l:.4f} ms'}, bound "
+                f"{bound[0]:.4f} ms ({bound[1]}; {flops / 1e9:.1f} GFLOP)")
+            timings[(form, label)] = (t_k, t_p, t_l, bound)
+    return errs, timings
+
+
+def phase_k7_int8(torch, P):
+    """K7 int8 against its plain version: pools and scale pools bit-equal
+    after the fused write, outputs within the stated tolerance; timed
+    beside native K7 on the same logical rows. Returns (max abs err,
+    timings)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    def setup(b, h, kvh, ps, pps, hd, n_pages, index, dtype):
+        def normal(*shape):
+            return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+        perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+        pt = perm[: b * pps].reshape(b, pps).to(torch.int32).contiguous()
+        idx = torch.tensor(index, dtype=torch.int32, device=dev)
+        kp, ks = P.quantize_kv_rows(normal(n_pages, kvh, ps, hd))
+        vp, vs = P.quantize_kv_rows(normal(n_pages, kvh, ps, hd))
+        return (normal(b, h, 1, hd), kp, vp, ks, vs, pt, idx,
+                normal(b, kvh, hd), normal(b, kvh, hd))
+
+    def case(name, args, atol):
+        q, kp, vp, ks, vs, pt, idx, kn, vn = args
+        got_pools = [t.clone() for t in (kp, vp, ks, vs)]
+        out = P.paged_decode_attention_cuda(q, *got_pools[:2], pt, idx, kn,
+                                            vn, *got_pools[2:])
+        want_pools = [t.clone() for t in (kp, vp, ks, vs)]
+        P.write_kv_rows(*want_pools[:2], pt, idx, kn, vn, *want_pools[2:])
+        ref = P.window_attention(q.float(), *want_pools[:2], pt, idx,
+                                 *want_pools[2:])
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(got_pools, want_pools))
+        err = (out.float() - ref).abs().max().item()
+        ok = equal and err <= atol
+        log(f"  K7 int8 {name}: pools and scales after the fused write "
+            f"{'bit-equal' if equal else 'DIFFER'}, max|o-ref|={err:.3e} "
+            f"(atol {atol:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"paged_decode_int8 disagrees with its plain version on "
+                 f"{name}")
+        return err
+
+    ps = 128
+    # first page, last row of a page, first row of a fresh page, mid-page
+    index = [0, 5, 127, 128, 300, 400, 511, 600]
+    bench = setup(8, 16, 8, ps, 5, 128, 53, index, torch.bfloat16)
+    errs = [case("bench 8 slots H16 KVH8 hd128 ps128 53 pages bf16", bench,
+                 K7_BF16_ATOL)]
+    errs.append(case("f32 3 slots H4 KVH2 hd64 ps16",
+                     setup(3, 4, 2, 16, 4, 64, 16, [37, 32, 3],
+                           torch.float32), K7_F32_ATOL))
+    errs.append(case("f32 4 slots H8 KVH1 hd32 ps64",
+                     setup(4, 8, 1, 64, 3, 32, 16, [0, 64, 100, 191],
+                           torch.float32), K7_F32_ATOL))
+    q, kp, vp, ks, vs, pt, idx, kn, vn = bench
+    t_k = cuda_ms(torch, lambda: P.paged_decode_attention_cuda(
+        q, kp, vp, pt, idx, kn, vn, ks, vs))
+    t_p = cuda_ms(torch, lambda: P.paged_decode_attention_plain(
+        q, kp, vp, pt, idx, kn, vn, ks, vs))
+    # native K7 over the same logical rows, dequantised to bf16 pools
+    kd = (kp.float() * ks[..., None]).to(q.dtype)
+    vd = (vp.float() * vs[..., None]).to(q.dtype)
+    t_native = cuda_ms(torch, lambda: P.paged_decode_attention_cuda(
+        q, kd, vd, pt, idx, kn, vn))
+    rows = int(idx.sum()) + len(index)          # live rows per kv head
+    hd, kvh, h = q.shape[3], kp.shape[1], q.shape[1]
+    # int8 K and V of the live rows and their f32 scales read once, q read
+    # and o written once, the new rows read and written once
+    n_bytes = (rows * kvh * 2 * (hd + 4) + 2 * nbytes(q) + nbytes(kn, vn)
+               + len(index) * kvh * 2 * (hd + 4))
+    bound = bound_ms(4 * h * rows * hd, n_bytes)
+    log(f"  K7 int8 decode timing (8 slots, {rows} live rows per kv head): "
+        f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, native K7 on the same "
+        f"rows {t_native:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
+        f"{n_bytes / 1e6:.3f} MB)")
+    return max(errs), (t_k, t_p, bound, t_native)
+
+
 def build_all(kernels):
     """Build every kernel source with one nvcc each, all at once, then
     bind the remaining entry points of each library."""
@@ -885,20 +1169,43 @@ def build_all(kernels):
     for kern in kernels:
         kern.build()
     for kern in firsts:
-        log(f"[2/9] built {kern.source}.cu in {kern.build_seconds:.1f} s")
+        log(f"[2/{N_PHASES}] built {kern.source}.cu in "
+            f"{kern.build_seconds:.1f} s")
         for line in kern.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"      ptxas: {line.strip()}")
     log(f"      all kernels built in {time.perf_counter() - t0:.1f} s")
 
 
+def kernel_entry(name, source, replaces, launches_by_path, err, timing,
+                 library_ms):
+    """One entry of the `kernels` line: `timing` is (ms, plain ms,
+    (bound ms, bound by))."""
+    t_k, t_p, (b_ms, b_by) = timing
+    return {"name": name, "route": "cuda",
+            "source": "multi_spatialmllm_tpu_torch/ops/csrc/" + source,
+            "replaces": replaces,
+            "launches": sum(launches_by_path.values()),
+            "launches_by_path": launches_by_path, "max_abs_err": err,
+            "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms}
+
+
+def moe_config(cli):
+    """The MoE slice's model, built by the CLI's own rules: `--config bench
+    --moe-experts 4 --moe-impl ragged --moe-kernel pallas`."""
+    return cli._config(argparse.Namespace(
+        config="bench", vocab_size=0, moe_experts=4, moe_impl="ragged",
+        moe_kernel="pallas", moe_group=0))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", type=int, nargs="*",
-                        default=list(range(3, 10)),
+                        default=list(range(3, N_PHASES + 1)),
                         help="phases to run after the device and the build")
     phases = set(parser.parse_args(argv).phases)
-    # fewer fragments for the training phase's large, short-lived tensors
+    # fewer fragments for the training phases' large, short-lived tensors
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
@@ -906,10 +1213,13 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; this script runs only on the "
               "card", file=sys.stderr)
         return 1
+    import dataclasses
+
     from multi_spatialmllm_tpu_torch import __main__ as cli
     from multi_spatialmllm_tpu_torch.models import mllm as M
     from multi_spatialmllm_tpu_torch.models import paged_kv as K
     from multi_spatialmllm_tpu_torch.ops import attention as A
+    from multi_spatialmllm_tpu_torch.ops import grouped_matmul as G
     from multi_spatialmllm_tpu_torch.ops import paged_attention as P
     from multi_spatialmllm_tpu_torch.parallel import train as T
 
@@ -918,80 +1228,148 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
+    def head(n, text):
+        log(f"[{n}/{N_PHASES}] {text}")
+
     card = card_name_and_power_limit()
-    log(f"[1/9] device: {torch.cuda.get_device_name(0)} "
-        f"(count {torch.cuda.device_count()}), torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
-    build_all([A.FLASH_FWD, P.PAGED_DECODE, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV])
+    head(1, f"device: {torch.cuda.get_device_name(0)} "
+            f"(count {torch.cuda.device_count()}), torch {torch.__version__}, "
+            f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
+    build_all([A.FLASH_FWD, P.PAGED_DECODE, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV,
+               P.PAGED_DECODE_INT8, G.GMM, G.GMM_T, G.TGMM])
     tok = serve_tokenizer()
     res = {}
     if 3 in phases:
-        log("[3/9] flash_fwd (K1) against its plain version")
+        head(3, "flash_fwd (K1) against its plain version")
         res["k1"] = phase_k1(torch, A)
     if 4 in phases:
-        log("[4/9] paged_decode (K7) against the plain gather-window version")
+        head(4, "paged_decode (K7) against the plain gather-window version")
         res["k7"] = phase_k7(torch, P)
     if 5 in phases:
-        log("[5/9] tiny f32: PagedBatcher on the CPU vs on the card")
+        head(5, "tiny f32: PagedBatcher on the CPU vs on the card")
         phase_tiny(torch, M, K)
     if 6 in phases:
-        log("[6/9] flagship serve: 16 requests through the serve loop")
-        res["serve"] = phase_serve(torch, M, K, A, P, cli, tok)
+        head(6, "flagship serve: 16 requests through the serve loop")
+        res["serve"] = phase_serve(torch, M, K, cli, tok,
+                                   [A.FLASH_FWD, P.PAGED_DECODE])
         torch.cuda.empty_cache()
     if 7 in phases:
-        log("[7/9] flash backward (K2, K3; K4-K6 at S 8192) against the "
-            "plain version")
+        head(7, "flash backward (K2, K3; K4-K6 at S 8192) against the plain "
+                "version")
         res["bwd"] = phase_bwd(torch, A)
         torch.cuda.empty_cache()
     if 8 in phases:
-        log("[8/9] tiny f32 training: 3 steps on the CPU vs on the card")
+        head(8, "tiny f32 training: 3 steps on the CPU vs on the card")
         phase_tiny_train(torch, M, T, cli)
     if 9 in phases:
-        log(f"[9/9] flagship-width training, LLM cut to {TRAIN_LAYERS} "
-            f"layers: 4 steps through train_steps")
-        res["train"] = phase_train(torch, M, A, T, cli, tok)
+        head(9, f"flagship-width training, LLM cut to {TRAIN_LAYERS} layers: "
+                f"4 steps through train_steps")
+        res["train"] = phase_train(
+            torch, M, T, cli, tok,
+            [A.FLASH_FWD, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV])
+    if 10 in phases:
+        head(10, "gmm, gmm_t, tgmm (K8) against their plain versions")
+        res["k8"] = phase_k8(torch, G)
+        torch.cuda.empty_cache()
+    if 11 in phases:
+        head(11, "paged_decode_int8 (K7 int8) against its plain version")
+        res["k7i8"] = phase_k7_int8(torch, P)
+    if 12 in phases:
+        tiny_moe = M.with_dtype(M.tiny_moe_config(), "float32")
+        for impl, kernel in (("einsum", "xla"), ("ragged", "pallas")):
+            cfg = dataclasses.replace(tiny_moe, llm=dataclasses.replace(
+                tiny_moe.llm, moe_impl=impl, moe_kernel=kernel))
+            label = f"tiny MoE {impl}" + (f"/{kernel}" if impl == "ragged"
+                                          else "")
+            head(12, f"{label} f32: 3 train steps and int8-kv greedy "
+                     f"serving, CPU vs card")
+            phase_tiny_train(torch, M, T, cli, cfg, label)
+            phase_tiny(torch, M, K, cfg, label, kv_dtype="int8")
+    if 13 in phases:
+        head(13, "MoE train at full width (bench, 4 experts, ragged, K8), "
+                 "nothing cut: 4 steps through train_steps")
+        res["moe_train"] = phase_train(
+            torch, M, T, cli, tok,
+            [A.FLASH_FWD, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV, G.GMM, G.GMM_T,
+             G.TGMM], base=moe_config(cli), layers=None,
+            max_tiles=MOE_MAX_TILES, tiles_per_image=MOE_TILES_PER_IMAGE)
+        steps = res["moe_train"][1]["steps"]
+        log(f"  K8 launches a step (remat on; expected 96 gmm, 48 gmm_t, 48 "
+            f"tgmm): " + ", ".join(
+                f"{k} {res['moe_train'][0][k] / steps:g}"
+                for k in ("gmm", "gmm_t", "tgmm")))
+        torch.cuda.empty_cache()
+    if 14 in phases:
+        head(14, "MoE serve at full width (bench, 4 experts, ragged, K8; "
+                 "int8 kv): 16 requests through the serve loop")
+        cfg = moe_config(cli)
+        res["moe_serve"] = phase_serve(
+            torch, M, K, cli, tok, [A.FLASH_FWD, G.GMM, P.PAGED_DECODE_INT8],
+            cfg=cfg, pcfg=K.bench_paged_config(kv_dtype="int8"),
+            max_images=1, label="bench MoE")
+        torch.cuda.empty_cache()
     log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
-    if phases != set(range(3, 10)):
+    if phases != set(range(3, N_PHASES + 1)):
         return 0      # a partial run prints no result line
     k1_err, k1 = res["k1"]
     k7_err, k7 = res["k7"]
     err_dq, err_dkv, err_fwd, bwd = res["bwd"]
-    train_launches = res["train"][0]
+    k8_err, k8 = res["k8"]
+    k7i8_err, k7i8 = res["k7i8"]
+    train = res["train"][0]
+    moe_train, moe_serve = res["moe_train"][0], res["moe_serve"]
     tr = bwd["train"]
-    src = "multi_spatialmllm_tpu_torch/ops/csrc/"
     jax_attn = "multi_spatialmllm_tpu/ops/attention.py"
+    jax_moe = "multi_spatialmllm_tpu/models/moe.py"
+
+    def by_path(name, **paths):
+        return {p: launches[name] for p, launches in paths.items()}
+
+    flash = dict(serve=res["serve"], train=train, moe_serve=moe_serve,
+                 moe_train=moe_train)
     kernels = [
-        {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
-         "replaces": f"{jax_attn}:92 (K1); :483 (K4, streaming)",
-         "launches": res["serve"]["flash_fwd"] + train_launches["flash_fwd"],
-         "launches_by_path": {"serve": res["serve"]["flash_fwd"],
-                              "train": train_launches["flash_fwd"]},
-         "max_abs_err": max(k1_err, err_fwd),
-         "ms": k1["prefill"][0], "plain_ms": k1["prefill"][1],
-         "bound_ms": k1["prefill"][3][0], "bound_by": k1["prefill"][3][1],
-         "library_ms": k1["prefill"][2]},
-        {"name": "flash_bwd_dq", "route": "cuda",
-         "source": src + "flash_bwd.cu",
-         "replaces": f"{jax_attn}:269 (K2); :592 (K5, streaming)",
-         "launches": train_launches["flash_bwd_dq"], "max_abs_err": err_dq,
-         "ms": tr["dq"][0], "plain_ms": tr["plain"],
-         "bound_ms": tr["dq"][1][0], "bound_by": tr["dq"][1][1],
-         "library_ms": tr["lib_bwd"]},
-        {"name": "flash_bwd_dkv", "route": "cuda",
-         "source": src + "flash_bwd.cu",
-         "replaces": f"{jax_attn}:324 (K3); :645 (K6, streaming)",
-         "launches": train_launches["flash_bwd_dkv"], "max_abs_err": err_dkv,
-         "ms": tr["dkv"][0], "plain_ms": tr["plain"],
-         "bound_ms": tr["dkv"][1][0], "bound_by": tr["dkv"][1][1],
-         "library_ms": tr["lib_bwd"]},
-        {"name": "paged_decode", "route": "cuda",
-         "source": src + "paged_decode.cu",
-         "replaces": "multi_spatialmllm_tpu/ops/paged_attention.py:95",
-         "launches": res["serve"]["paged_decode"], "max_abs_err": k7_err,
-         "ms": k7[0], "plain_ms": k7[1], "bound_ms": k7[2][0],
-         "bound_by": k7[2][1], "library_ms": None},
+        kernel_entry("flash_fwd", "flash_fwd.cu",
+                     f"{jax_attn}:92 (K1); :483 (K4, streaming)",
+                     by_path("flash_fwd", **flash), max(k1_err, err_fwd),
+                     (k1["prefill"][0], k1["prefill"][1], k1["prefill"][3]),
+                     k1["prefill"][2]),
+        kernel_entry("flash_bwd_dq", "flash_bwd.cu",
+                     f"{jax_attn}:269 (K2); :592 (K5, streaming)",
+                     by_path("flash_bwd_dq", train=train,
+                             moe_train=moe_train), err_dq,
+                     (tr["dq"][0], tr["plain"], tr["dq"][1]), tr["lib_bwd"]),
+        kernel_entry("flash_bwd_dkv", "flash_bwd.cu",
+                     f"{jax_attn}:324 (K3); :645 (K6, streaming)",
+                     by_path("flash_bwd_dkv", train=train,
+                             moe_train=moe_train), err_dkv,
+                     (tr["dkv"][0], tr["plain"], tr["dkv"][1]),
+                     tr["lib_bwd"]),
+        kernel_entry("paged_decode", "paged_decode.cu",
+                     "multi_spatialmllm_tpu/ops/paged_attention.py:95",
+                     by_path("paged_decode", serve=res["serve"]), k7_err,
+                     k7, None),
+        kernel_entry("paged_decode_int8", "paged_decode.cu",
+                     "multi_spatialmllm_tpu/ops/paged_attention.py:95 "
+                     "(quant branch, :220-245, :256-275)",
+                     by_path("paged_decode_int8", moe_serve=moe_serve),
+                     k7i8_err, k7i8[:3], None),
     ]
+    for name, replaces, paths in (
+            ("gmm", f"{jax_moe}:133 (_pallas_gmm: megablox gmm)",
+             dict(moe_train=moe_train, moe_serve=moe_serve)),
+            ("gmm_t", f"{jax_moe}:146-165 (VJP: gmm, transpose_rhs)",
+             dict(moe_train=moe_train)),
+            ("tgmm", f"{jax_moe}:146-165 (VJP: megablox tgmm)",
+             dict(moe_train=moe_train))):
+        t_k, t_p, t_l, bound = k8[(name, "train")]
+        kernels.append(kernel_entry(name, "grouped_matmul.cu", replaces,
+                                    by_path(name, **paths), k8_err[name],
+                                    (t_k, t_p, bound), t_l))
+    missing = [(k["name"], p) for k in kernels
+               for p, n in k["launches_by_path"].items() if n <= 0]
+    if missing:
+        fail(f"kernels never launched on their paths: {missing}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -187,14 +187,40 @@ def cmd_serve(args) -> None:
 
 
 def _config(args):
+    """Model config from --config/--vocab-size/--moe-*, with the JAX CLI's
+    rules (`_mllm_config`), shared by `serve` and `train`: a checkpoint
+    trained with --moe-experts has a routed-FFN param tree, so serving it
+    needs the same flag; --moe-kernel applies to the ragged impl only."""
+    import dataclasses
+
     from .models import mllm as M
 
     cfg = M.CONFIGS[args.config]()
-    if args.vocab_size:
-        import dataclasses
-
-        cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
-            cfg.llm, vocab_size=args.vocab_size))
+    overrides = {}
+    if getattr(args, "vocab_size", 0):
+        overrides["vocab_size"] = args.vocab_size
+    if getattr(args, "moe_experts", 0):
+        overrides["moe_experts"] = args.moe_experts
+        # grouped routing only affects training; inference ignores it
+        if getattr(args, "moe_group", 0):
+            overrides["moe_group"] = args.moe_group
+        if getattr(args, "moe_impl", None):
+            overrides["moe_impl"] = args.moe_impl
+        if getattr(args, "moe_kernel", None):
+            if overrides.get("moe_impl", cfg.llm.moe_impl) != "ragged":
+                raise SystemExit(
+                    "--moe-kernel applies to the ragged impl's grouped "
+                    "matmuls only (pass --moe-impl ragged)")
+            overrides["moe_kernel"] = args.moe_kernel
+    elif (getattr(args, "moe_group", 0) or getattr(args, "moe_impl", None)
+          or getattr(args, "moe_kernel", None)):
+        raise SystemExit(
+            "--moe-group/--moe-impl/--moe-kernel require --moe-experts "
+            "(a dense config has no routed FFN; the checkpoint's param "
+            "tree would not match)")
+    if overrides:
+        cfg = dataclasses.replace(
+            cfg, llm=dataclasses.replace(cfg.llm, **overrides))
     return cfg
 
 
@@ -271,8 +297,6 @@ def train_steps(step_fn: Callable, batches: Iterable[dict], steps: int,
 def _refuse_unported_train_flags(args) -> None:
     unported = {
         "--lora-rank": args.lora_rank,
-        "--moe-experts": args.moe_experts, "--moe-group": args.moe_group,
-        "--moe-kernel": args.moe_kernel, "--moe-impl": args.moe_impl,
         "--model-parallel > 1": args.model_parallel > 1,
         "--seq-parallel > 1": args.seq_parallel > 1,
         "--expert-parallel > 1": args.expert_parallel > 1,
@@ -295,10 +319,11 @@ def cmd_train(args) -> None:
     """SFT from the CLI: data-mixture meta JSON x model config -> rolling
     torch checkpoints, on one device (`--device`, the card by default).
     Deterministic mixture streaming (models/mixture.py), padded or packed
-    batches, float32 master weights with the config's compute dtype, and
-    the optax-equivalent AdamW step (parallel/train.py); prints the JAX
-    CLI's summary line."""
+    batches, float32 master weights with the config's compute dtype, a
+    dense or routed-MoE decoder (`--moe-*`), and the optax-equivalent AdamW
+    step (parallel/train.py); prints the JAX CLI's summary line."""
     _refuse_unported_train_flags(args)
+    cfg = _config(args)
     import torch
 
     from .models import mllm as M
@@ -319,7 +344,6 @@ def cmd_train(args) -> None:
         save_checkpoint_rolling,
     )
 
-    cfg = _config(args)
     tok = load_tokenizer(args.tokenizer)
     if tok.vocab_size > cfg.llm.vocab_size:
         raise ValueError(f"tokenizer vocab {tok.vocab_size} > model vocab "
@@ -398,6 +422,21 @@ def cmd_train(args) -> None:
     print(json.dumps({**summary, "devices": 1, "device": str(device)}))
 
 
+def _add_moe_flags(p, group: bool) -> None:
+    """The routed-MoE flags of the JAX CLI (`--moe-group`, GShard groups,
+    matters to training only)."""
+    p.add_argument("--moe-experts", type=int, default=0,
+                   help="routed-MoE FFN with this many experts (0: dense)")
+    if group:
+        p.add_argument("--moe-group", type=int, default=0,
+                       help="einsum impl: route training rows in groups "
+                            "of this many tokens")
+    p.add_argument("--moe-impl", choices=("einsum", "ragged"), default=None)
+    p.add_argument("--moe-kernel", choices=("xla", "pallas"), default=None,
+                   help="ragged impl's grouped products: pallas = the "
+                        "hand-written kernels")
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(prog="multi_spatialmllm_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -428,11 +467,14 @@ def main(argv=None) -> None:
     p.add_argument("--stop-id", type=int, action="append",
                    help="extra stop token id (repeatable; eos always "
                         "stops)")
+    p.add_argument("--kv-dtype", choices=("native", "int8"),
+                   default="native",
+                   help="kv page pools in the model dtype, or int8 with "
+                        "per-row scales")
+    _add_moe_flags(p, group=False)
     # the JAX CLI's further serving options: accepted, and each raises
     # NotImplementedError until it is ported
     p.add_argument("--sampling", action="store_true")
-    p.add_argument("--kv-dtype", choices=("native", "int8"),
-                   default="native")
     p.add_argument("--prefix-cache", action="store_true")
     p.add_argument("--prefill-chunk", type=int, default=0)
     p.add_argument("--vision-cache", type=int, default=0)
@@ -487,6 +529,7 @@ def main(argv=None) -> None:
     p.add_argument("--validate-sample", type=int, default=200)
     p.add_argument("--data-shard", type=int, default=0)
     p.add_argument("--data-num-shards", type=int, default=1)
+    _add_moe_flags(p, group=True)
     # the JAX CLI's further training options: accepted, and each raises
     # NotImplementedError until it is ported
     p.add_argument("--lora-rank", type=int, default=0)
@@ -494,10 +537,6 @@ def main(argv=None) -> None:
     p.add_argument("--model-parallel", type=int, default=1)
     p.add_argument("--seq-parallel", type=int, default=1)
     p.add_argument("--expert-parallel", type=int, default=1)
-    p.add_argument("--moe-experts", type=int, default=0)
-    p.add_argument("--moe-group", type=int, default=0)
-    p.add_argument("--moe-kernel", choices=("xla", "pallas"), default=None)
-    p.add_argument("--moe-impl", choices=("einsum", "ragged"), default=None)
     p.add_argument("--fsdp", action="store_true")
     p.add_argument("--async-save", action="store_true")
     p.add_argument("--trace-dir", default=None)

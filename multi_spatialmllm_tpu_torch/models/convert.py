@@ -11,6 +11,9 @@ dict), given as nested dicts of numpy arrays. Layouts:
   `[H, hd, D]` -> `[D, H*hd]`.
 * `Conv` kernel HWIO (applied to NHWC tiles) -> OIHW.
 * `Embed.embedding` `[V, D]` as is; LayerNorm/RMSNorm `scale` -> `weight`.
+* MoE layers (`llm/layer_{i}/moe/{router, wi_gate, wi_up, wo}`, plain
+  params with no `kernel` level) as they are: the port keeps the JAX
+  layouts `[D, E]`, `[E, D, F]`, `[E, F, D]`.
 
 Values stay float32; `load_state_dict` casts them to each parameter's
 dtype (the same rounding as Flax's cast at compute time).
@@ -93,8 +96,12 @@ def jax_params_to_state_dict(params: dict, cfg: MLLMConfig) -> dict:
             _put(sd, f"{pre}.attn.{name}", _dense(lay["attn"][name]))
         _put(sd, f"{pre}.attn.wo", _dense_in2(lay["attn"]["wo"]))
         _put(sd, f"{pre}.mlp_norm", _norm(lay["mlp_norm"]))
-        for name in ("gate", "up", "down"):
-            _put(sd, f"{pre}.mlp.{name}", _dense(lay["mlp"][name]))
+        if "moe" in lay:
+            _put(sd, f"{pre}.moe", {k: _t(lay["moe"][k]) for k in
+                                    ("router", "wi_gate", "wi_up", "wo")})
+        else:
+            for name in ("gate", "up", "down"):
+                _put(sd, f"{pre}.mlp.{name}", _dense(lay["mlp"][name]))
     _put(sd, "llm.final_norm", _norm(llm["final_norm"]))
     _put(sd, "llm.lm_head", _dense(llm["lm_head"]))
     return sd

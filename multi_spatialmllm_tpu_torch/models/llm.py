@@ -4,8 +4,11 @@ Port of multi_spatialmllm_tpu/models/llm.py: the training forward and
 prompt prefill (causal flash attention through the trainable op, with
 per-segment positions and a block-diagonal mask for packed rows; prefill
 returns the fresh kv as the contiguous row cache), the one-token paged
-decode step (the paged decode op lands the new kv row in the pools and
-attends), and the masked next-token losses.
+decode step (the paged decode op lands the new kv row in the pools, native
+or int8 with per-row scales, and attends), and the masked next-token
+losses. With `moe_experts > 0` every layer's FFN is a routed MoE
+(models/moe.py); each layer returns its load-balance statistic, and
+`inference` (prefill and decode) selects the MoE's inference routing.
 
 Numerics follow the Flax modules: RMSNorm and RoPE compute in float32 and
 cast back; RoPE rotates split halves; every weight is cast to the config
@@ -29,6 +32,7 @@ from ..ops.attention import (
     trainable_flash_attention_packed,
 )
 from ..ops.paged_attention import paged_decode_attention
+from .moe import MoEMLP
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -46,6 +50,13 @@ class LLMConfig:
     max_seq_len: int = 8192
     dtype: str = "bfloat16"
     remat: bool = False  # recompute each layer's activations in backward
+    # routed MoE FFN (models/moe.py); 0 keeps the dense SwiGLU
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity: float = 2.0   # expert buffer = ceil(top_k*T*cap/E)
+    moe_impl: str = "einsum"    # "einsum" (GShard dispatch) or "ragged"
+    moe_group: int = 0          # training routes in groups of this many
+    moe_kernel: str = "xla"     # ragged products: "pallas" = K8, "xla"
 
     @property
     def head_dim(self) -> int:
@@ -140,8 +151,9 @@ class Attention(nn.Module):
         (`paged` None): causal attention over the fresh kv (block-diagonal
         within equal `segment_ids` `[B, T]` for packed rows), returning
         `(out, (k, v))` with k/v `[B, KVH, T, hd]`. Paged decode (`paged`
-        a dict of k_pages, v_pages, page_table, index; T == 1): returns
-        `(out, None)`, the pools updated in place."""
+        a dict of k_pages, v_pages, page_table, index, and k_scale/v_scale
+        for int8 pools; T == 1): returns `(out, None)`, the pools updated in
+        place."""
         cfg = self.cfg
         b, t, _ = x.shape
         hd = cfg.head_dim
@@ -164,7 +176,8 @@ class Attention(nn.Module):
                     "queue 1, item 15)")
             out = paged_decode_attention(
                 q, paged["k_pages"], paged["v_pages"], paged["page_table"],
-                paged["index"], k[:, :, 0], v[:, :, 0])
+                paged["index"], k[:, :, 0], v[:, :, 0],
+                paged.get("k_scale"), paged.get("v_scale"))
             kv = None
         out = out.transpose(1, 2).reshape(b, t, cfg.num_heads * hd)
         return self.wo(out), kv
@@ -188,12 +201,24 @@ class DecoderLayer(nn.Module):
         self.attn_norm = RMSNorm(cfg.hidden_size, cfg.norm_eps, device)
         self.attn = Attention(cfg, device)
         self.mlp_norm = RMSNorm(cfg.hidden_size, cfg.norm_eps, device)
-        self.mlp = MLP(cfg, device)
+        if cfg.moe_experts > 0:
+            self.moe = MoEMLP(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device)
 
-    def forward(self, x, rope, paged=None, segment_ids=None):
+    def forward(self, x, rope, paged=None, segment_ids=None,
+                inference: bool = False):
+        """-> `(x, kv, aux)`: aux is the MoE load-balance statistic (None
+        for a dense FFN). Pads (segment id 0) take no expert capacity and
+        leave the statistic; `inference` marks prefill and decode."""
         attn_out, kv = self.attn(self.attn_norm(x), rope, paged, segment_ids)
         x = x + attn_out
-        return x + self.mlp(self.mlp_norm(x)), kv
+        h = self.mlp_norm(x)
+        if hasattr(self, "moe"):
+            valid = None if segment_ids is None else segment_ids != 0
+            out, aux = self.moe(h, valid=valid, inference=inference)
+            return x + out, kv, aux
+        return x + self.mlp(h), kv, None
 
 
 class DecoderLM(nn.Module):
@@ -212,24 +237,30 @@ class DecoderLM(nn.Module):
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
                               device=device, dtype=dtype)
 
-    def forward(self, input_embeds, positions, paged=None, segment_ids=None):
+    def forward(self, input_embeds, positions, paged=None, segment_ids=None,
+                inference: bool = False, with_aux: bool = False):
         """`paged`: None for training and prefill, else one pool dict per
         layer (see Attention.forward); `segment_ids` `[B, T]` for packed
-        rows (with per-segment `positions`). Returns `(logits, kv rows per
-        layer)`."""
+        rows (with per-segment `positions`); `inference` True for prefill
+        and decode (the MoE's inference routing), False for training.
+        Returns `(logits, kv rows per layer)`, and with `with_aux` also the
+        per-layer MoE statistics (None for dense layers)."""
         x = input_embeds
         rope = rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
         remat = self.cfg.remat and paged is None and torch.is_grad_enabled()
-        kvs = []
+        kvs, auxes = [], []
         for i, layer in enumerate(self.layers):
             if remat:
-                x, kv = checkpoint(layer, x, rope, None, segment_ids,
-                                   use_reentrant=False)
+                x, kv, aux = checkpoint(layer, x, rope, None, segment_ids,
+                                        inference, use_reentrant=False)
             else:
-                x, kv = layer(x, rope, None if paged is None else paged[i],
-                              segment_ids)
+                x, kv, aux = layer(x, rope,
+                                   None if paged is None else paged[i],
+                                   segment_ids, inference)
             kvs.append(kv)
-        return self.lm_head(self.final_norm(x)), kvs
+            auxes.append(aux)
+        logits = self.lm_head(self.final_norm(x))
+        return (logits, kvs, auxes) if with_aux else (logits, kvs)
 
 
 def cross_entropy_sum(logits, labels, ignore_index: int = -100):

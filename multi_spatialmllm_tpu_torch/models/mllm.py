@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from .llm import DTYPES, DecoderLM, Linear, LLMConfig, cross_entropy_loss
+from .moe import MoEMLP
 from .vit import LayerNorm, ViTConfig, VisionTransformer, gelu
 
 IMG_CONTEXT_ID_DEFAULT = 3  # reserved token id for vision-token slots
@@ -95,8 +96,11 @@ class MultiFrameMLLM(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, tiles: torch.Tensor,
                 positions: torch.Tensor | None = None,
-                segment_ids: torch.Tensor | None = None):
-        """Training forward: logits `[B, T, vocab]`. `positions` and
+                segment_ids: torch.Tensor | None = None,
+                with_aux: bool = False):
+        """Training forward: logits `[B, T, vocab]`, and with `with_aux`
+        `(logits, per-layer MoE statistics)` (the JAX package's sown
+        `moe_aux_loss` values; None for dense layers). `positions` and
         `segment_ids` `[B, T]` come with packed rows (models/data
         `pack_samples`): per-segment RoPE positions and a block-diagonal
         causal mask; without them, positions count from 0 and attention is
@@ -105,7 +109,10 @@ class MultiFrameMLLM(nn.Module):
         b, t, _ = embeds.shape
         if positions is None:
             positions = torch.arange(t, device=embeds.device).expand(b, t)
-        return self.llm(embeds, positions, segment_ids=segment_ids)[0]
+        logits, _, auxes = self.llm(embeds, positions,
+                                    segment_ids=segment_ids,
+                                    inference=False, with_aux=True)
+        return (logits, auxes) if with_aux else logits
 
     def prefill(self, input_ids: torch.Tensor, tiles: torch.Tensor):
         """Prompt prefill -> `(logits, kv rows per layer)`. Right padding
@@ -115,7 +122,7 @@ class MultiFrameMLLM(nn.Module):
         embeds = self.spliced_embeds(input_ids, tiles)
         b, t, _ = embeds.shape
         positions = torch.arange(t, device=embeds.device).expand(b, t)
-        return self.llm(embeds, positions)
+        return self.llm(embeds, positions, inference=True)
 
 
 def loss_fn(model: MultiFrameMLLM, batch: dict):
@@ -128,26 +135,36 @@ def loss_fn(model: MultiFrameMLLM, batch: dict):
     return cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:])
 
 
+def fan_in(module: nn.Module, leaf: str, p: torch.Tensor) -> int:
+    """The true fan-in of a weight, keyed on its module and name: a
+    `Linear` `[out, in]` -> in, a convolution `[O, C, kh, kw]` -> C*kh*kw,
+    and the MoE tables in their JAX layouts: `router` `[D, E]` -> D,
+    `wi_gate`/`wi_up` `[E, D, F]` -> D, `wo` `[E, F, D]` -> F."""
+    if isinstance(module, MoEMLP):
+        return p.shape[0] if leaf == "router" else p.shape[1]
+    return math.prod(p.shape[1:])
+
+
 @torch.no_grad()
 def init_random_weights(model: MultiFrameMLLM, seed: int) -> None:
     """Seeded random weights on the model's device (serving smoke runs at
-    full width without a checkpoint): matrices and convolutions normal
-    with std fan_in^-1/2, embeddings normal with std 0.02, biases zero,
-    norm scales one."""
+    full width without a checkpoint): matrices, convolutions and expert
+    tables normal with std fan_in^-1/2 (`fan_in`), embeddings normal with
+    std 0.02, biases zero, norm scales one. Parameters are drawn in
+    `named_parameters` order."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
-    for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        module = name.rsplit(".", 2)[-2] if name.count(".") >= 1 else ""
-        if "norm" in module:
-            p.fill_(1.0 if leaf == "weight" else 0.0)
-        elif leaf == "bias" or leaf == "cls_token":
-            p.zero_()
-        elif module in ("embed",) or leaf == "pos_embed":
-            p.normal_(0.0, 0.02, generator=gen)
-        else:
-            fan_in = math.prod(p.shape[1:])
-            p.normal_(0.0, fan_in ** -0.5, generator=gen)
+    for mod_name, mod in model.named_modules():
+        module = mod_name.rsplit(".", 1)[-1]
+        for leaf, p in mod.named_parameters(recurse=False):
+            if "norm" in module:
+                p.fill_(1.0 if leaf == "weight" else 0.0)
+            elif leaf == "bias" or leaf == "cls_token":
+                p.zero_()
+            elif module in ("embed",) or leaf == "pos_embed":
+                p.normal_(0.0, 0.02, generator=gen)
+            else:
+                p.normal_(0.0, fan_in(mod, leaf, p) ** -0.5, generator=gen)
 
 
 def tiny_config(**overrides) -> MLLMConfig:
@@ -160,6 +177,14 @@ def tiny_config(**overrides) -> MLLMConfig:
     return MLLMConfig(vit=vit, llm=llm, **overrides)
 
 
+def tiny_moe_config(num_experts: int = 4, **overrides) -> MLLMConfig:
+    """tiny_config with every decoder MLP replaced by a top-2 routed MoE
+    (models/moe.py)."""
+    base = tiny_config(**overrides)
+    return dataclasses.replace(base, llm=dataclasses.replace(
+        base.llm, moe_experts=num_experts))
+
+
 def bench_1chip_config() -> MLLMConfig:
     """The JAX package's `bench` config: flagship-shaped, ~700M params
     (GQA 2:1, SwiGLU, hd 128), remat on (whole layers here; the JAX
@@ -170,6 +195,20 @@ def bench_1chip_config() -> MLLMConfig:
                     num_heads=16, num_kv_heads=8, ffn_size=8192,
                     max_seq_len=4096, remat=True)
     return MLLMConfig(vit=vit, llm=llm)
+
+
+def bench_1chip_moe_config(num_experts: int = 4, impl: str = "einsum",
+                           kernel: str = "xla") -> MLLMConfig:
+    """The JAX package's `bench_1chip_moe_config`: the bench config with
+    every decoder MLP swapped for a top-2 routed MoE at the same total
+    parameter count (FFN 8192/E per expert), GShard groups of 256 tokens
+    for the einsum impl's training. Remat recomputes whole layers (the
+    JAX config's selective policy for the ragged impl is not ported)."""
+    base = bench_1chip_config()
+    return dataclasses.replace(base, llm=dataclasses.replace(
+        base.llm, moe_experts=num_experts,
+        ffn_size=base.llm.ffn_size // num_experts, moe_group=256,
+        moe_impl=impl, moe_kernel=kernel))
 
 
 def flagship_config() -> MLLMConfig:

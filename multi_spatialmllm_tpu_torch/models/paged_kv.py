@@ -1,14 +1,15 @@
 """Paged KV cache + paged continuous batching in PyTorch.
 
 Port of multi_spatialmllm_tpu/models/paged_kv.py for the greedy,
-native-dtype, one-shot-prefill path: a device page pool shared by all
-decode slots, a host-side page allocator, per-request B=1 prefill whose
-kv rows are scattered into whole pages, and decode in chunks of `chunk`
-steps over every slot through the paged decode op (the CUDA kernel on
-the card), with the tokens read back to the host once per chunk. When
-the pool runs dry a refill is deferred and, if a running slot cannot
-extend, it is preempted (pages freed, request re-queued and replayed
-from prefill; greedy decoding reproduces its tokens).
+one-shot-prefill path: a device page pool shared by all decode slots, in
+the model dtype or int8 with per-row float32 scales (`kv_dtype`), a
+host-side page allocator, per-request B=1 prefill whose kv rows are
+scattered (quantised, for int8 pools) into whole pages, and decode in
+chunks of `chunk` steps over every slot through the paged decode op (the
+CUDA kernel on the card), with the tokens read back to the host once per
+chunk. When the pool runs dry a refill is deferred and, if a running slot
+cannot extend, it is preempted (pages freed, request re-queued and
+replayed from prefill; greedy decoding reproduces its tokens).
 
 Key invariants (as in the JAX package):
 * Page 0 is a SINK page, never allocated: freed/idle slots' table rows
@@ -26,14 +27,15 @@ import time
 import numpy as np
 import torch
 
+from ..ops.paged_attention import quantize_kv_rows
 from .generate import pad_to_bucket
 from .llm import DTYPES, LLMConfig
 from .mllm import MLLMConfig, MultiFrameMLLM
 from .serving import SamplingParams, prefill_one
 
+KV_DTYPES = ("native", "int8")
 # PagedConfig options of the JAX package ported only at their defaults
 _NOT_PORTED = {
-    "kv_dtype": ("int8 kv pools", "K7 int8"),
     "prefill_chunk": ("chunked prefill", "queue 1, item 15"),
     "vision_cache": ("the vision-feature cache", "queue 1, item 15"),
     "speculate": ("speculative decoding", "queue 1, item 15"),
@@ -58,8 +60,8 @@ class PagedConfig:
     max_new_tokens: int = 32
     chunk: int = 8                 # decode steps per host round trip
     length_bucket: int = 128       # prefill shape bucketing
+    kv_dtype: str = "native"       # "int8": int8 pools + per-row scales
     # The JAX package's further options; only their defaults are ported.
-    kv_dtype: str = "native"
     prefill_chunk: int = 0
     vision_cache: int = 0
     speculate: int = 0
@@ -68,6 +70,9 @@ class PagedConfig:
     logprobs: bool = False
 
     def __post_init__(self):
+        if self.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype {self.kv_dtype!r} not in "
+                             f"{KV_DTYPES}")
         for field in dataclasses.fields(self):
             if field.name in _NOT_PORTED \
                     and getattr(self, field.name) != field.default:
@@ -109,20 +114,32 @@ class PageAllocator:
 
 def init_paged_pools(cfg: LLMConfig, pcfg: PagedConfig, device) -> list:
     """Per-layer page pools `[num_pages, kv_heads, page_size, head_dim]`
-    in the model dtype."""
+    in the model dtype, or int8 with float32 scale pools
+    `[num_pages, kv_heads, page_size]` (`k_scale`, `v_scale`) when
+    `pcfg.kv_dtype == "int8"`."""
     shape = (pcfg.num_pages, cfg.num_kv_heads, pcfg.page_size, cfg.head_dim)
-    dtype = DTYPES[cfg.dtype]
-    return [{"k_pages": torch.zeros(shape, dtype=dtype, device=device),
-             "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in range(cfg.num_layers)]
+    quant = pcfg.kv_dtype == "int8"
+    dtype = torch.int8 if quant else DTYPES[cfg.dtype]
+    pools = []
+    for _ in range(cfg.num_layers):
+        pool = {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+                "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+        if quant:
+            for key in ("k_scale", "v_scale"):
+                pool[key] = torch.zeros(shape[:3], dtype=torch.float32,
+                                        device=device)
+        pools.append(pool)
+    return pools
 
 
 @torch.no_grad()
 def paged_insert(pools: list, row_kvs: list, page_ids: list[int]) -> None:
     """Scatter a B=1 prefilled row cache (`[1, KVH, T, hd]` k/v per
-    layer) into the pool pages `page_ids`, in place. The rows are padded
-    up to whole pages; rows past the true length hold pad-key values that
-    the decode mask never admits and later decode writes overwrite."""
+    layer) into the pool pages `page_ids`, in place (int8 pools: each row
+    quantised with `quantize_kv_rows`, its scale beside it). The rows are
+    padded up to whole pages; rows past the true length hold pad-key
+    values that the decode mask never admits and later decode writes
+    overwrite."""
     page_size = pools[0]["k_pages"].shape[2]
     n = len(page_ids)
     device = pools[0]["k_pages"].device
@@ -135,8 +152,12 @@ def paged_insert(pools: list, row_kvs: list, page_ids: list[int]) -> None:
         return r.reshape(kvh, n, page_size, hd).transpose(0, 1)
 
     for pool, (k, v) in zip(pools, row_kvs):
-        pool["k_pages"][ids] = to_pages(k).to(pool["k_pages"].dtype)
-        pool["v_pages"][ids] = to_pages(v).to(pool["v_pages"].dtype)
+        kr, vr = to_pages(k), to_pages(v)
+        if "k_scale" in pool:
+            kr, pool["k_scale"][ids] = quantize_kv_rows(kr)
+            vr, pool["v_scale"][ids] = quantize_kv_rows(vr)
+        pool["k_pages"][ids] = kr.to(pool["k_pages"].dtype)
+        pool["v_pages"][ids] = vr.to(pool["v_pages"].dtype)
 
 
 @torch.no_grad()
@@ -152,7 +173,8 @@ def paged_decode_chunk(model: MultiFrameMLLM, last_token: torch.Tensor,
     for _ in range(chunk):
         paged = [dict(p, page_table=page_table, index=positions)
                  for p in pools]
-        logits, _ = llm(llm.embed(token), positions[:, None].long(), paged)
+        logits, _ = llm(llm.embed(token), positions[:, None].long(), paged,
+                        inference=True)
         token = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
         outs.append(token[:, 0])
         positions = positions + 1
@@ -390,9 +412,12 @@ class PagedBatcher:
 def bench_paged_config(chunk: int = 32, max_new_tokens: int = 128,
                        kv_dtype: str = "native",
                        prefix_cache: bool = False) -> PagedConfig:
-    """The JAX package's serving-benchmark configuration (native pools:
-    page 64, 105 pages, 8 slots, prompts up to 512)."""
-    return PagedConfig(slots=8, page_size=64, num_pages=105,
+    """The JAX package's serving-benchmark configuration: 8 slots, prompts
+    up to 512; native pools of page 64 and 105 pages, int8 pools of page
+    128 and 53 pages (the same rows within one page; the page size is the
+    TPU kernel's layout rule, kept so the two packages serve alike)."""
+    page_size, num_pages = (128, 53) if kv_dtype == "int8" else (64, 105)
+    return PagedConfig(slots=8, page_size=page_size, num_pages=num_pages,
                        max_prompt_len=512, max_new_tokens=max_new_tokens,
                        chunk=chunk, length_bucket=128, kv_dtype=kv_dtype,
                        prefix_cache=prefix_cache)

@@ -14,6 +14,10 @@ and a stock PyTorch optimizer would change:
 * Adam's eps is added after the square root of the bias-corrected second
   moment, and the decay is decoupled: `u += wd * p`, then `p -= lr * u`.
 
+With a routed-MoE decoder the loss adds `MOE_AUX_WEIGHT` times the mean of
+the layers' load-balance statistics, weighted by each microbatch's token
+count as the JAX step's `loss_sum_of` does.
+
 Parameters, gradients and both moments are float32 (the model holds float32
 master weights, `MultiFrameMLLM(..., param_dtype=torch.float32)`). Unlike
 the JAX step, which returns new trees, the step updates them in place.
@@ -38,6 +42,7 @@ import torch
 from ..models.llm import cross_entropy_sum
 
 ADAM_EPS = 1e-8             # optax.adamw's default
+MOE_AUX_WEIGHT = 0.01       # the JAX make_train_step's default
 CHECKPOINT_FILE = "checkpoint.pt"
 
 
@@ -112,6 +117,13 @@ class AdamW:
             v.copy_(state["nu"][name])
 
 
+def moe_aux_mean(auxes: list) -> torch.Tensor | float:
+    """Mean of the per-layer MoE statistics (None entries, dense layers,
+    left out), so the coefficient does not depend on the depth."""
+    vals = [a for a in auxes if a is not None]
+    return sum(vals) / max(len(vals), 1)
+
+
 def make_train_step(model, optimizer: AdamW, accum_steps: int = 1
                     ) -> Callable[[dict], dict]:
     """`step(batch) -> {"loss", "grad_norm"}` (0-d tensors on the model's
@@ -124,8 +136,12 @@ def make_train_step(model, optimizer: AdamW, accum_steps: int = 1
     is the summed token nll over the global count of supervised tokens
     (known from the labels before any forward), so accumulation equals the
     single-pass mean even when microbatches carry different token counts.
+    A MoE decoder adds `MOE_AUX_WEIGHT * mean aux * count_mb` to each
+    microbatch's nll before that one division (`loss_sum_of` in the JAX
+    step; with one microbatch it equals `loss_of`'s mean + weight * aux).
     """
     params = optimizer.params
+    use_moe = model.cfg.llm.moe_experts > 0
 
     def step(batch: dict) -> dict:
         n = batch["input_ids"].shape[0]
@@ -138,12 +154,16 @@ def make_train_step(model, optimizer: AdamW, accum_steps: int = 1
         nll = torch.zeros((), device=denom.device)
         for i in range(accum_steps):
             sub = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            logits = model(sub["input_ids"], sub["tiles"],
-                           positions=sub.get("positions"),
-                           segment_ids=sub.get("segment_ids"))
-            mb_nll, _ = cross_entropy_sum(logits[:, :-1],
-                                          sub["labels"][:, 1:])
+            logits, auxes = model(sub["input_ids"], sub["tiles"],
+                                  positions=sub.get("positions"),
+                                  segment_ids=sub.get("segment_ids"),
+                                  with_aux=True)
+            mb_nll, count = cross_entropy_sum(logits[:, :-1],
+                                              sub["labels"][:, 1:])
             del logits
+            if use_moe:
+                mb_nll = mb_nll + (MOE_AUX_WEIGHT * moe_aux_mean(auxes)
+                                   * count.to(mb_nll.dtype))
             (mb_nll / denom).backward()
             nll += mb_nll.detach()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad

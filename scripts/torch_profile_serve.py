@@ -2,14 +2,18 @@
 """Where the port's serving time goes, on one GPU: torch.profiler over
 one flagship prefill and one decode chunk of the PagedBatcher.
 
-    python3 scripts/torch_profile_serve.py [--out DIR]
+    python3 scripts/torch_profile_serve.py [--out DIR] [--moe]
 
 Builds the `flagship` config with seeded random bf16 weights, warms up
 with the smoke run's 16 requests, then profiles (a) the B=1 prefill +
 page insert of a two-image request and (b) one decode chunk with all 8
-slots live. For each window it writes the top operators by device time
-and prints the device-busy share of the window's host-clock time (the
-rest is the device waiting on the host). Needs CUDA; fails without it.
+slots live. With `--moe`: `chip_smoke.py` phase 14's routed-MoE model
+(bench, 4 experts, ragged impl on K8) with int8 kv pools
+(`bench_paged_config`), one-image requests, files suffixed `_moe`.
+
+For each window it writes the top operators by device time and prints
+the device-busy share of the window's host-clock time (the rest is the
+device waiting on the host). Needs CUDA; fails without it.
 """
 
 import argparse
@@ -67,32 +71,41 @@ def main():
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out"))
+    ap.add_argument("--moe", action="store_true",
+                    help="the routed-MoE model with int8 kv pools")
     args = ap.parse_args()
     os.makedirs(args.out, exist_ok=True)
+    suffix = "_moe" if args.moe else ""
 
-    cfg = M.flagship_config()
+    if args.moe:
+        cfg = smoke.moe_config(cli)
+        pcfg = K.bench_paged_config(kv_dtype="int8")
+    else:
+        cfg = M.flagship_config()
+        pcfg = K.PagedConfig(slots=8, page_size=64, num_pages=256,
+                             max_prompt_len=2048, max_new_tokens=32)
     model = M.MultiFrameMLLM(cfg, device="cuda")
     M.init_random_weights(model, smoke.SEED)
     model.eval()
     tok = smoke.serve_tokenizer()
-    pcfg = K.PagedConfig(slots=8, page_size=64, num_pages=256,
-                         max_prompt_len=2048, max_new_tokens=32)
     batcher = K.PagedBatcher(model, pcfg, pad_id=tok.pad_id,
                              eos_id=tok.eos_id)
-    lines, tiles = smoke.serve_lines_for(cfg, smoke.N_SERVE, K)
+    lines, tiles = smoke.serve_lines_for(cfg, smoke.N_SERVE, K,
+                                         1 if args.moe else 2)
     to_request = cli.make_request_builder(cfg, tok, batcher, tiles.get)
     cli.serve_lines(batcher, lines, to_request, tok, lambda o: None)
     print(f"card: {smoke.card_name_and_power_limit()}")
     print(f"warm-up serve stats: {batcher.stats}")
 
     reqs = [to_request(json.loads(ln)) for ln in lines[:8]]
-    two_image = reqs[1]
+    two_image = reqs[1]      # one image with --moe
     results = {}
 
     def prefill():
         batcher._prefill_into(0, two_image[0], two_image[1])
 
-    results["prefill"] = profile(torch, prefill, "prefill", args.out)
+    results["prefill"] = profile(torch, prefill, "prefill" + suffix,
+                                 args.out)
     batcher._free_slot(0)
     for slot, (ids, t) in enumerate(reqs):
         batcher._prefill_into(slot, ids, t)
@@ -106,9 +119,10 @@ def main():
             torch.as_tensor(batcher.page_table, device="cuda"), pcfg.chunk)
         toks.cpu()
 
-    results["decode_chunk"] = profile(torch, decode, "decode_chunk",
+    results["decode_chunk"] = profile(torch, decode, "decode_chunk" + suffix,
                                       args.out)
-    with open(os.path.join(args.out, "profile_summary.json"), "w") as f:
+    with open(os.path.join(args.out, f"profile_summary{suffix}.json"),
+              "w") as f:
         json.dump(results, f, indent=1)
     return 0
 

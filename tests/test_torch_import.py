@@ -18,6 +18,7 @@ import torch
 from multi_spatialmllm_tpu.models import tokenizer as JT
 from multi_spatialmllm_tpu_torch.models import runner as TR
 from multi_spatialmllm_tpu_torch.ops import attention as TA
+from multi_spatialmllm_tpu_torch.ops import grouped_matmul as TG
 from multi_spatialmllm_tpu_torch.ops import paged_attention as TP
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -28,6 +29,7 @@ PORT_MODULES = [
     "multi_spatialmllm_tpu_torch.core.rng",
     "multi_spatialmllm_tpu_torch.ops._build",
     "multi_spatialmllm_tpu_torch.ops.attention",
+    "multi_spatialmllm_tpu_torch.ops.grouped_matmul",
     "multi_spatialmllm_tpu_torch.ops.paged_attention",
     "multi_spatialmllm_tpu_torch.models._vocab_templates",
     "multi_spatialmllm_tpu_torch.models.convert",
@@ -36,6 +38,7 @@ PORT_MODULES = [
     "multi_spatialmllm_tpu_torch.models.llm",
     "multi_spatialmllm_tpu_torch.models.mixture",
     "multi_spatialmllm_tpu_torch.models.mllm",
+    "multi_spatialmllm_tpu_torch.models.moe",
     "multi_spatialmllm_tpu_torch.models.paged_kv",
     "multi_spatialmllm_tpu_torch.models.preprocess",
     "multi_spatialmllm_tpu_torch.models.runner",
@@ -46,7 +49,8 @@ PORT_MODULES = [
     "multi_spatialmllm_tpu_torch.parallel.train",
 ]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "multi_spatialmllm_tpu")
-KERNELS = [TA.FLASH_FWD, TA.FLASH_BWD_DQ, TA.FLASH_BWD_DKV, TP.PAGED_DECODE]
+KERNELS = [TA.FLASH_FWD, TA.FLASH_BWD_DQ, TA.FLASH_BWD_DKV, TP.PAGED_DECODE,
+           TP.PAGED_DECODE_INT8, TG.GMM, TG.GMM_T, TG.TGMM]
 
 
 def _env():
@@ -101,9 +105,8 @@ def _run_blocked(args, tmp_path, stdin=""):
             if ln.startswith("{")]
 
 
-def test_train_and_serve_run_with_the_jax_package_unimportable(tmp_path):
-    """`train` (packed rows, accumulation, a rolling checkpoint) then
-    `serve` from that checkpoint, on the tiny config on the CPU."""
+def _write_mixture(tmp_path):
+    """Six one-image records and their PNGs under `tmp_path`."""
     import cv2
     import numpy as np
 
@@ -123,13 +126,21 @@ def test_train_and_serve_run_with_the_jax_package_unimportable(tmp_path):
     (tmp_path / "mix.json").write_text(json.dumps(
         {"spa": {"root": "imgs", "annotation": "train.jsonl",
                  "repeat_time": 1}}))
+
+
+def _train_then_serve(tmp_path, model_flags=(), serve_flags=()):
+    """`train` (packed rows, accumulation, a rolling checkpoint) then
+    `serve` from that checkpoint, on the tiny config on the CPU, with the
+    JAX package unimportable."""
+    _write_mixture(tmp_path)
     out = tmp_path / "ckpt"
     [report] = _run_blocked(
         ["train", "--meta", "mix.json", "--config", "tiny", "--device",
          "cpu", "--steps", "2", "--batch-size", "2", "--accum", "2",
          "--seq-len", "128", "--max-tiles", "2", "--tiles-per-image", "1",
          "--packed", "--warmup", "1", "--lr", "1e-3", "--log-every", "1",
-         "--vocab-size", "800", "--output", str(out)], tmp_path)
+         "--vocab-size", "800", "--output", str(out), *model_flags],
+        tmp_path)
     assert report["steps"] == 2 and report["device"] == "cpu"
     assert all(v is not None for v in report.values())
     assert (out / "LATEST").read_text().strip() == "step_00000002"
@@ -141,10 +152,24 @@ def test_train_and_serve_run_with_the_jax_package_unimportable(tmp_path):
         ["serve", "--checkpoint", str(out), "--config", "tiny", "--device",
          "cpu", "--vocab-size", "800", "--images-root", "imgs",
          "--max-new-tokens", "4", "--slots", "2", "--page-size", "16",
-         "--num-pages", "32", "--max-prompt-len", "128"], tmp_path,
-        stdin=lines)
+         "--num-pages", "32", "--max-prompt-len", "128", *model_flags,
+         *serve_flags], tmp_path, stdin=lines)
     assert sorted(r["id"] for r in results) == ["q0", "q1"]
     assert all(0 < len(r["token_ids"]) <= 4 for r in results)
+
+
+def test_train_and_serve_run_with_the_jax_package_unimportable(tmp_path):
+    _train_then_serve(tmp_path)
+
+
+def test_moe_train_and_int8_serve_run_with_the_jax_package_unimportable(
+        tmp_path):
+    """The MoE slice's commands: `train --moe-experts 4 --moe-impl ragged
+    --moe-kernel pallas`, then `serve` of that checkpoint with the same
+    flags and int8 kv pools."""
+    _train_then_serve(
+        tmp_path, ["--moe-experts", "4", "--moe-impl", "ragged",
+                   "--moe-kernel", "pallas"], ["--kv-dtype", "int8"])
 
 
 @pytest.mark.parametrize("kernel", KERNELS, ids=lambda k: k.name)

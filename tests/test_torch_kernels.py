@@ -5,18 +5,20 @@ a machine without it (tests/conftest.py imports jax; skip it there):
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
 
-Tolerances: float32 outputs 1e-4 (flash forward), 2e-4 (flash backward,
-the JAX backward test's own) and 2e-5 (paged decode, the JAX package's
-own); bf16 outputs 2e-2 on unit-normal inputs (backward: 2e-2 of each
-gradient's largest magnitude, and its relative RMS and worst 64-row-tile
-errors within 2x those of the plain version on the same bf16 values),
-against the plain version run in float32 on the same (bf16) values;
-pools after the fused write bit-equal."""
+Tolerances: float32 outputs 1e-4 (flash forward, grouped matmul), 2e-4
+(flash backward, the JAX backward test's own) and 2e-5 (paged decode, the
+JAX package's own); bf16 outputs 2e-2 on unit-normal inputs (backward and
+grouped matmul: 2e-2 and 1e-2 of the largest magnitude, and the
+backward's relative RMS and worst 64-row-tile errors within 2x those of
+the plain version on the same bf16 values), against the plain version run
+in float32 on the same (bf16) values; pools (and int8 scale pools) after
+the fused write bit-equal."""
 
 import pytest
 import torch
 
 from multi_spatialmllm_tpu_torch.ops import attention as TA
+from multi_spatialmllm_tpu_torch.ops import grouped_matmul as TG
 from multi_spatialmllm_tpu_torch.ops import paged_attention as TP
 
 pytestmark = pytest.mark.cuda
@@ -197,3 +199,108 @@ def test_paged_decode_ignores_garbage_past_index(dev):
     out2 = TP.paged_decode_attention(q, kp, vp, pt, idx, kn, vn)
     torch.cuda.synchronize()
     assert (out - out2).abs().max().item() <= 1e-6
+
+
+def _paged_int8_inputs(gen, dev, dtype, b, h, kvh, ps, pps, hd, n_pages):
+    """Quantised pools (through the plain quantiser), a page table, and
+    positions at the first page, a page's last row, a fresh page and
+    mid-page."""
+    from multi_spatialmllm_tpu_torch.ops.paged_attention import (
+        quantize_kv_rows,
+    )
+
+    pt = (torch.randperm(n_pages - 1, generator=gen, device=dev)[:b * pps]
+          + 1).reshape(b, pps).to(torch.int32)
+    idx = torch.tensor([0, ps - 1, 2 * ps, ps // 2][:b], dtype=torch.int32,
+                       device=dev)
+    kp, ks = quantize_kv_rows(_normal(gen, dev, dtype, n_pages, kvh, ps, hd))
+    vp, vs = quantize_kv_rows(_normal(gen, dev, dtype, n_pages, kvh, ps, hd))
+    q = _normal(gen, dev, dtype, b, h, 1, hd)
+    kn = _normal(gen, dev, dtype, b, kvh, hd)
+    vn = _normal(gen, dev, dtype, b, kvh, hd)
+    return q, kp, vp, ks, vs, pt, idx, kn, vn
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("h,kvh,ps,hd", [(4, 2, 16, 64), (16, 8, 128, 128),
+                                         (8, 1, 64, 32)])
+def test_paged_decode_int8_matches_plain(dev, dtype, h, kvh, ps, hd):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, kp, vp, ks, vs, pt, idx, kn, vn = _paged_int8_inputs(
+        gen, dev, dtype, 4, h, kvh, ps, 4, hd, 20)
+    pools_k = [t.clone() for t in (kp, vp, ks, vs)]
+    before = TP.PAGED_DECODE_INT8.launches
+    out = TP.paged_decode_attention(q, *pools_k[:2], pt, idx, kn, vn,
+                                    *pools_k[2:])
+    pools_p = [t.clone() for t in (kp, vp, ks, vs)]
+    TP.write_kv_rows(*pools_p[:2], pt, idx, kn, vn, *pools_p[2:])
+    ref = TP.window_attention(q.float(), *pools_p[:2], pt, idx,
+                              *pools_p[2:])
+    torch.cuda.synchronize()
+    assert TP.PAGED_DECODE_INT8.launches == before + 1
+    for a, b in zip(pools_k, pools_p):
+        assert torch.equal(a, b)
+    atol = 2e-5 if dtype == torch.float32 else ATOL[dtype]
+    assert (out.float() - ref).abs().max().item() <= atol
+
+
+# (rows M, contraction K, output N, group sizes): an empty group, a group
+# boundary inside a 128-row tile, rows past the groups' total, sum == M
+GMM_CASES = {
+    "empty_group_midtile": (300, 64, 96, [70, 0, 150, 60]),
+    "tail_rows_zero": (256, 128, 136, [10, 100, 40]),
+    "sum_equals_m": (384, 40, 256, [128, 129, 127]),
+    "one_group": (130, 64, 64, [130]),
+    # a decode step's rows (8 slots, top 2): four groups in one partial tile
+    "decode_rows": (16, 256, 512, [5, 0, 7, 4]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(GMM_CASES))
+def test_grouped_matmul_matches_plain(dev, case, dtype):
+    m, k, n, sizes = GMM_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    e = len(sizes)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    lhs = _normal(gen, dev, dtype, m, k)
+    rhs = _normal(gen, dev, dtype, e, k, n)
+    dy = _normal(gen, dev, dtype, m, n)
+    got = (TG.gmm(lhs, rhs, gs), TG.gmm(dy, rhs, gs, transpose_rhs=True),
+           TG.tgmm(lhs, dy, gs))
+    want = (TG.gmm_plain(lhs.float(), rhs.float(), gs),
+            TG.gmm_plain(dy.float(), rhs.float(), gs, transpose_rhs=True),
+            TG.tgmm_plain(lhs.float(), dy.float(), gs))
+    torch.cuda.synchronize()
+    for name, g, w in zip(("gmm", "gmm_t", "tgmm"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        tol = 1e-4 if dtype == torch.float32 else \
+            1e-2 * w.abs().max().item()
+        assert (g.float() - w).abs().max().item() <= tol, name
+    total = sum(sizes)
+    assert not got[0][total:].any() and not got[1][total:].any()
+    for g_idx, size in enumerate(sizes):
+        if size == 0:
+            assert not got[2][g_idx].any()
+
+
+def test_grouped_matmul_grads_on_the_card(dev):
+    """The autograd op on CUDA tensors: gmm forward, gmm_t and tgmm
+    backward, against autograd through the plain version (f32)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    gs = torch.tensor([50, 0, 90, 60], dtype=torch.int32, device=dev)
+    lhs = torch.randn(200, 64, generator=gen, device=dev)
+    rhs = torch.randn(4, 64, 80, generator=gen, device=dev)
+    dy = torch.randn(200, 80, generator=gen, device=dev)
+    counts = [k.launches for k in (TG.GMM, TG.GMM_T, TG.TGMM)]
+    a = [t.clone().requires_grad_() for t in (lhs, rhs)]
+    TG.grouped_matmul(*a, gs).backward(dy)
+    r = [t.clone().requires_grad_() for t in (lhs, rhs)]
+    TG.gmm_plain(*r, gs.cpu()).backward(dy)
+    torch.cuda.synchronize()
+    for x, y in zip(a, r):
+        assert (x.grad - y.grad).abs().max().item() <= 2e-4
+    assert [k.launches for k in (TG.GMM, TG.GMM_T, TG.TGMM)] == \
+        [c + 1 for c in counts]

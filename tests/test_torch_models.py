@@ -60,10 +60,16 @@ def pair():
 
 
 def test_configs_match_jax():
-    for name, jfn in (("tiny", JM.tiny_config), ("bench",
-                                                  JM.bench_1chip_config),
-                      ("flagship", JM.flagship_config)):
-        jc, tc = jfn(), TM.CONFIGS[name]()
+    for jfn, tfn in ((JM.tiny_config, TM.tiny_config),
+                     (JM.bench_1chip_config, TM.bench_1chip_config),
+                     (JM.flagship_config, TM.flagship_config),
+                     (JM.tiny_moe_config, TM.tiny_moe_config),
+                     (lambda: JM.bench_1chip_moe_config(4, "ragged",
+                                                        "pallas"),
+                      lambda: TM.bench_1chip_moe_config(4, "ragged",
+                                                        "pallas"))):
+        jc, tc = jfn(), tfn()
+        name = tfn.__name__
         for tower in ("vit", "llm"):
             tfields = dataclasses.asdict(getattr(tc, tower))
             jfields = dataclasses.asdict(getattr(jc, tower))
@@ -153,3 +159,98 @@ def test_random_init_is_seeded_and_finite():
         logits = a(torch.from_numpy(ids).long(), torch.from_numpy(tiles))
     assert logits.shape == (1, 32, cfg.llm.vocab_size)
     assert torch.isfinite(logits).all()
+
+
+def _old_init_random_weights(model, seed):
+    """`init_random_weights` as it was before the MoE tables: std
+    prod(shape[1:])^-1/2 for every matrix and convolution."""
+    import math
+
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            module = name.rsplit(".", 2)[-2] if name.count(".") >= 1 else ""
+            if "norm" in module:
+                p.fill_(1.0 if leaf == "weight" else 0.0)
+            elif leaf == "bias" or leaf == "cls_token":
+                p.zero_()
+            elif module in ("embed",) or leaf == "pos_embed":
+                p.normal_(0.0, 0.02, generator=gen)
+            else:
+                p.normal_(0.0, math.prod(p.shape[1:]) ** -0.5,
+                          generator=gen)
+
+
+def test_random_init_keeps_the_dense_draws():
+    """The fan-in repair leaves a dense model's seeded weights as they
+    were: the same seed gives the same tensors."""
+    cfg = TM.with_dtype(TM.tiny_config(), "float32")
+    a, b = TM.MultiFrameMLLM(cfg), TM.MultiFrameMLLM(cfg)
+    TM.init_random_weights(a, seed=11)
+    _old_init_random_weights(b, seed=11)
+    for (n, pa), (_, pb) in zip(a.named_parameters(), b.named_parameters()):
+        assert torch.equal(pa, pb), n
+
+
+def test_random_init_gives_moe_tables_their_fan_in():
+    """router [D, E] and wi_gate/wi_up [E, D, F] draw with std D^-1/2, wo
+    [E, F, D] with F^-1/2 (not prod(shape[1:])^-1/2)."""
+    cfg = TM.with_dtype(TM.tiny_moe_config(), "float32")
+    model = TM.MultiFrameMLLM(cfg)
+    TM.init_random_weights(model, seed=0)
+    d, f = cfg.llm.hidden_size, cfg.llm.ffn_size
+    moe = model.llm.layers[0].moe
+    for p, fan in ((moe.router, d), (moe.wi_gate, d), (moe.wi_up, d),
+                   (moe.wo, f)):
+        assert p.std().item() == pytest.approx(fan ** -0.5, rel=0.1)
+    assert TM.fan_in(moe, "router", moe.router) == d
+    assert TM.fan_in(moe, "wo", moe.wo) == f
+
+
+@pytest.fixture(scope="module", params=["einsum", "ragged"])
+def moe_pair(request):
+    """(JAX cfg, JAX model, JAX params, port model) for tiny MoE in f32;
+    the ragged impl with moe_kernel "pallas" on both sides (megablox in
+    interpret mode on the JAX side)."""
+    kw = {} if request.param == "einsum" else dict(moe_impl="ragged",
+                                                    moe_kernel="pallas")
+    jbase, tbase = JM.tiny_moe_config(), TM.tiny_moe_config()
+    jcfg = dataclasses.replace(
+        jbase, vit=dataclasses.replace(jbase.vit, dtype="float32"),
+        llm=dataclasses.replace(jbase.llm, dtype="float32", **kw))
+    tcfg = dataclasses.replace(
+        tbase, vit=dataclasses.replace(tbase.vit, dtype="float32"),
+        llm=dataclasses.replace(tbase.llm, dtype="float32", **kw))
+    jmodel = JM.MultiFrameMLLM(jcfg)
+    ids, tiles = make_inputs(jcfg, 0, 48)
+    params = jax.jit(jmodel.init)(
+        jax.random.key(1), jnp.asarray(ids), jnp.asarray(tiles))
+    tmodel = TM.MultiFrameMLLM(tcfg)
+    tmodel.load_state_dict(jax_params_to_state_dict(params, jcfg))
+    tmodel.eval()
+    return jcfg, jmodel, params, tmodel
+
+
+def test_moe_mllm_forward_and_prefill_match_jax(moe_pair):
+    """Tiny MoE through `convert.py`: training-forward logits and the
+    prefill's logits and kv rows (inference routing) match JAX's."""
+    cfg, jmodel, params, tmodel = moe_pair
+    ids, tiles = make_inputs(cfg, 9, 64)
+    want = jmodel.apply(params, jnp.asarray(ids), jnp.asarray(tiles))
+    with torch.no_grad():
+        got = tmodel(torch.from_numpy(ids).long(), torch.from_numpy(tiles))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    caches = JL.init_cache(cfg.llm, 1, 64)
+    logits_j, caches_j = jmodel.apply(
+        params, jnp.asarray(ids), jnp.asarray(tiles), caches,
+        jnp.asarray(64), method=JM.MultiFrameMLLM.prefill)
+    with torch.no_grad():
+        logits_t, kvs = tmodel.prefill(torch.from_numpy(ids).long(),
+                                       torch.from_numpy(tiles))
+    np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j),
+                               atol=ATOL)
+    for (k, v), cj in zip(kvs, caches_j):
+        np.testing.assert_allclose(k.numpy(), np.asarray(cj["k"]), atol=ATOL)
+        np.testing.assert_allclose(v.numpy(), np.asarray(cj["v"]), atol=ATOL)

@@ -1,8 +1,11 @@
 """Port paged decode attention (multi_spatialmllm_tpu_torch.ops.
 paged_attention) against the JAX package's Pallas kernel in interpret
-mode, at the shapes of tests/test_paged_kv.py: pools after the fused
-write must be exactly equal, outputs within atol 2e-5 (f32; online vs
-single-pass softmax order). Inputs are numpy draws from a fixed seed."""
+mode, at the shapes of tests/test_paged_kv.py: pools (and, for int8
+pools, scale pools) after the fused write must be exactly equal, outputs
+within atol 2e-5 (f32; online vs single-pass softmax order, and for int8
+the scales applied after the products in the kernel, before them in the
+plain version's dequantised window). Inputs are numpy draws from a fixed
+seed."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -100,3 +103,66 @@ def test_quantize_kv_rows_matches_jax():
     q_t, s_t = TP.quantize_kv_rows(torch.from_numpy(rows))
     np.testing.assert_array_equal(q_t.numpy(), np.asarray(q_j))
     np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+
+
+def _int8_inputs(seed, h, kvh):
+    q, kp, vp, kn, vn = _inputs(seed, h, kvh)
+    kq, ks = JP.quantize_kv_rows(jnp.asarray(kp))
+    vq, vs = JP.quantize_kv_rows(jnp.asarray(vp))
+    return q, np.asarray(kq), np.asarray(vq), np.asarray(ks), \
+        np.asarray(vs), kn, vn
+
+
+@pytest.mark.parametrize("kvh,h", [(2, 4), (1, 4)])
+def test_int8_fused_write_matches_jax_kernel(kvh, h):
+    """The int8 plain version (rows quantised with `quantize_kv_rows`,
+    scattered with their scales, windows dequantised) against the JAX
+    kernel's quant branch with its fused write, in interpret mode, and
+    against JAX's XLA write (`quantize_kv_rows` and a scatter, the path
+    the JAX batcher takes off the TPU). Pools and scales are bit-equal to
+    the XLA write; the int8 pools bit-equal to the kernel's, its scales
+    within one ulp: interpreted on XLA's CPU backend, the kernel's
+    max/127 comes out as max * (1/127) for some rows, where
+    `quantize_kv_rows`, the port and the CUDA kernel divide."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    q, kp, vp, ks, vs, kn, vn = _int8_inputs(4, h, kvh)
+    page = PAGE_TABLE[np.arange(B), INDEX // PS]
+    off = INDEX % PS
+    xla = []
+    for pool, sc, new in ((kp, ks, kn), (vp, vs, vn)):
+        rows, scales = JP.quantize_kv_rows(jnp.asarray(new))
+        xla.append(np.asarray(jnp.asarray(pool).at[page, :, off].set(rows)))
+        xla.append(np.asarray(jnp.asarray(sc).at[page, :, off].set(scales)))
+    with pltpu.force_tpu_interpret_mode():
+        want, kp_j, vp_j, ks_j, vs_j = JP.paged_decode_attention(
+            jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+            jnp.asarray(PAGE_TABLE), jnp.asarray(INDEX),
+            k_new=jnp.asarray(kn), v_new=jnp.asarray(vn),
+            k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    pools = [t(kp), t(vp), t(ks), t(vs)]
+    out = TP.paged_decode_attention(t(q), *pools[:2], t(PAGE_TABLE),
+                                    t(INDEX), t(kn), t(vn), *pools[2:])
+    for got, ref in zip(pools, (xla[0], xla[2], xla[1], xla[3])):
+        np.testing.assert_array_equal(got.numpy(), ref)
+    for got, ref in zip(pools[:2], (kp_j, vp_j)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    for got, ref in zip(pools[2:], (ks_j, vs_j)):
+        np.testing.assert_array_max_ulp(got.numpy(), np.asarray(ref), 1)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_int8_window_matches_jax_kernel_without_write():
+    from jax.experimental.pallas import tpu as pltpu
+
+    q, kp, vp, ks, vs, _, _ = _int8_inputs(5, 4, 2)
+    with pltpu.force_tpu_interpret_mode():
+        want = JP.paged_decode_attention(
+            jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+            jnp.asarray(PAGE_TABLE), jnp.asarray(INDEX),
+            k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    t = torch.from_numpy
+    got = TP.window_attention(t(q), t(kp), t(vp), t(PAGE_TABLE), t(INDEX),
+                              t(ks), t(vs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)

@@ -177,11 +177,62 @@ def test_serve_jsonl_loop(models):
 
 
 def test_unported_options_raise():
-    for kw in (dict(kv_dtype="int8"), dict(prefix_cache=True),
+    for kw in (dict(prefix_cache=True),
                dict(prefill_chunk=16), dict(vision_cache=2),
                dict(speculate=2), dict(sampling=True), dict(logprobs=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TK.PagedConfig(**kw)
+    assert TK.PagedConfig(kv_dtype="int8").kv_dtype == "int8"  # ported
+    with pytest.raises(ValueError, match="kv_dtype"):
+        TK.PagedConfig(kv_dtype="fp8")
+
+
+def test_bench_paged_config_matches_jax():
+    for kv in ("native", "int8"):
+        j, t = JK.bench_paged_config(kv_dtype=kv), TK.bench_paged_config(
+            kv_dtype=kv)
+        for field in dataclasses.fields(t):
+            assert getattr(t, field.name) == getattr(j, field.name), \
+                (kv, field.name)
+
+
+@pytest.fixture(scope="module", params=["einsum", "ragged"])
+def moe_models(request):
+    """Tiny MoE in float32 with the tokenizer's vocabulary, the same
+    weights on both sides; ragged runs the port on K8's plain version
+    (`moe_kernel="pallas"`) against JAX's `lax.ragged_dot`."""
+    impl = request.param
+    jcfg, tcfg = _tiny_f32(True), _tiny_f32(False)
+    jcfg = dataclasses.replace(jcfg, llm=dataclasses.replace(
+        jcfg.llm, moe_experts=4, moe_impl=impl))
+    tcfg = dataclasses.replace(tcfg, llm=dataclasses.replace(
+        tcfg.llm, moe_experts=4, moe_impl=impl,
+        moe_kernel="pallas" if impl == "ragged" else "xla"))
+    jmodel = JM.MultiFrameMLLM(jcfg)
+    ids = np.full((1, 32), 10, np.int32)
+    ids[0, 1:1 + jcfg.tokens_per_tile] = jcfg.img_context_id
+    params = jax.jit(jmodel.init)(jax.random.key(2), jnp.asarray(ids),
+                                  jnp.zeros((1, 1, 56, 56, 3), jnp.float32))
+    tmodel = TM.MultiFrameMLLM(tcfg)
+    tmodel.load_state_dict(jax_params_to_state_dict(params, jcfg))
+    tmodel.eval()
+    return jmodel, params, tmodel
+
+
+def test_moe_int8_kv_greedy_matches_jax(moe_models):
+    """Tiny MoE served with int8 kv pools (quantised prefill insert and
+    decode writes, dequantised windows): greedy tokens match JAX's
+    `PagedBatcher`, which takes its XLA gather path on the CPU."""
+    jmodel, params, tmodel = moe_models
+    requests = _requests(tmodel.cfg, (40, 56, 48, 63))
+    kw = dict(kv_dtype="int8", max_new_tokens=10)
+    want = JK.PagedBatcher(jmodel, params, _pcfg(JK, **kw), pad_id=0,
+                           eos_id=EOS).generate_all(requests)
+    batcher = TK.PagedBatcher(tmodel, _pcfg(TK, **kw), pad_id=0, eos_id=EOS)
+    got = batcher.generate_all(requests)
+    assert_same_greedy(tmodel, requests, got, want)
+    assert batcher.pools[0]["k_pages"].dtype == torch.int8
+    assert batcher.pools[0]["k_scale"].dtype == torch.float32
 
 
 def test_page_allocator():

@@ -237,7 +237,8 @@ def test_remat_keeps_loss_and_gradients():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--lora-rank", "4"], ["--moe-experts", "4"], ["--model-parallel", "2"],
+    ["--lora-rank", "4"], ["--moe-experts", "4", "--expert-parallel", "2"],
+    ["--model-parallel", "2"],
     ["--seq-parallel", "2"], ["--expert-parallel", "2"],
     ["--data-parallel", "2"], ["--fsdp"], ["--eval-jsonl", "eval.jsonl"],
     ["--eval-images-root", "."], ["--eval-limit", "5"],
@@ -279,3 +280,135 @@ def test_rolling_checkpoints_resume(tmp_path):
         assert torch.equal(a, b), n
     for a, b in zip(opt.mu + opt.nu, fresh_opt.mu + fresh_opt.nu):
         assert torch.equal(a, b)
+
+
+def jax_tiny_moe_f32(**kw):
+    cfg = JM.tiny_moe_config()
+    return dataclasses.replace(
+        cfg, vit=dataclasses.replace(cfg.vit, dtype="float32"),
+        llm=dataclasses.replace(cfg.llm, dtype="float32", **kw))
+
+
+def port_tiny_moe_f32(**kw):
+    cfg = TM.with_dtype(TM.tiny_moe_config(), "float32")
+    return dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, **kw))
+
+
+MOE_STEP_CASES = {
+    # moe config overrides, remat, accumulation microbatches
+    "einsum-accum2": (dict(), False, 2),
+    "ragged_pallas-accum1": (dict(moe_impl="ragged", moe_kernel="pallas"),
+                             False, 1),
+    "ragged_pallas-remat-accum2": (dict(moe_impl="ragged",
+                                        moe_kernel="pallas"), True, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(MOE_STEP_CASES))
+def test_moe_train_steps_match_jax(case):
+    """Two steps of `make_train_step` with the load-balance term (weight
+    0.01, the per-layer mean, count-weighted over microbatches) on packed
+    rows, against JAX `make_train_step` from the same params: losses and
+    grad norms, the first step's gradients, and the params after the
+    second (first real) update."""
+    kw, remat, accum = MOE_STEP_CASES[case]
+    jcfg = jax_tiny_moe_f32(remat=remat, **kw)
+    tcfg_m = port_tiny_moe_f32(remat=remat, **kw)
+    jmodel = JM.MultiFrameMLLM(jcfg)
+    b0 = make_batch(jcfg, True, 20)
+    params = jax.jit(jmodel.init)(jax.random.key(3),
+                                  jnp.asarray(b0["input_ids"]),
+                                  jnp.asarray(b0["tiles"]))
+    tmodel = TM.MultiFrameMLLM(tcfg_m, param_dtype=torch.float32)
+    tmodel.load_state_dict(jax_params_to_state_dict(params, jcfg))
+    tcfg = PT.TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=2)
+    opt = PT.AdamW(list(tmodel.named_parameters()), tcfg)
+    step = PT.make_train_step(tmodel, opt, accum_steps=accum)
+    mesh = make_mesh(n_data=1, devices=jax.devices()[:1])
+    tx = JT.make_optimizer(JT.TrainConfig(learning_rate=1e-3,
+                                          warmup_steps=1, total_steps=2))
+    jstep = JT.make_train_step(jmodel, tx, mesh, accum_steps=accum)
+    jparams = jax.tree_util.tree_map(jnp.array, params)
+    jopt = tx.init(jparams)
+    for i in range(2):
+        batch = make_batch(jcfg, True, 21 + i)
+        jparams, jopt, jm = jstep(jparams, jopt,
+                                  {k: jnp.asarray(v) for k, v in
+                                   batch.items()})
+        tm = step(to_torch(batch))
+        for key in ("loss", "grad_norm"):
+            assert abs(float(tm[key]) - float(jm[key])) <= \
+                REL * abs(float(jm[key])), (i, key)
+        if i == 0:   # lr 0: the moments hold the first gradients
+            mu_j = jax_params_to_state_dict(jopt[1][0].mu, jcfg)
+            for name, m in opt.state_dict()["mu"].items():
+                want = mu_j[name].numpy()
+                err = np.abs(m.numpy() - want).max()
+                assert err <= REL * np.abs(want).max() + 1e-12, (name, err)
+    lr_sum = PT.learning_rate(tcfg, 0) + PT.learning_rate(tcfg, 1)
+    p_j = jax_params_to_state_dict(jparams, jcfg)
+    for name, p in tmodel.state_dict().items():
+        err = np.abs(p.numpy() - p_j[name].numpy()).max()
+        assert err <= lr_sum, (name, err, lr_sum)
+
+
+@pytest.mark.parametrize("impl", ["einsum", "ragged"])
+def test_moe_remat_counts_each_aux_once(impl):
+    """Under whole-layer recompute a layer runs twice; its load-balance
+    statistic comes back through the layer's outputs, so the loss and the
+    gradients are those without remat."""
+    kw = dict(moe_impl=impl, moe_kernel="pallas" if impl == "ragged"
+              else "xla")
+    batch = to_torch(make_batch(jax_tiny_moe_f32(), True, 6))
+    runs = []
+    for remat in (False, True):
+        model = TM.MultiFrameMLLM(port_tiny_moe_f32(remat=remat, **kw),
+                                  param_dtype=torch.float32)
+        TM.init_random_weights(model, 0)
+        opt = PT.AdamW(list(model.named_parameters()), PT.TrainConfig())
+        out = PT.make_train_step(model, opt, accum_steps=2)(batch)
+        _, auxes = model(batch["input_ids"], batch["tiles"],
+                         positions=batch["positions"],
+                         segment_ids=batch["segment_ids"], with_aux=True)
+        runs.append((float(out["loss"]), float(out["grad_norm"]),
+                     [float(a.detach()) for a in auxes]))
+    (loss_a, norm_a, aux_a), (loss_b, norm_b, aux_b) = runs
+    assert len(aux_a) == 2 and all(a > 0 for a in aux_a)
+    assert loss_b == pytest.approx(loss_a, rel=1e-6)
+    assert norm_b == pytest.approx(norm_a, rel=1e-5)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--moe-experts", "4"],
+    ["--moe-experts", "4", "--moe-impl", "ragged", "--moe-kernel", "pallas"],
+    ["--moe-experts", "4", "--moe-group", "256"],
+    ["--moe-experts", "4", "--moe-kernel", "pallas"],
+    ["--moe-impl", "ragged"], ["--moe-group", "8"], ["--vocab-size", "800"]],
+    ids=lambda f: "_".join(x.strip("-") for x in f))
+def test_cli_config_rules_match_jax(flags):
+    """`train`'s model config follows the JAX CLI's `_mllm_config`: the
+    same config, or a SystemExit with the same message."""
+    import argparse
+
+    from multi_spatialmllm_tpu import __main__ as jcli
+    from multi_spatialmllm_tpu_torch import __main__ as tcli
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", default="bench")
+    parser.add_argument("--vocab-size", type=int, default=0)
+    parser.add_argument("--moe-experts", type=int, default=0)
+    parser.add_argument("--moe-group", type=int, default=0)
+    parser.add_argument("--moe-impl", default=None)
+    parser.add_argument("--moe-kernel", default=None)
+    args = parser.parse_args(flags)
+    try:
+        want = jcli._mllm_config(args)
+    except SystemExit as exc:
+        with pytest.raises(SystemExit) as got:
+            tcli._config(args)
+        assert str(got.value) == str(exc)
+        return
+    got = tcli._config(args)
+    tfields = dataclasses.asdict(got.llm)
+    jfields = dataclasses.asdict(want.llm)
+    assert {k: jfields[k] for k in tfields} == tfields
