@@ -10,10 +10,16 @@ result line):
 
 1. Device: needs CUDA; prints the card's name and power limit.
 2. Build: compiles the four kernel sources in ops/csrc with nvcc, in
-   parallel (one nvcc per source).
-3. flash_fwd (K1) against its plain version: the flagship prefill shape,
-   the ViT shape with its pad segment, the bench MoE prefill shape (H16
-   over KVH8, S 512) and small float32 cases.
+   parallel (one nvcc per source), and reads the SASS of K1's bf16 kernel
+   (cuobjdump): it must hold wgmma (HGMMA) and TMA loads (UTMALDG).
+3. flash_fwd (K1) against its plain version, timed beside its bound and
+   `scaled_dot_product_attention` at the shapes its paths run (flagship
+   prefill S 2048, the ViT shape with its pad segment, the bench MoE
+   prefill H16 over KVH8 S 512, a packed S 4096 train row of 16 segments
+   and a 96-token pad, unpacked S 4096, S 8192), then at the edges of its
+   128-row tiling (S 1, 127, 129, 200, 1153, segment boundaries inside a
+   tile, GQA rep 1, 2 and 4, head dims 32, 64, 128) and small float32
+   cases; prints the entry point's host cost a call.
 4. paged_decode (K7) against the plain gather-window version, fused write
    included (pools must be bit-equal).
 5. Model check: the `tiny` config in float32 with seeded weights through
@@ -210,22 +216,45 @@ def verdict(got, ref, tol, plain=None):
     return ok, err, text
 
 
+def packed_segments(torch, s, n_seg, pad):
+    """One packed row `[1, s]` of int32 ids as `packed_segments` training
+    makes it: `n_seg` segments of near-equal length (ids 1..n_seg), then a
+    `pad`-token tail of id 0."""
+    lens = torch.full((n_seg,), (s - pad) // n_seg)
+    lens[: (s - pad) - int(lens.sum())] += 1
+    ids = torch.repeat_interleave(torch.arange(1, n_seg + 1), lens)
+    ids = torch.cat([ids, torch.zeros(pad, dtype=ids.dtype)])
+    return ids[None].to("cuda", torch.int32)
+
+
+def k1_bound(torch, q, k, causal, seg):
+    """(GFLOP of this call's attended pairs, (bound ms, bound by)) of K1:
+    q, k, v read once, o and the f32 lse written once."""
+    b, h, s, d = q.shape
+    flops = 4 * h * d * attended_pairs(torch, b, s, causal, seg)
+    return flops / 1e9, bound_ms(flops, 2 * nbytes(q, k) + b * h * s * 4)
+
+
 def phase_k1(torch, A):
-    """K1 cases; returns (max abs err over cases, timings)."""
+    """K1 cases; returns (max abs err over cases, timings by shape)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def normal(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    def case(name, b, h, kvh, s, d, causal, dtype, atol, pad_from=None):
+    def case(name, b, h, kvh, s, d, causal, dtype=torch.bfloat16,
+             bounds=(), seg=None):
+        """`bounds`: positions where the segment id steps up (a boundary
+        inside a 128-row tile where one is not a multiple of 128)."""
+        atol = K1_BF16_ATOL if dtype == torch.bfloat16 else K1_F32_ATOL
         q = normal(b, h, s, d, dtype=dtype)
         k = normal(b, kvh, s, d, dtype=dtype)
         v = normal(b, kvh, s, d, dtype=dtype)
-        seg = None
-        if pad_from is not None:
+        if bounds:
             seg = torch.zeros(b, s, dtype=torch.int32, device=dev)
-            seg[:, pad_from:] = 1
+            for x in bounds:
+                seg[:, x:] += 1
         o, lse = A.flash_attention_fwd_cuda(q, k, v, causal, seg)
         # the plain version on float32 copies of the same inputs: the exact
         # answer for them; in bf16 the plain version on the bf16 values is
@@ -245,37 +274,92 @@ def phase_k1(torch, A):
             fail(f"flash_fwd disagrees with its plain version on {name}")
         return err, (q, k, v, causal, seg)
 
-    errs = []
-    e, prefill = case("flagship prefill B1 H32 KVH8 S2048 hd128 causal bf16",
-                      1, 32, 8, 2048, 128, True, torch.bfloat16,
-                      K1_BF16_ATOL)
-    errs.append(e)
-    e, vit = case("ViT 7 tiles H16 S1152 (pad segment from 1025) hd64 bf16",
-                  7, 16, 16, 1152, 64, False, torch.bfloat16, K1_BF16_ATOL,
-                  pad_from=1025)
-    errs.append(e)
-    errs.append(case("bench MoE prefill B1 H16 KVH8 S512 hd128 causal bf16",
-                     1, 16, 8, 512, 128, True, torch.bfloat16,
-                     K1_BF16_ATOL)[0])
-    errs.append(case("f32 causal GQA B2 H4 KVH2 S200 hd32", 2, 4, 2, 200,
-                     32, True, torch.float32, K1_F32_ATOL)[0])
+    errs, timed = [], {}
+
+    def timed_case(label, *args, **kw):
+        e, call = case(*args, **kw)
+        errs.append(e)
+        timed[label] = call
+        return call
+
+    # the shapes each path runs, timed below
+    timed_case("prefill", "flagship prefill B1 H32 KVH8 S2048 hd128 causal",
+               1, 32, 8, 2048, 128, True)
+    timed_case("vit", "ViT 7 tiles H16 S1152 (pad segment from 1025) hd64",
+               7, 16, 16, 1152, 64, False, bounds=(1025,))
+    timed_case("moe_prefill", "bench MoE prefill B1 H16 KVH8 S512 hd128 "
+               "causal", 1, 16, 8, 512, 128, True)
+    timed_case("packed", "packed train row S4096, 16 segments + 96 pad "
+               "(id 0), B1 H32 KVH8 hd128 causal", 1, 32, 8, 4096, 128,
+               True, seg=packed_segments(torch, 4096, 16, 96))
+    timed_case("train", "unpacked train B1 H32 KVH8 S4096 hd128 causal",
+               1, 32, 8, 4096, 128, True)
+    timed_case("xl", "S8192 (K4's streaming role) B1 H8 KVH2 hd128 causal",
+               1, 8, 2, 8192, 128, True)
+    # the edges of the 128-row tiling, GQA rep 1/2/4, every head dim
+    for name, args, kw in (
+            ("S1 rep4 hd128 causal", (1, 4, 1, 1, 128, True), {}),
+            ("S127 rep2 hd64 causal", (1, 4, 2, 127, 64, True), {}),
+            ("S129 rep1 hd32 causal", (1, 2, 2, 129, 32, True), {}),
+            ("S200 rep2 hd128 causal, segments from 70 and 160",
+             (2, 4, 2, 200, 128, True), dict(bounds=(70, 160))),
+            ("S1153 rep4 hd64 causal, segment from 600",
+             (1, 8, 2, 1153, 64, True), dict(bounds=(600,))),
+            ("S1153 rep1 hd32 non-causal, segments from 300 and 1100",
+             (2, 2, 2, 1153, 32, False), dict(bounds=(300, 1100))),
+            ("S200 rep2 hd64 non-causal", (1, 4, 2, 200, 64, False), {})):
+        errs.append(case(f"bf16 {name}", *args, **kw)[0])
+    errs.append(case("f32 causal GQA B2 H4 KVH2 S200 hd32", 2, 4, 2, 200, 32,
+                     True, torch.float32)[0])
     errs.append(case("f32 non-causal pad segment B2 H2 S150 hd64", 2, 2, 2,
-                     150, 64, False, torch.float32, K1_F32_ATOL,
-                     pad_from=130)[0])
+                     150, 64, False, torch.float32, bounds=(130,))[0])
+
+    def c_call(q, k, v, causal, seg):
+        """The C entry point on these inputs, the segment ids normalised
+        once (the wrapper normalises them at every call)."""
+        seg = None if seg is None else A.normalize_segments(seg)
+        o, lse = torch.empty_like(q), torch.empty(q.shape[:3], device=dev)
+        cargs = (A.ptr(q), A.ptr(k), A.ptr(v), A.ptr(seg), A.ptr(o),
+                 A.ptr(lse), *q.shape[:2], k.shape[1], *q.shape[2:],
+                 int(causal), q.shape[3] ** -0.5, 1)
+        # the default argument keeps the tensors behind the pointers alive
+        return lambda keep=(seg, o, lse): A.FLASH_FWD(*cargs)
+
+    # the entry point's host cost a call (the prefill runs under a
+    # host-bound serve loop): the C call alone, then the whole wrapper
+    run_c = c_call(*timed["prefill"])
+    host = []
+    for fn in (run_c,
+               lambda: A.flash_attention_fwd_cuda(*timed["prefill"])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        host.append((time.perf_counter() - t0) / 100 * 1e6)
+        torch.cuda.synchronize()
+    log(f"  K1 host cost a call: {host[0]:.1f} us in the C entry point "
+        f"(ctypes included), {host[1]:.1f} us through "
+        f"flash_attention_fwd_cuda")
+
+    # kernel: the C entry point; wrapper: flash_attention_fwd_cuda, which
+    # also normalises the segment ids (a few small kernels) at each call
     timings = {}
-    for label, args in (("prefill", prefill), ("vit", vit)):
-        t_k = cuda_ms(torch, lambda: A.flash_attention_fwd_cuda(*args))
-        t_p = cuda_ms(torch, lambda: A.flash_attention_fwd_plain(*args))
+    for label, args in timed.items():
         q, k, v, causal, seg = args
-        flops = 4 * q.shape[1] * q.shape[3] * attended_pairs(
-            torch, q.shape[0], q.shape[2], causal, seg)
-        bound = bound_ms(flops, 2 * nbytes(q, k, v) - nbytes(k, v)
-                         + q.numel() // q.shape[3] * 4)
+        big = q.shape[2] >= 4096
+        run_c = c_call(*args)
+        t_k = cuda_ms(torch, run_c)
+        t_w = cuda_ms(torch, lambda: A.flash_attention_fwd_cuda(*args))
+        t_p = cuda_ms(torch, lambda: A.flash_attention_fwd_plain(*args),
+                      iters=3 if big else 20, warmup=1 if big else 3)
         t_lib = sdpa_fwd_ms(torch, q, k, v, causal, seg)
-        log(f"  K1 {label} timing: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-            f"sdpa {t_lib:.4f} ms, bound {bound[0]:.4f} ms "
-            f"({bound[1]}; {flops / 1e9:.1f} GFLOP)")
-        timings[label] = (t_k, t_p, t_lib, bound)
+        gflop, bound = k1_bound(torch, q, k, causal, seg)
+        log(f"  K1 {label} timing: kernel {t_k:.4f} ms "
+            f"({gflop / t_k:.1f} TFLOP/s, {bound[0] / t_k:.1%} of the bound),"
+            f" {t_w:.4f} ms through the wrapper, plain {t_p:.4f} ms, sdpa "
+            f"{t_lib:.4f} ms ({gflop / t_lib:.1f} TFLOP/s), bound "
+            f"{bound[0]:.4f} ms ({bound[1]}; {gflop:.1f} GFLOP)")
+        timings[label] = (t_k, t_p, t_lib, bound, t_w)
     return max(errs), timings
 
 
@@ -445,13 +529,6 @@ def phase_bwd(torch, A):
                              plain[i])
         return errs, (q, k, v, o, lse, do, causal, seg)
 
-    def packed_segments(s, n_seg, pad):
-        lens = torch.full((n_seg,), (s - pad) // n_seg)
-        lens[: (s - pad) - int(lens.sum())] += 1
-        ids = torch.repeat_interleave(torch.arange(1, n_seg + 1), lens)
-        ids = torch.cat([ids, torch.zeros(pad, dtype=ids.dtype)])
-        return ids[None].to(dev, torch.int32)
-
     vit_seg = torch.zeros(6, 1152, dtype=torch.int32, device=dev)
     vit_seg[:, 1025:] = 1
     bf = torch.bfloat16
@@ -459,7 +536,8 @@ def phase_bwd(torch, A):
         case("K2/K3 flagship train B1 H32 KVH8 S4096 hd128 causal bf16",
              1, 32, 8, 4096, 128, True, bf, probe=True),
         case("K2/K3 packed S4096 16 segments + pad 96 (id 0) causal bf16",
-             1, 32, 8, 4096, 128, True, bf, packed_segments(4096, 16, 96)),
+             1, 32, 8, 4096, 128, True, bf,
+             packed_segments(torch, 4096, 16, 96)),
         case("K2/K3 ViT 6 tiles H16 S1152 (pad from 1025) hd64 bf16",
              6, 16, 16, 1152, 64, False, bf, vit_seg),
         case("K1/K2/K3 at S 8192 (K4-K6) B1 H8 KVH2 hd128 causal bf16",
@@ -1172,9 +1250,33 @@ def build_all(kernels):
         log(f"[2/{N_PHASES}] built {kern.source}.cu in "
             f"{kern.build_seconds:.1f} s")
         for line in kern.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "C75")):
                 log(f"      ptxas: {line.strip()}")
     log(f"      all kernels built in {time.perf_counter() - t0:.1f} s")
+
+
+def check_k1_sass(build):
+    """cuobjdump's SASS of the flash_fwd library: each bf16 kernel must
+    hold HGMMA (wgmma) and UTMALDG (TMA loads). Prints the counts."""
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", build.library_path("flash_fwd")],
+                         capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        fail(f"cuobjdump: {out.stderr.strip()}")
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = dict.fromkeys(("HGMMA", "UTMALDG"), 0)
+        elif name:
+            for op in counts[name]:
+                counts[name][op] += op in line
+    # the mangled names carry the head dim: ...bf16_kernelILi128EE...
+    bf16 = {"hd " + n.split("bf16_kernelILi")[1].split("E")[0]: c
+            for n, c in counts.items() if "bf16_kernelILi" in n}
+    log(f"      cuobjdump -sass of flash_fwd's bf16 kernels: {bf16}")
+    if len(bf16) != 3 or not all(min(c.values()) > 0 for c in bf16.values()):
+        fail(f"K1's bf16 kernels lack HGMMA or UTMALDG: {bf16}")
 
 
 def kernel_entry(name, source, replaces, launches_by_path, err, timing,
@@ -1218,6 +1320,7 @@ def main(argv=None):
     from multi_spatialmllm_tpu_torch import __main__ as cli
     from multi_spatialmllm_tpu_torch.models import mllm as M
     from multi_spatialmllm_tpu_torch.models import paged_kv as K
+    from multi_spatialmllm_tpu_torch.ops import _build as B
     from multi_spatialmllm_tpu_torch.ops import attention as A
     from multi_spatialmllm_tpu_torch.ops import grouped_matmul as G
     from multi_spatialmllm_tpu_torch.ops import paged_attention as P
@@ -1237,6 +1340,7 @@ def main(argv=None):
             f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
     build_all([A.FLASH_FWD, P.PAGED_DECODE, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV,
                P.PAGED_DECODE_INT8, G.GMM, G.GMM_T, G.TGMM])
+    check_k1_sass(B)
     tok = serve_tokenizer()
     res = {}
     if 3 in phases:

@@ -2,7 +2,8 @@
 
 Each kernel source is one `csrc/<source>.cu` file with one or more plain C
 entry points (a wrapper per entry point; the source defaults to the entry
-point's name). It is compiled with `nvcc` for `sm_90a` into a shared library
+point's name), which may include the shared headers `csrc/*.cuh`. It is
+compiled with `nvcc` for `sm_90a` into a shared library
 under `_build/` (listed in `.gitignore`), loaded with `ctypes`, and
 launched on PyTorch's current stream. The sources include no PyTorch
 header, so a build takes seconds rather than the minutes an extension
@@ -15,6 +16,7 @@ a failed build or a failed launch raises.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -37,6 +39,27 @@ def find_nvcc() -> str | None:
         if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
             return cand
     return None
+
+
+def source_digest(source: str, csrc_dir: str = CSRC_DIR) -> str:
+    """16 hex digits over `csrc_dir/<source>.cu`, every header `*.cuh` of
+    that directory (any of them may be included) and the nvcc flags: an
+    edit to any of them names a new library, so no stale build loads."""
+    h = hashlib.sha256()
+    for path in [os.path.join(csrc_dir, f"{source}.cu"),
+                 *sorted(glob.glob(os.path.join(csrc_dir, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read()
+                     + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path(source: str, csrc_dir: str = CSRC_DIR,
+                 build_dir: str = BUILD_DIR) -> str:
+    """Where the library built from `source` lives, named by its digest."""
+    return os.path.join(build_dir,
+                        f"lib{source}-{source_digest(source, csrc_dir)}.so")
 
 
 class CudaKernel:
@@ -67,10 +90,7 @@ class CudaKernel:
             raise RuntimeError(
                 f"kernel {self.name!r}: nvcc not found (set CUDA_HOME)")
         src = os.path.join(CSRC_DIR, f"{self.source}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(
-                f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        lib_path = os.path.join(BUILD_DIR, f"lib{self.source}-{digest}.so")
+        lib_path = library_path(self.source)
         t0 = time.perf_counter()
         if not os.path.exists(lib_path):
             os.makedirs(BUILD_DIR, exist_ok=True)
@@ -123,3 +143,12 @@ def check_cuda_operand(name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def check_tma_aligned(name: str, t: torch.Tensor) -> None:
+    """Raise unless `t` starts on a 16-byte boundary: the kernels that load
+    it with TMA (and 16-byte vector loads) take nothing else, and a
+    contiguous view at an odd offset would pass the other checks."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: address {t.data_ptr():#x} is not 16-byte "
+                         f"aligned (the kernel's TMA loads need it)")

@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from ._build import CudaKernel, check_cuda_operand, ptr
+from ._build import CudaKernel, check_cuda_operand, check_tma_aligned, ptr
 
 NEG_INF = -1e30
 
@@ -133,10 +133,13 @@ def _check_kernel_operands(name, q, k, v, segment_ids):
 
 def flash_attention_fwd_cuda(q, k, v, causal, segment_ids=None):
     """Launch the flash forward kernel: contiguous q `[B, H, S, D]`,
-    k/v `[B, KVH, S, D]`, float32 or bfloat16, D in 32/64/128."""
+    k/v `[B, KVH, S, D]`, float32 or bfloat16, D in 32/64/128, each
+    starting on a 16-byte boundary (raises otherwise; never falls back)."""
     b, h, s, d = q.shape
     kvh = k.shape[1]
     seg = _check_kernel_operands("flash_fwd", q, k, v, segment_ids)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_tma_aligned(name, t)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     FLASH_FWD(ptr(q), ptr(k), ptr(v), ptr(seg), ptr(o), ptr(lse),

@@ -1,8 +1,10 @@
-// FlashAttention-2 forward for Hopper (sm_90a): online softmax over K/V
-// tiles in shared memory, emitting the output and the per-row logsumexp.
+// FlashAttention forward for Hopper (sm_90a): online softmax over K/V
+// tiles, emitting the output and the per-row logsumexp.
 //
-// Replaces the Pallas TPU kernel `_flash_fwd_kernel` (called through
-// `_flash_fwd`) in multi_spatialmllm_tpu/ops/attention.py.
+// Replaces the Pallas TPU kernels of multi_spatialmllm_tpu/ops/attention.py
+// `_flash_fwd_kernel` (:92, K1, reached through `_flash_fwd`) and
+// `_flash_fwd_xl_kernel` (:483, K4, K/V streamed): this kernel streams K/V
+// tiles at every S, so it plays both roles.
 //
 // Semantics (held against the plain version in ops/attention.py):
 //   q [B, H, S, D], k/v [B, KVH, S, D] (native GQA: kv head = h / (H/KVH),
@@ -11,19 +13,39 @@
 //   Scores are f32 (bf16 products accumulated in f32), masked with
 //   NEG_INF = -1e30 (not -inf, so a fully masked tile keeps finite
 //   arithmetic), running max / normalizer / accumulator in f32, and the
-//   probabilities cast to v's dtype before P.V, as the TPU kernel does.
+//   probabilities cast to v's dtype before P.V, as the TPU kernel does;
+//   lse in the natural log. (A row none of whose keys is visible, which
+//   neither the causal nor the segment mask produces, gets o = 0 here where
+//   the plain version averages v.)
 //
-// What bounds it: at the prefill shapes (S <= 2048, D = 128) the kernel is
-// compute bound (about S*S*D*2 flops per head against S*D*6 bytes), so the
-// bf16 path runs both products on the tensor cores with mma.sync
-// m16n8k16 (bf16 in, f32 accumulate), FlashAttention-2 style: one CTA of
-// 4 warps per (b*h, 64-row q tile), each warp owning 16 q rows; Q
-// fragments, scores, probabilities and the output accumulator stay in
-// registers (the score accumulators are re-packed in place as the A
-// operand of P.V); K/V tiles of 64 rows go through shared memory, rows
-// padded by 16 bytes so the fragment loads are free of bank conflicts.
-// wgmma, TMA and a pipelined K/V ring are later work. The float32 path
-// (the f32 test configs) is a plain FMA kernel over the same tiling.
+// What bounds it: operations, at every shape the port times (the prefill,
+// train and ViT shapes do ~S*D*4 flops per q row against ~D*6 bytes). So
+// the bf16 kernel is built to keep Hopper's tensor cores fed:
+//   - one CTA of three warpgroups per (b*h, 128-row q tile): a producer
+//     warp (its warpgroup gives its registers away with setmaxnreg) issues
+//     TMA loads; two consumer warpgroups own 64 q rows each, the M of one
+//     wgmma;
+//   - Q is loaded once; K and V tiles of 128 keys go through a ring of
+//     STAGES slots in swizzled shared memory (128-byte swizzle, 64-byte at
+//     D 32) with a full and an empty mbarrier per slot, so the next tiles
+//     load while the current one is multiplied. The producer walks the
+//     tile list alone and publishes each slot's tile index and its keys'
+//     segment ids in shared memory (then an end marker), so the consumers
+//     read no device memory in their loop and cannot disagree with it;
+//   - S = Q K^T is wgmma m64n128k16 with both operands in shared memory (K
+//     rows are already the K-major B operand); O += P V is wgmma with P
+//     from registers (the S accumulators re-packed in place as the A
+//     fragment) and V read transposed (MN-major) where it lies;
+//   - the two consumers take turns on the tensor cores (named barriers),
+//     so one's softmax overlaps the other's products;
+//   - softmax in base 2 (one MUFU.EX2 an entry, scale * log2(e) folded
+//     into an FMA; lse converted to the natural log once);
+//   - masks only on the tiles that need them (the causal diagonal, the
+//     ragged last tile, tiles whose segment ids are not one value);
+//   - the heaviest causal q tiles launch first.
+// The tensor maps are per head ([B*H, S, D] and [B*KVH, S, D]), so a box
+// past S reads TMA's zero fill, never the next head's rows. The float32
+// path (the f32 test configs) is a plain FMA kernel of 64-row tiles.
 //
 // Tile skipping: the causal bound stops the K loop after the diagonal
 // tile; with segment ids, K tiles whose id range does not meet the q
@@ -31,6 +53,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -76,23 +100,43 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int r0,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync.m16n8k16
+// bf16: warp-specialised wgmma kernel fed by TMA through a K/V ring
 // ---------------------------------------------------------------------------
 
-// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16), g = lane / 4,
-// t = lane % 4:
-//   A 16x16 row-major: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
-//                      a3 (g+8, 2t+8..)
-//   B 16x8 "col":      b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
-//   C 16x8 f32:        c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1)
-// Each 32-bit register holds two bf16, the lower index in the low half.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+constexpr int WS_BM = 128;      // q rows a CTA: two consumer warpgroups of 64
+constexpr int WS_BN = 128;      // keys a K/V tile
+static_assert(WS_BM == WS_BN, "Q and K tiles share their chunk offsets");
+constexpr int WS_THREADS = 384;  // producer warpgroup, then two consumers
+// the producer warpgroup gives its registers to the consumers: 24 * 128 +
+// 240 * 256 is the 168 * 384 the launch gives the block
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int D>
+struct WsCfg {
+  static constexpr int SW = D >= 64 ? 128 : 2 * D;  // bytes a swizzled row
+  static constexpr int CW = SW / 2;                 // columns a chunk
+  static constexpr int CHUNKS = D / CW;  // a tile is CHUNKS [rows, CW] boxes
+  static constexpr int LAYOUT = hopper::desc_layout(SW);
+  static constexpr int STAGES = D == 128 ? 2 : 4;
+  static constexpr uint32_t Q_BYTES = WS_BM * D * 2;
+  static constexpr uint32_t KV_BYTES = WS_BN * D * 2;  // one K or V tile
+  // alignment slack, 1 KB of barriers and slot tile indices, the slots'
+  // key segment ids (512 bytes each), then Q and STAGES x (K, V), each on
+  // a 1024-byte boundary
+  static constexpr uint32_t SEG_BYTES = STAGES * WS_BN * 4;
+  static constexpr size_t SMEM =
+      2048 + SEG_BYTES + Q_BYTES + (size_t)2 * STAGES * KV_BYTES;
+};
+
+// 2^x in one MUFU.EX2 (flushes results below 2^-126 to 0; exp2f adds
+// instructions to keep them)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -100,183 +144,304 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// The K/V tiles one q tile visits. Only the producer walks it: it
+// publishes each live tile's index in the slot it fills, then an end
+// marker, and the consumers follow the slots, so the two sides cannot
+// disagree about the list.
+struct KvPlan {
+  const int* seg;  // this row's normalised ids, or null
+  int S, n, seg_lo, seg_hi;
 
-__device__ __forceinline__ uint32_t pack_bf16_pair(__nv_bfloat16 lo,
-                                                   __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+  __device__ __forceinline__ bool live(int kt) const {
+    if (seg == nullptr) return true;
+    const int k0 = kt * WS_BN;
+    return !(__ldg(seg + min(k0 + WS_BN, S) - 1) < seg_lo ||
+             __ldg(seg + k0) > seg_hi);
+  }
+};
+
+__device__ __forceinline__ KvPlan kv_plan(const int* seg, int q0, int S,
+                                          int causal) {
+  const int q_last = min(q0 + WS_BM, S) - 1;
+  KvPlan p;
+  p.seg = seg;
+  p.S = S;
+  p.n = (S + WS_BN - 1) / WS_BN;
+  if (causal) p.n = min(p.n, q_last / WS_BN + 1);  // tiles past the diagonal
+  // ids are nondecreasing: the q tile's range is its two ends
+  p.seg_lo = seg ? __ldg(seg + q0) : 0;
+  p.seg_hi = seg ? __ldg(seg + q_last) : 0;
+  return p;
 }
 
 template <int D>
-__host__ __device__ constexpr int bf16_ld() {
-  return D + 8;  // 16 bytes of padding per row
-}
-
-template <int D>
-constexpr size_t bf16_smem_bytes() {
-  return (size_t)(TILE_Q + 2 * TILE_K) * bf16_ld<D>() *
-             sizeof(__nv_bfloat16) +
-         TILE_K * sizeof(int);
-}
-
-template <int D>
-__global__ void __launch_bounds__(NUM_THREADS)
-    flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
                           const int* __restrict__ seg,
                           __nv_bfloat16* __restrict__ o,
                           float* __restrict__ lse, int H, int KVH, int S,
-                          int causal, float scale) {
-  constexpr int LD = bf16_ld<D>();
-  constexpr int NK = TILE_K / 8;   // 8-key score tiles
-  constexpr int ND = D / 8;        // 8-column output tiles
-  constexpr int KD = D / 16;       // 16-deep chunks of the head dim
+                          int causal, float scale_log2) {
+  using C = WsCfg<D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + TILE_Q * LD;
-  __nv_bfloat16* sV = sK + TILE_K * LD;
-  int* sSeg = reinterpret_cast<int*>(sV + TILE_K * LD);
+  const uint32_t base = (hopper::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base;
+  const uint32_t sQ = base + 1024 + C::SEG_BYTES;
+  auto bar_full = [=](int st) { return base + 8u + 8u * st; };
+  auto bar_empty = [=](int st) { return base + 8u + 8u * (C::STAGES + st); };
+  auto sK = [=](int st) { return sQ + C::Q_BYTES + 2u * st * C::KV_BYTES; };
+  auto sV = [=](int st) { return sK(st) + C::KV_BYTES; };
+  // generic pointers for what threads read and write themselves: each
+  // slot's tile index (-1: no more tiles) and its keys' segment ids (-1
+  // past S)
+  unsigned char* gbase = smem_raw + (base - hopper::smem_u32(smem_raw));
+  int* slot_tile = reinterpret_cast<int*>(gbase + 512);
+  int* slot_seg = reinterpret_cast<int*>(gbase + 1024);
 
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int kv_row = b * KVH + h / (H / KVH);
-  const int q0 = blockIdx.x * TILE_Q;
-  const int q_last = min(q0 + TILE_Q, S) - 1;
-  const __nv_bfloat16* kb = k + (size_t)kv_row * S * D;
-  const __nv_bfloat16* vb = v + (size_t)kv_row * S * D;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int kv_bh = b * KVH + h / (H / KVH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * WS_BM;  // heaviest first
   const int* segb = seg ? seg + (size_t)b * S : nullptr;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;  // this lane's rows
+  const int wg = threadIdx.x / 128;
 
-  load_tile<__nv_bfloat16, D, LD>(sQ, q + (size_t)bh * S * D, q0, S);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar_q, 1);
+    for (int st = 0; st < C::STAGES; ++st) {
+      hopper::mbar_init(bar_full(st), 1);
+      hopper::mbar_init(bar_empty(st), 8);  // one arrival a consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
   __syncthreads();
-  uint32_t qa[KD][4];
-  {
-    const __nv_bfloat16* qw = sQ + warp * 16 * LD;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      qa[kk][0] = ld32(qw + g * LD + kk * 16 + 2 * t);
-      qa[kk][1] = ld32(qw + (g + 8) * LD + kk * 16 + 2 * t);
-      qa[kk][2] = ld32(qw + g * LD + kk * 16 + 2 * t + 8);
-      qa[kk][3] = ld32(qw + (g + 8) * LD + kk * 16 + 2 * t + 8);
-    }
-  }
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // per-lane partials
-  const int seg_q0 = (segb && row0 < S) ? segb[row0] : 0;
-  const int seg_q1 = (segb && row1 < S) ? segb[row1] : 0;
 
-  int nk = (S + TILE_K - 1) / TILE_K;
-  if (causal) nk = min(nk, q_last / TILE_K + 1);  // tiles past the diagonal
-  int seg_lo = 0, seg_hi = 0;
-  if (segb) {  // ids are nondecreasing: the tile's range is its two ends
-    seg_lo = segb[q0];
-    seg_hi = segb[q_last];
-  }
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * TILE_K;
-    // uniform across the block, so the barriers below stay matched
-    if (segb && (segb[min(k0 + TILE_K, S) - 1] < seg_lo || segb[k0] > seg_hi))
-      continue;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<__nv_bfloat16, D, LD>(sK, kb, k0, S);
-    load_tile<__nv_bfloat16, D, LD>(sV, vb, k0, S);
-    if (segb && tid < TILE_K) sSeg[tid] = k0 + tid < S ? segb[k0 + tid] : -1;
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[NK][4];
+  if (wg == 0) {
+    // producer: one warp keeps the ring full; lane 0 issues the TMA loads,
+    // the warp copies the keys' segment ids
+    hopper::reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(bar_q, C::Q_BYTES);
+        for (int c = 0; c < C::CHUNKS; ++c)
+          hopper::tma_load_3d(sQ + c * WS_BM * C::SW, &tm_q, bar_q,
+                              c * C::CW, q0, bh);
+      }
+      const KvPlan plan = kv_plan(segb, q0, S, causal);
+      int stage = 0, phase = 0;
+      for (int kt = 0; kt <= plan.n; ++kt) {  // kt == plan.n: the end marker
+        const bool end = kt == plan.n;
+        if (!end && !plan.live(kt)) continue;
+        const int k0 = kt * WS_BN;
+        int ids[WS_BN / 32];  // loaded before the wait, stored after it
+        if (segb && !end)
 #pragma unroll
-    for (int n = 0; n < NK; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* kr = sK + (n * 8 + g) * LD + 2 * t;
+          for (int i = 0; i < WS_BN / 32; ++i) {
+            const int col = k0 + lane + 32 * i;
+            ids[i] = col < S ? __ldg(segb + col) : -1;
+          }
+        hopper::mbar_wait(bar_empty(stage), phase ^ 1);  // slot released
+        if (segb && !end)
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        mma_bf16(s[n], qa[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
-    }
-    // scale, mask, and the running max of this lane's two rows
-    float mx0 = NEG_INF, mx1 = NEG_INF;
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1), kj = k0 + c;
-        const int qi = e < 2 ? row0 : row1;
-        bool keep = kj < S;
-        if (causal) keep = keep && kj <= qi;
-        if (segb) keep = keep && sSeg[c] == (e < 2 ? seg_q0 : seg_q1);
-        const float val = keep ? s[n][e] * scale : NEG_INF;
-        s[n][e] = val;
-        if (e < 2) mx0 = fmaxf(mx0, val); else mx1 = fmaxf(mx1, val);
+          for (int i = 0; i < WS_BN / 32; ++i)
+            slot_seg[stage * WS_BN + lane + 32 * i] = ids[i];
+        if (lane == 0) slot_tile[stage] = end ? -1 : kt;
+        __syncwarp();  // the warp's writes before lane 0's arrival
+        if (lane == 0) {
+          const uint32_t full = bar_full(stage);
+          if (end) {
+            hopper::mbar_arrive(full);
+          } else {
+            hopper::mbar_arrive_expect_tx(full, 2 * C::KV_BYTES);
+            for (int c = 0; c < C::CHUNKS; ++c) {
+              hopper::tma_load_3d(sK(stage) + c * WS_BN * C::SW, &tm_k, full,
+                                  c * C::CW, k0, kv_bh);
+              hopper::tma_load_3d(sV(stage) + c * WS_BN * C::SW, &tm_v, full,
+                                  c * C::CW, k0, kv_bh);
+            }
+          }
+        }
+        if (++stage == C::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
     }
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
-    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-      s[n][0] = expf(s[n][0] - mn0);
-      s[n][1] = expf(s[n][1] - mn0);
-      s[n][2] = expf(s[n][2] - mn1);
-      s[n][3] = expf(s[n][3] - mn1);
-      sum0 += s[n][0] + s[n][1];
-      sum1 += s[n][2] + s[n][3];
+  } else {
+    // consumers: warpgroup cw owns q rows [q0 + 64 cw, q0 + 64 cw + 64)
+    hopper::reg_alloc<CONSUMER_REGS>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int w_lo = q0 + 64 * cw;
+    const int r0 = w_lo + 16 * warp + g, r1 = r0 + 8;  // this thread's rows
+    int sq0 = 0, sq1 = 0, sw_lo = 0, sw_hi = 0;
+    if (segb) {
+      sq0 = __ldg(segb + min(r0, S - 1));
+      sq1 = __ldg(segb + min(r1, S - 1));
+      sw_lo = __ldg(segb + min(w_lo, S - 1));
+      sw_hi = __ldg(segb + min(w_lo + 63, S - 1));
     }
-    l0 = l0 * alpha0 + sum0;  // quad-reduced once, at the end
-    l1 = l1 * alpha1 + sum1;
+    // descriptors of this warpgroup's Q rows and of slot 0's K and V; a
+    // step adds its byte offset / 16 to the start-address field
+    const uint64_t dq = hopper::make_desc(sQ + cw * 64 * C::SW, 16,
+                                          8 * C::SW, C::LAYOUT);
+    const uint64_t dk = hopper::make_desc(sK(0), 16, 8 * C::SW, C::LAYOUT);
+    const uint64_t dv = hopper::make_desc(sV(0), WS_BN * C::SW, 8 * C::SW,
+                                          C::LAYOUT);
+
+    float acc[D / 2];
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      acc[n][0] *= alpha0;
-      acc[n][1] *= alpha0;
-      acc[n][2] *= alpha1;
-      acc[n][3] *= alpha1;
-    }
-    // O += P V: the score accumulators of key tiles 2c, 2c+1 are exactly
-    // the A fragment of the 16-key chunk c (p cast to v's dtype)
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    // running max of the raw scores (NEG_INF while a row has seen only
+    // masked keys) and the normalizer of exp2 terms
+    float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+
+    // The two consumers take turns on the tensor cores (FA3's ping-pong):
+    // each issues its products only on its turn (named barrier 1 + cw)
+    // and passes the turn once they are issued, so one warpgroup's softmax
+    // runs while the other's products do. Warpgroup 0 takes the first
+    // turn; every pass is matched by a wait, the last by the wait after
+    // the loop.
+    const auto take_turn = [cw] { hopper::named_bar_sync(1 + cw, 256); };
+    const auto pass_turn = [cw] { hopper::named_bar_arrive(2 - cw, 256); };
+    if (cw == 1) hopper::named_bar_arrive(1, 256);
+
+    hopper::mbar_wait(bar_q, 0);
+    for (int stage = 0, phase = 0;;) {
+      hopper::mbar_wait(bar_full(stage), phase);
+      const int kt = slot_tile[stage];
+      if (kt < 0) break;
+      const int k0 = kt * WS_BN;
+      const int* tseg = slot_seg + stage * WS_BN;  // this tile's key ids
+
+      // S = Q K^T for this warpgroup's 64 rows x 128 keys
+      const uint32_t slot = stage * (2 * C::KV_BYTES / 16);
+      float s[64];
+      take_turn();
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < TILE_K / 16; ++c) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * c][0], s[2 * c][1]);
-      pa[1] = pack_bf16(s[2 * c][2], s[2 * c][3]);
-      pa[2] = pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]);
-      pa[3] = pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3]);
-      const __nv_bfloat16* v0 = sV + (c * 16 + 2 * t) * LD + g;
+      for (int kk = 0; kk < D / 16; ++kk) {
+        // 16 columns along D: the next 32 bytes of a row, or the next chunk
+        const uint32_t off =
+            ((kk * 32 / C::SW) * WS_BM * C::SW + (kk * 32) % C::SW) / 16;
+        hopper::wgmma_m64n128k16_ss(s, dq + off, dk + slot + off, kk > 0);
+      }
+      hopper::wgmma_commit();
+      pass_turn();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+
+      // mask only where some entry of this warpgroup's block needs it
+      bool need = k0 + WS_BN > S || (causal && k0 + WS_BN - 1 > w_lo);
+      if (segb && !need) {
+        const int a = tseg[0], z = tseg[WS_BN - 1];  // a full tile here
+        need = !(a == z && a == sw_lo && sw_lo == sw_hi);
+      }
+      if (need) {
 #pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const __nv_bfloat16* vp = v0 + n * 8;
-        mma_bf16(acc[n], pa, pack_bf16_pair(vp[0], vp[LD]),
-                 pack_bf16_pair(vp[8 * LD], vp[9 * LD]));
+        for (int j = 0; j < 16; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = k0 + 8 * j + 2 * t + e;
+            bool keep0 = col < S, keep1 = col < S;
+            if (causal) {
+              keep0 = keep0 && col <= r0;
+              keep1 = keep1 && col <= r1;
+            }
+            if (segb) {
+              const int sk = tseg[8 * j + 2 * t + e];
+              keep0 = keep0 && sk == sq0;
+              keep1 = keep1 && sk == sq1;
+            }
+            if (!keep0) s[4 * j + e] = NEG_INF;
+            if (!keep1) s[4 * j + 2 + e] = NEG_INF;
+          }
+        }
+      }
+
+      // online softmax in base 2 over this thread's two rows: p =
+      // exp2(s * scale_log2 - ms), one FMA an entry, with ms the scaled max
+      // (0 while the max is NEG_INF: a masked entry then gives exp2 of
+      // about -1e29, exactly 0, where NEG_INF * scale_log2 rounded would
+      // leave a residue of ~1e22 in the FMA)
+      float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0));
+      const float mn1 = fmaxf(m1, quad_max(mx1));
+      const float alpha0 = fast_exp2((m0 - mn0) * scale_log2);
+      const float alpha1 = fast_exp2((m1 - mn1) * scale_log2);
+      m0 = mn0;
+      m1 = mn1;
+      const float ms0 = mn0 == NEG_INF ? 0.f : mn0 * scale_log2;
+      const float ms1 = mn1 == NEG_INF ? 0.f : mn1 * scale_log2;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        s[4 * j] = fast_exp2(fmaf(s[4 * j], scale_log2, -ms0));
+        s[4 * j + 1] = fast_exp2(fmaf(s[4 * j + 1], scale_log2, -ms0));
+        s[4 * j + 2] = fast_exp2(fmaf(s[4 * j + 2], scale_log2, -ms1));
+        s[4 * j + 3] = fast_exp2(fmaf(s[4 * j + 3], scale_log2, -ms1));
+        sum0 += s[4 * j] + s[4 * j + 1];
+        sum1 += s[4 * j + 2] + s[4 * j + 3];
+      }
+      l0 = l0 * alpha0 + sum0;  // quad-reduced once, at the end
+      l1 = l1 * alpha1 + sum1;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
+
+      // O += P V: the accumulators of keys [16c, 16c + 16) are exactly the
+      // A fragment of step c (p cast to v's dtype)
+      uint32_t pa[WS_BN / 16][4];
+#pragma unroll
+      for (int c = 0; c < WS_BN / 16; ++c) {
+        pa[c][0] = pack_bf16(s[8 * c], s[8 * c + 1]);
+        pa[c][1] = pack_bf16(s[8 * c + 2], s[8 * c + 3]);
+        pa[c][2] = pack_bf16(s[8 * c + 4], s[8 * c + 5]);
+        pa[c][3] = pack_bf16(s[8 * c + 6], s[8 * c + 7]);
+      }
+      take_turn();
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < WS_BN / 16; ++c)  // 16 keys: 16 rows of V down
+        hopper::wgmma_rs_tnsp<D>(acc, pa[c], dv + slot + c * C::SW);
+      hopper::wgmma_commit();
+      pass_turn();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(bar_empty(stage));  // slot read
+      if (++stage == C::STAGES) {
+        stage = 0;
+        phase ^= 1;
       }
     }
-  }
 
-  l0 = fmaxf(quad_sum(l0), 1e-30f);
-  l1 = fmaxf(quad_sum(l1), 1e-30f);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    if (cw == 0) take_turn();  // warpgroup 1's last pass
+
+    l0 = fmaxf(quad_sum(l0), 1e-30f);
+    l1 = fmaxf(quad_sum(l1), 1e-30f);
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    const size_t row0 = (size_t)bh * S + r0, row1 = row0 + 8;
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (row0 < S)
-      *reinterpret_cast<uint32_t*>(o + ((size_t)bh * S + row0) * D + c) =
-          pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
-    if (row1 < S)
-      *reinterpret_cast<uint32_t*>(o + ((size_t)bh * S + row1) * D + c) =
-          pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
-  }
-  if (t == 0) {
-    if (row0 < S) lse[(size_t)bh * S + row0] = m0 + logf(l0);
-    if (row1 < S) lse[(size_t)bh * S + row1] = m1 + logf(l1);
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      if (r0 < S)
+        *reinterpret_cast<uint32_t*>(o + row0 * D + c) =
+            pack_bf16(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+      if (r1 < S)
+        *reinterpret_cast<uint32_t*>(o + row1 * D + c) =
+            pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+    }
+    if (t == 0) {  // lse = m * scale + ln l, from base 2
+      if (r0 < S) lse[row0] = (m0 * scale_log2 + log2f(l0)) * LN2;
+      if (r1 < S) lse[row1] = (m1 * scale_log2 + log2f(l1)) * LN2;
+    }
   }
 }
 
@@ -424,17 +589,57 @@ __global__ void __launch_bounds__(NUM_THREADS)
   }
 }
 
-template <typename Kern, typename T>
-int launch(Kern kern, size_t smem, const void* q, const void* k,
-           const void* v, const int* seg, void* o, void* lse, int B, int H,
-           int KVH, int S, int causal, float scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
+// cudaFuncSetAttribute once per kernel instantiation and device, not on
+// every launch: the prefill launches under a host-bound serve loop
+template <int D, bool BF16>
+cudaError_t set_smem_once(const void* kern, size_t smem) {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, const int* seg,
+                void* o, void* lse, int B, int H, int KVH, int S, int causal,
+                float scale, cudaStream_t stream) {
+  using C = WsCfg<D>;
+  const int q_tiles = (S + WS_BM - 1) / WS_BM;
+  if (q_tiles > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  int err = hopper::encode_tensor_map(&tq, q, B * H, S, D, WS_BM, C::CW);
+  if (err == 0)
+    err = hopper::encode_tensor_map(&tk, k, B * KVH, S, D, WS_BN, C::CW);
+  if (err == 0)
+    err = hopper::encode_tensor_map(&tv, v, B * KVH, S, D, WS_BN, C::CW);
+  if (err != 0) return err;
+  cudaError_t e = set_smem_once<D, true>(
+      reinterpret_cast<const void*>(&flash_fwd_bf16_kernel<D>), C::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  flash_fwd_bf16_kernel<D><<<dim3(B * H, q_tiles), WS_THREADS, C::SMEM,
+                             stream>>>(
+      tq, tk, tv, seg, static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), H, KVH, S, causal, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, const int* seg,
+               void* o, void* lse, int B, int H, int KVH, int S, int causal,
+               float scale, cudaStream_t stream) {
+  cudaError_t e = set_smem_once<D, false>(
+      reinterpret_cast<const void*>(&flash_fwd_f32_kernel<D>),
+      f32_smem_bytes<D>());
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((S + TILE_Q - 1) / TILE_Q, B * H);
-  kern<<<grid, NUM_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), seg, static_cast<T*>(o),
+  flash_fwd_f32_kernel<D><<<grid, NUM_THREADS, f32_smem_bytes<D>(), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), seg, static_cast<float*>(o),
       static_cast<float*>(lse), H, KVH, S, causal, scale);
   return (int)cudaGetLastError();
 }
@@ -444,18 +649,17 @@ int launch_d(const void* q, const void* k, const void* v, const int* seg,
              void* o, void* lse, int B, int H, int KVH, int S, int causal,
              float scale, int is_bf16, cudaStream_t stream) {
   if (is_bf16)
-    return launch<decltype(&flash_fwd_bf16_kernel<D>), __nv_bfloat16>(
-        flash_fwd_bf16_kernel<D>, bf16_smem_bytes<D>(), q, k, v, seg, o, lse,
-        B, H, KVH, S, causal, scale, stream);
-  return launch<decltype(&flash_fwd_f32_kernel<D>), float>(
-      flash_fwd_f32_kernel<D>, f32_smem_bytes<D>(), q, k, v, seg, o, lse, B,
-      H, KVH, S, causal, scale, stream);
+    return launch_bf16<D>(q, k, v, seg, o, lse, B, H, KVH, S, causal, scale,
+                          stream);
+  return launch_f32<D>(q, k, v, seg, o, lse, B, H, KVH, S, causal, scale,
+                       stream);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Returns a cudaError_t code.
-// All tensors contiguous on the current device; seg may be null.
+// All tensors contiguous on the current device, q/k/v 16-byte aligned (the
+// TMA descriptors need it); seg may be null.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const int* seg, void* o, void* lse, int B, int H,
                          int KVH, int S, int D, int causal, float scale,

@@ -2,8 +2,10 @@
 multi_spatialmllm_tpu_torch loads neither jax nor the JAX package, and its
 `train` and `serve` commands run end to end with that package made
 unimportable; a kernel build on a host without CUDA raises instead of
-falling back; and chip_smoke.py refuses to run (non-zero exit, no result
-line) without a CUDA device or outside the repository."""
+falling back; a library's name changes with its shared headers; a
+misaligned operand raises before any launch; and chip_smoke.py refuses to
+run (non-zero exit, no result line) without a CUDA device or outside the
+repository."""
 
 import json
 import os
@@ -17,6 +19,7 @@ import torch
 
 from multi_spatialmllm_tpu.models import tokenizer as JT
 from multi_spatialmllm_tpu_torch.models import runner as TR
+from multi_spatialmllm_tpu_torch.ops import _build as TB
 from multi_spatialmllm_tpu_torch.ops import attention as TA
 from multi_spatialmllm_tpu_torch.ops import grouped_matmul as TG
 from multi_spatialmllm_tpu_torch.ops import paged_attention as TP
@@ -245,3 +248,43 @@ def test_cuda_wrappers_check_operands_before_launch():
             torch.zeros(2, dtype=torch.int32), torch.zeros(2, 2, 32),
             torch.zeros(2, 2, 32))
     assert all(k.launches == 0 for k in KERNELS)
+
+
+def test_library_path_follows_the_shared_headers(tmp_path):
+    """The build cache is keyed on the source and every `csrc/*.cuh`: an
+    edit to a header names a new library (no stale build loads), a file
+    that is neither leaves the name alone."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(TB.CSRC_DIR, csrc)
+    assert TB.library_path("flash_fwd", str(csrc)) == TB.library_path(
+        "flash_fwd")
+    before = TB.library_path("flash_fwd", str(csrc))
+    (csrc / "notes.txt").write_text("not a header")
+    assert TB.library_path("flash_fwd", str(csrc)) == before
+    header = csrc / "hopper.cuh"
+    header.write_bytes(header.read_bytes() + b"\n")
+    after = TB.library_path("flash_fwd", str(csrc))
+    assert after != before
+    assert os.path.basename(after).startswith("libflash_fwd-")
+    # every source that could include it is renamed too
+    assert TB.library_path("flash_bwd", str(csrc)) != TB.library_path(
+        "flash_bwd")
+
+
+def test_misaligned_operand_raises_before_launch():
+    """TMA needs 16-byte-aligned operands: the alignment helper refuses a
+    contiguous view at an odd offset, and the forward wrapper raises on
+    one before any build or launch (no fallback)."""
+    n = 2 * 4 * 128 * 64
+    buf = torch.zeros(n + 8, dtype=torch.bfloat16)
+    good = buf[:n].view(2, 4, 128, 64)
+    bad = buf[1:n + 1].view(2, 4, 128, 64)      # 2 bytes past a boundary
+    assert bad.is_contiguous() and bad.data_ptr() % 16 == 2
+    TB.check_tma_aligned("q", good)
+    with pytest.raises(ValueError, match="16-byte"):
+        TB.check_tma_aligned("q", bad)
+    before = TA.FLASH_FWD.launches
+    for args in ((bad, good, good), (good, good, bad)):
+        with pytest.raises(ValueError, match="16-byte"):
+            TA.flash_attention_fwd_cuda(*args, True)
+    assert TA.FLASH_FWD.launches == before
