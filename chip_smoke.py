@@ -10,8 +10,9 @@ result line):
 
 1. Device: needs CUDA; prints the card's name and power limit.
 2. Build: compiles the four kernel sources in ops/csrc with nvcc, in
-   parallel (one nvcc per source), and reads the SASS of K1's bf16 kernel
-   (cuobjdump): it must hold wgmma (HGMMA) and TMA loads (UTMALDG).
+   parallel (one nvcc per source), and reads the SASS of the bf16 flash
+   kernels (cuobjdump; K1, K2 and K3 at hd 32, 64 and 128): each must hold
+   wgmma (HGMMA) and TMA loads (UTMALDG).
 3. flash_fwd (K1) against its plain version, timed beside its bound and
    `scaled_dot_product_attention` at the shapes its paths run (flagship
    prefill S 2048, the ViT shape with its pad segment, the bench MoE
@@ -36,8 +37,11 @@ result line):
    S 8192 streaming shape (which stands for K4-K6) and small float32 GQA
    cases. bf16 results are also held, per 64-row tile, to twice the plain
    version's own bf16 error, and a probe shows that check failing a dq
-   and a dv with one tile 10% off; timings against the bound and
-   `scaled_dot_product_attention` (timed only).
+   and a dv with one tile 10% off; K2 and K3 timed (C entry points, and
+   the whole wrapper) at the four bf16 shapes (the unpacked and packed
+   S 4096 rows and the ViT shape that training runs, and S 8192) against
+   their bounds and the backward of `scaled_dot_product_attention` with
+   the same mask (timed only).
 8. Tiny training: the `tiny` config in float32, 3 steps of
    `make_train_step` (packed rows, accum 2) on the CPU and on the card
    from the same weights and batches; losses, grad norms, first-step
@@ -553,9 +557,14 @@ def phase_bwd(torch, A):
     err_dkv = max(max(r[0]["dk"], r[0]["dv"]) for r in results)
     err_fwd = max(r[0]["o"] for r in results)
 
+    # kernel: the C entry points on pre-normalised segment ids; wrapper:
+    # flash_attention_bwd_cuda, which also forms delta (two f32 copies of o
+    # and dO) and normalises the segment ids at each call
     timings = {}
-    for label, (_, args) in (("train", results[0]), ("xl", results[3])):
+    for label, (_, args) in (("train", results[0]), ("packed", results[1]),
+                             ("vit", results[2]), ("xl", results[3])):
         q, k, v, o, lse, do, causal, seg = args
+        nseg = None if seg is None else A.normalize_segments(seg)
         delta = A._delta(o, do)
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         shape = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3],
@@ -563,15 +572,17 @@ def phase_bwd(torch, A):
 
         def run_dq():
             A.FLASH_BWD_DQ(A.ptr(q), A.ptr(k), A.ptr(v), A.ptr(do),
-                           A.ptr(lse), A.ptr(delta), A.ptr(seg), A.ptr(dq),
+                           A.ptr(lse), A.ptr(delta), A.ptr(nseg), A.ptr(dq),
                            *shape)
 
         def run_dkv():
             A.FLASH_BWD_DKV(A.ptr(q), A.ptr(k), A.ptr(v), A.ptr(do),
-                            A.ptr(lse), A.ptr(delta), A.ptr(seg), A.ptr(dk),
-                            A.ptr(dv), *shape)
+                            A.ptr(lse), A.ptr(delta), A.ptr(nseg),
+                            A.ptr(dk), A.ptr(dv), *shape)
 
         t_dq, t_dkv = cuda_ms(torch, run_dq), cuda_ms(torch, run_dkv)
+        t_wrap = cuda_ms(torch, lambda: A.flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, causal, seg))
         t_fwd = cuda_ms(torch, lambda: A.flash_attention_fwd_cuda(
             q, k, v, causal, seg))
         t_plain = cuda_ms(torch, lambda: A.flash_attention_bwd_plain(
@@ -587,16 +598,24 @@ def phase_bwd(torch, A):
         b_dq = bound_ms(3 * prod, io + nbytes(dq))
         b_dkv = bound_ms(4 * prod, io + nbytes(dk, dv))
         b_fwd = bound_ms(2 * prod, nbytes(q, k, v, o) + rows)
+
+        def rate(n_prod, t_ms, bound):
+            return (f"{n_prod * prod / t_ms / 1e9:.1f} TFLOP/s, "
+                    f"{bound[0] / t_ms:.1%} of its bound {bound[0]:.4f} "
+                    f"({bound[1]})")
+
         log(f"  {label} timing ({tuple(q.shape)}, kv {tuple(k.shape)}): "
-            f"dq kernel {t_dq:.4f} ms (bound {b_dq[0]:.4f}), dk/dv kernel "
-            f"{t_dkv:.4f} ms (bound {b_dkv[0]:.4f}), plain backward "
-            f"{t_plain:.4f} ms, sdpa backward {t_lib_bwd:.4f} ms; forward "
-            f"kernel {t_fwd:.4f} ms (bound {b_fwd[0]:.4f}), plain "
-            f"{t_plain_fwd:.4f} ms, sdpa {t_lib_fwd:.4f} ms")
+            f"dq kernel {t_dq:.4f} ms ({rate(3, t_dq, b_dq)}), dk/dv "
+            f"kernel {t_dkv:.4f} ms ({rate(4, t_dkv, b_dkv)}), together "
+            f"{t_dq + t_dkv:.4f} ms, {t_wrap:.4f} ms through the wrapper; "
+            f"plain backward {t_plain:.4f} ms, sdpa backward "
+            f"{t_lib_bwd:.4f} ms; forward kernel {t_fwd:.4f} ms (bound "
+            f"{b_fwd[0]:.4f}), plain {t_plain_fwd:.4f} ms, sdpa "
+            f"{t_lib_fwd:.4f} ms; card {card_name_and_power_limit()}")
         timings[label] = dict(dq=(t_dq, b_dq), dkv=(t_dkv, b_dkv),
                               fwd=(t_fwd, b_fwd), plain=t_plain,
                               plain_fwd=t_plain_fwd, lib_bwd=t_lib_bwd,
-                              lib_fwd=t_lib_fwd)
+                              lib_fwd=t_lib_fwd, wrapper=t_wrap)
     return err_dq, err_dkv, err_fwd, timings
 
 
@@ -1249,34 +1268,71 @@ def build_all(kernels):
     for kern in firsts:
         log(f"[2/{N_PHASES}] built {kern.source}.cu in "
             f"{kern.build_seconds:.1f} s")
-        for line in kern.build_log.splitlines():
-            if any(w in line for w in ("registers", "spill", "C75")):
-                log(f"      ptxas: {line.strip()}")
+        for line in ptxas_report(kern.build_log):
+            log(f"      ptxas: {line}")
     log(f"      all kernels built in {time.perf_counter() - t0:.1f} s")
 
 
-def check_k1_sass(build):
-    """cuobjdump's SASS of the flash_fwd library: each bf16 kernel must
-    hold HGMMA (wgmma) and UTMALDG (TMA loads). Prints the counts."""
+def ptxas_report(build_log):
+    """One line a kernel from nvcc's -Xptxas=-v output (its name and
+    template arguments, registers, stack and spill bytes), and every
+    C75xx warning (a wgmma chain serialised)."""
+    import re
+
+    lines, name, spill = [], None, ""
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            # the name follows its length in the mangled symbol
+            k = re.search(r"(?<=\d)([a-z]+(?:_(?:[a-z]+|bf16|f32|int8))*"
+                          r"_kernel)I((?:L[a-z]\d+E)+)E", m.group(1))
+            name = m.group(1) if k is None else (
+                f"{k.group(1)}<{','.join(re.findall(r'(\d+)E', k.group(2)))}>")
+            spill = ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif name and re.search(r"Used \d+ registers", line):
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            lines.append(f"{name}: {regs} registers, {spill}")
+            name = None
+        elif "C75" in line:
+            lines.append(line.strip())
+    return lines
+
+
+def check_flash_sass(build):
+    """cuobjdump's SASS of the flash_fwd and flash_bwd libraries: each bf16
+    kernel (K1, K2 dq and K3 dk/dv at hd 32, 64 and 128) must hold HGMMA
+    (wgmma) and UTMALDG (TMA loads). Prints the counts."""
+    import re
+
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-    out = subprocess.run([tool, "-sass", build.library_path("flash_fwd")],
-                         capture_output=True, text=True, timeout=120)
-    if out.returncode != 0:
-        fail(f"cuobjdump: {out.stderr.strip()}")
-    counts, name = {}, None
-    for line in out.stdout.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :")[1].strip()
-            counts[name] = dict.fromkeys(("HGMMA", "UTMALDG"), 0)
-        elif name:
-            for op in counts[name]:
-                counts[name][op] += op in line
-    # the mangled names carry the head dim: ...bf16_kernelILi128EE...
-    bf16 = {"hd " + n.split("bf16_kernelILi")[1].split("E")[0]: c
-            for n, c in counts.items() if "bf16_kernelILi" in n}
-    log(f"      cuobjdump -sass of flash_fwd's bf16 kernels: {bf16}")
-    if len(bf16) != 3 or not all(min(c.values()) > 0 for c in bf16.values()):
-        fail(f"K1's bf16 kernels lack HGMMA or UTMALDG: {bf16}")
+    bf16 = {}
+    for source in ("flash_fwd", "flash_bwd"):
+        out = subprocess.run([tool, "-sass", build.library_path(source)],
+                             capture_output=True, text=True, timeout=120)
+        if out.returncode != 0:
+            fail(f"cuobjdump: {out.stderr.strip()}")
+        counts = None
+        for line in out.stdout.splitlines():
+            if "Function :" in line:
+                # the mangled names carry the head dim:
+                # ...flash_bwd_dq_bf16_kernelILi128EE...
+                m = re.search(r"(?<=\d)(flash_[a-z_]+)_bf16_kernelILi(\d+)E",
+                              line)
+                counts = None if m is None else bf16.setdefault(
+                    f"{m.group(1)} hd {m.group(2)}",
+                    dict.fromkeys(("HGMMA", "UTMALDG"), 0))
+            elif counts is not None:
+                for op in counts:
+                    counts[op] += op in line
+    log(f"      cuobjdump -sass of the flash bf16 kernels: {bf16}")
+    want = {f"{k} hd {d}" for k in ("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv") for d in (32, 64, 128)}
+    if set(bf16) != want or not all(min(c.values()) > 0
+                                    for c in bf16.values()):
+        fail(f"the flash bf16 kernels lack HGMMA or UTMALDG (want one of "
+             f"each in {sorted(want)}): {bf16}")
 
 
 def kernel_entry(name, source, replaces, launches_by_path, err, timing,
@@ -1340,7 +1396,7 @@ def main(argv=None):
             f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
     build_all([A.FLASH_FWD, P.PAGED_DECODE, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV,
                P.PAGED_DECODE_INT8, G.GMM, G.GMM_T, G.TGMM])
-    check_k1_sass(B)
+    check_flash_sass(B)
     tok = serve_tokenizer()
     res = {}
     if 3 in phases:
@@ -1470,6 +1526,13 @@ def main(argv=None):
         kernels.append(kernel_entry(name, "grouped_matmul.cu", replaces,
                                     by_path(name, **paths), k8_err[name],
                                     (t_k, t_p, bound), t_l))
+    # K2/K3's `ms` is at the unpacked S 4096 row; every timed shape beside
+    for entry, part in ((kernels[1], "dq"), (kernels[2], "dkv")):
+        entry["ms_by_shape"] = {s: t[part][0] for s, t in bwd.items()}
+        entry["bound_ms_by_shape"] = {s: t[part][1][0]
+                                      for s, t in bwd.items()}
+        entry["library_ms_by_shape"] = {s: t["lib_bwd"]
+                                        for s, t in bwd.items()}
     missing = [(k["name"], p) for k in kernels
                for p, n in k["launches_by_path"].items() if n <= 0]
     if missing:

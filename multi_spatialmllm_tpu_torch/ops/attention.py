@@ -195,13 +195,16 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal, segment_ids=None):
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, segment_ids=None):
     """Launch the two backward kernels: dq, then fused dk/dv. Contiguous
-    operands as for `flash_attention_fwd_cuda`, `o`/`do` shaped like q,
-    `lse` the forward's f32 `[B, H, S]`."""
+    operands as for `flash_attention_fwd_cuda` (q, k, v and `do` on
+    16-byte boundaries: raises otherwise, never falls back), `o`/`do`
+    shaped like q, `lse` the forward's f32 `[B, H, S]`."""
     b, h, s, d = q.shape
     kvh = k.shape[1]
     seg = _check_kernel_operands("flash_bwd", q, k, v, segment_ids)
     check_cuda_operand("do", do, q.device, q.dtype, (b, h, s, d))
     check_cuda_operand("lse", lse, q.device, torch.float32, (b, h, s))
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        check_tma_aligned(name, t)
     delta = _delta(o, do)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)

@@ -3,10 +3,10 @@
 // forward's saved logsumexp (p = exp(s - lse)); no [S, S] tensor is formed.
 //
 // Replaces the Pallas TPU kernels of multi_spatialmllm_tpu/ops/attention.py:
-//   flash_bwd_dq  <- `_flash_bwd_dq_kernel` (resident K/V) and
-//                    `_flash_bwd_dq_xl_kernel` (K/V streamed, S*hd > 2^20)
-//   flash_bwd_dkv <- `_flash_bwd_dkv_kernel` (resident Q/dO) and
-//                    `_flash_bwd_dkv_xl_kernel` (Q/dO streamed)
+//   flash_bwd_dq  <- `_flash_bwd_dq_kernel` (:269, K2, resident K/V) and
+//                    `_flash_bwd_dq_xl_kernel` (:592, K5, K/V streamed)
+//   flash_bwd_dkv <- `_flash_bwd_dkv_kernel` (:324, K3, resident Q/dO) and
+//                    `_flash_bwd_dkv_xl_kernel` (:645, K6, Q/dO streamed)
 // The resident/streaming split on the TPU is a VMEM budget; here every tile
 // streams through shared memory at every sequence length, so one kernel
 // stands for each pair.
@@ -15,42 +15,69 @@
 //   q, dO [B, H, S, D]; k, v [B, KVH, S, D] (native GQA: kv head =
 //   h / (H/KVH)); lse, delta = rowsum(dO * O) [B, H, S] f32; optional
 //   segment ids [B, S] int32 normalised to nondecreasing run indices.
-//   s = q.k * scale masked with NEG_INF = -1e30 (causal and segment
-//   equality), p = exp(s - lse) (so a masked p is exactly 0, which the
-//   kernels write directly), ds = p * (dO.v - delta) * scale;
-//   dq = ds.K, dv = sum over the group's q heads of p^T.dO,
-//   dk = the same sum of ds^T.Q. p and ds are cast to the operand dtype
-//   before their products, as the TPU kernels do (`_dot_pv`, `_dot_tq`).
+//   s = q.k * scale, masked (causal and segment equality), p = exp(s - lse),
+//   exactly 0 where masked; ds = p * (dO.v - delta) * scale; dq = ds.K,
+//   dv = sum over the group's q heads of p^T.dO, dk = the same sum of
+//   ds^T.Q. p and ds are rounded to bf16 before their products (as the TPU
+//   kernels' `_dot_pv`, `_dot_tq` cast them), sums are f32.
 //
-// GQA without atomics: one dk/dv CTA owns a 64-row k tile of one kv head
-// and loops over the group's `rep` q heads itself, so the group sum is taken
-// in f32 registers and each result is written once, in the same order on
-// every run (the TPU design of `_flash_bwd_dkv_kernel`).
+// No atomics: dq and dk/dv are two kernels, and one dk/dv CTA owns a key
+// tile of one kv head and walks the group's `rep` q heads itself, so the
+// group sum is taken in f32 registers and each result is written once, in
+// the same order on every run (bit-identical results).
 //
-// What bounds it: the backward is compute bound. Per (q head, q tile,
-// k tile) the kernels run five S*S*D products in all (dq kernel: q.k, dO.v,
-// ds.K; dk/dv kernel: k.q, v.dO, p^T.dO, ds^T.Q, i.e. the two score
-// products twice); at B1 H32 S4096 hd128 causal that is ~3.4e11 flops of
-// which the bound counts 5 products once (0.35 ms at 989 TFLOP/s) against
-// ~170 MB of operands (0.05 ms at 3.35 TB/s). This first version runs every
-// bf16 product on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
-// accumulate), tiles of 64 x 64 through shared memory with rows padded by
-// 16 bytes; accumulators (dq, or dk and dv) and the score tiles stay in
-// registers, and the score accumulators are re-packed in place as the A
-// operand of the next product. wgmma, TMA and a pipelined ring are later
-// work. The float32 path is plain FMAs over the same tiling.
-//
-// Tile skipping, as in the TPU kernels: causal tiles past the diagonal are
-// never visited; with segment ids, tiles whose id range does not meet the
-// other side's are skipped at both ends (packed rows, the ViT's pad).
+// What bounds it (989 TFLOP/s bf16, 3.35 TB/s): dq runs three S x S x D
+// products (q.k, dO.v, ds.K), dk/dv four (k.q, v.dO, p^T.dO, ds^T.Q).
+//   - unpacked causal S 4096 (B1 H32 KVH8 hd128) and S 8192 (H8 KVH2):
+//     operations, 206 and 275 GFLOP (0.208 and 0.278 ms) against ~120 MB
+//     of operands (0.04 ms);
+//   - the ViT shape (6 x H16 S1152 hd64, non-causal, a pad segment):
+//     operations, 39 and 52 GFLOP (0.040, 0.053 ms) against ~72 MB;
+//   - a packed S 4096 row (16 segments and a pad): about 1/16 of the causal
+//     work is left (12 and 17 GFLOP), so bytes bound it (~0.03 ms).
+// What the bf16 design does about it:
+//   - wgmma for all seven products: the two score products of each kernel
+//     with both operands in shared memory; dQ += dS.K, dV += P^T.dO and
+//     dK += dS^T.Q with the left operand from registers (the score
+//     accumulators converted in place to the A fragment) and the right one
+//     read MN-major where it lies, so no transposed copy is made;
+//   - K/V (dq) and Q/dO (dk/dv) tiles stream by TMA through a ring of
+//     swizzled slots with full mbarriers, so loads overlap the products;
+//     the tiles that stay (Q and dO, or K and V) are loaded once;
+//   - dq: one CTA of two consumer warpgroups (64 q rows each) and a
+//     producer warp that walks the key tiles (causal and segment skipping)
+//     and publishes each slot's tile index and key segment ids in shared
+//     memory, then an end marker, so the consumers read no device memory
+//     in their loop and cannot disagree with it; the consumers take turns
+//     on the tensor cores (named barriers), one's elementwise pass
+//     overlapping the other's products;
+//   - dk/dv: its four accumulators do not fit the registers of a thread in
+//     a block that large, so one warpgroup owns 64 keys and two CTAs share
+//     an SM (they overlap each other as the two dq consumers do); its warp
+//     0 refills each slot itself with the q tile's Q, dO and rows' lse
+//     (times log2 e), delta (times scale) and segment ids; the live q
+//     tiles are one contiguous run a head, found once;
+//   - exp2 with log2(e) folded into the scale and lse (one MUFU.EX2 an
+//     entry); masks only on the tiles that need them (the causal diagonal,
+//     the ragged last tile, tiles whose segment ids are not one value);
+//   - the live tiles (causal bound; segment ids meeting at both ends) are
+//     one contiguous run, found once by a warp, not tile by tile;
+//   - heaviest causal tiles launch first (dq reverses the q tiles; dk/dv's
+//     first key tiles see the most q tiles), and a dk/dv grid of one wave
+//     pairs heavy and light key tiles on each SM.
+// Tensor maps are per head ([B*H, S, D] and [B*KVH, S, D]), so a box past S
+// reads TMA's zero fill, never the next head's rows. The float32 path (the
+// f32 test configs) is plain FMAs over 64-row tiles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int TILE = 64;          // rows of a q tile and of a k tile
-constexpr int NUM_WARPS = 4;      // each warp owns 16 rows of the CTA's tile
+constexpr int TILE = 64;          // f32 path: rows of a q tile and a k tile
+constexpr int NUM_WARPS = 4;      // f32 path: each warp owns 16 rows
 constexpr int NUM_THREADS = NUM_WARPS * 32;
 
 // Rows [r0, r0 + 64) of a [n_rows, D] row-major matrix into shared memory
@@ -77,23 +104,22 @@ __device__ __forceinline__ bool segments_disjoint(const int* segb, int lo,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync.m16n8k16
+// bf16: warp-specialised wgmma kernels fed by TMA rings
 // ---------------------------------------------------------------------------
 
-// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16), g = lane / 4,
-// t = lane % 4:
-//   A 16x16 row-major: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
-//                      a3 (g+8, 2t+8..)
-//   B 16x8 "col":      b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
-//   C 16x8 f32:        c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1)
-// Each 32-bit register holds two bf16, the lower index in the low half.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// dq's block: two consumer warpgroups (warps 0-7: wgmma needs warpgroups
+// aligned to four warps), then one producer warp
+constexpr int WS_THREADS = 288;
+constexpr int PRODUCER_WG = 2;
+constexpr float LOG2E = 1.4426950408889634f;
+// lse of a q row past S in a dk/dv slot: exp2(s * scale - LSE_PAD) is 0
+constexpr float LSE_PAD = 1e30f;
+
+// 2^x in one MUFU.EX2 (flushes results below 2^-126 to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -101,303 +127,643 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16_pair(__nv_bfloat16 lo,
-                                                   __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-template <int D>
-__host__ __device__ constexpr int bf16_ld() {
-  return D + 8;  // 16 bytes of padding per row
-}
-
-// Rows 16w..16w+15 of a [64, D] shared tile as the A fragment of depth
-// chunk kk.
-template <int LD>
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4],
-                                       const __nv_bfloat16* rows, int kk,
-                                       int g, int t) {
-  a[0] = ld32(rows + g * LD + kk * 16 + 2 * t);
-  a[1] = ld32(rows + (g + 8) * LD + kk * 16 + 2 * t);
-  a[2] = ld32(rows + g * LD + kk * 16 + 2 * t + 8);
-  a[3] = ld32(rows + (g + 8) * LD + kk * 16 + 2 * t + 8);
-}
-
-// acc[n] (16 x 64 tile, n-tiles of 8 columns) += A . B^T where A is this
-// warp's 16 rows of `a_rows` and B the 64 rows of `b_rows`, both [64, D]
-// in shared memory: a product that contracts the head dim.
-template <int D, int LD>
-__device__ __forceinline__ void gemm_rows_rows(float (&acc)[TILE / 8][4],
-                                               const __nv_bfloat16* a_rows,
-                                               const __nv_bfloat16* b_rows,
-                                               int g, int t) {
+// The accumulators of a 64 x N score tile (this thread: N / 2 registers)
+// re-packed as the bf16 A fragments of the N / 16 steps of a product that
+// contracts the tile's columns (step c: columns [16c, 16c + 16)).
+template <int N>
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[N / 16][4],
+                                           const float (&x)[N / 2]) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    a_frag<LD>(a, a_rows, kk, g, t);
-#pragma unroll
-    for (int n = 0; n < TILE / 8; ++n) {
-      const __nv_bfloat16* br = b_rows + (n * 8 + g) * LD + kk * 16 + 2 * t;
-      mma_bf16(acc[n], a, ld32(br), ld32(br + 8));
-    }
+  for (int c = 0; c < N / 16; ++c) {
+    a[c][0] = pack_bf16(x[8 * c], x[8 * c + 1]);
+    a[c][1] = pack_bf16(x[8 * c + 2], x[8 * c + 3]);
+    a[c][2] = pack_bf16(x[8 * c + 4], x[8 * c + 5]);
+    a[c][3] = pack_bf16(x[8 * c + 6], x[8 * c + 7]);
   }
 }
 
-// out[n] (16 x D, n-tiles of 8 columns) += X . M where X is the 16 x 64
-// f32 tile held in `x` as C fragments (cast to bf16 and re-packed as A
-// fragments in place) and M the [64, D] tile `m_rows` in shared memory: a
-// product that contracts the 64 rows of the tile.
-template <int D, int LD>
-__device__ __forceinline__ void gemm_tile_rows(float (&out)[D / 8][4],
-                                               const float (&x)[TILE / 8][4],
-                                               const __nv_bfloat16* m_rows,
-                                               int g, int t) {
+// A 64 x D accumulator (rows r0 and r0 + 8 of this thread) as bf16 rows of
+// a [*, D] row-major output; rows at or past S are not written.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
+                                           const float (&acc)[D / 2],
+                                           size_t row0, int r0, int S,
+                                           int t) {
 #pragma unroll
-  for (int c = 0; c < TILE / 16; ++c) {
-    uint32_t a[4];
-    a[0] = pack_bf16(x[2 * c][0], x[2 * c][1]);
-    a[1] = pack_bf16(x[2 * c][2], x[2 * c][3]);
-    a[2] = pack_bf16(x[2 * c + 1][0], x[2 * c + 1][1]);
-    a[3] = pack_bf16(x[2 * c + 1][2], x[2 * c + 1][3]);
-    const __nv_bfloat16* m0 = m_rows + (c * 16 + 2 * t) * LD + g;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const __nv_bfloat16* mp = m0 + n * 8;
-      mma_bf16(out[n], a, pack_bf16_pair(mp[0], mp[LD]),
-               pack_bf16_pair(mp[8 * LD], mp[9 * LD]));
-    }
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    if (r0 < S)
+      *reinterpret_cast<uint32_t*>(out + row0 * D + c) =
+          pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    if (r0 + 8 < S)
+      *reinterpret_cast<uint32_t*>(out + (row0 + 8) * D + c) =
+          pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
+// Swizzle of a [rows, D] bf16 tile: rows of SW bytes (128, or 64 at D 32),
+// stored as CHUNKS boxes of [rows, CW] columns.
 template <int D>
-constexpr size_t bf16_smem_bytes() {
-  return (size_t)4 * TILE * bf16_ld<D>() * sizeof(__nv_bfloat16) +
-         3 * TILE * sizeof(float);
+struct Sw {
+  static constexpr int SW = D >= 64 ? 128 : 2 * D;
+  static constexpr int CW = SW / 2;
+  static constexpr int CHUNKS = D / CW;
+  static constexpr int LAYOUT = hopper::desc_layout(SW);
+};
+
+// The two consumer warpgroups take turns on the tensor cores (FA3's
+// ping-pong): each issues its products only on its turn (named barrier
+// 1 + cw) and passes the turn once they are issued. Warpgroup 0 takes the
+// first turn; every pass is matched by a wait, the last by `finish`. Both
+// warpgroups must run the same number of turns (they consume every slot).
+struct PingPong {
+  int cw;
+  __device__ __forceinline__ explicit PingPong(int cw_) : cw(cw_) {
+    if (cw == 1) hopper::named_bar_arrive(1, 256);
+  }
+  __device__ __forceinline__ void take() const {
+    hopper::named_bar_sync(1 + cw, 256);
+  }
+  __device__ __forceinline__ void pass() const {
+    hopper::named_bar_arrive(2 - cw, 256);
+  }
+  __device__ __forceinline__ void finish() const {
+    if (cw == 0) take();  // warpgroup 1's last pass
+  }
+};
+
+// Narrows the tiles [lo, hi] (of `rows` rows each) to those whose segment
+// ids meet [seg_lo, seg_hi]. The ids are nondecreasing, so the tiles whose
+// ids all precede that range are a prefix and those whose ids all follow
+// it a suffix: the rest is one contiguous run, found by one warp with two
+// loads a lane for every 32 tiles, once (hi < lo if there is none).
+__device__ __forceinline__ void live_run(const int* segb, int S, int rows,
+                                         int seg_lo, int seg_hi, int lane,
+                                         int& lo, int& hi) {
+  int first = hi + 1, last = lo - 1;
+  for (int j0 = lo; j0 <= hi; j0 += 32) {
+    const int j = j0 + lane;
+    const bool meets =
+        j <= hi && !(__ldg(segb + min((j + 1) * rows, S) - 1) < seg_lo ||
+                     __ldg(segb + j * rows) > seg_hi);
+    const unsigned m = __ballot_sync(0xffffffffu, meets);
+    if (m) {
+      first = min(first, j0 + __ffs(m) - 1);
+      last = j0 + 31 - __clz(m);
+    }
+  }
+  lo = first;
+  hi = last;
 }
 
-// dq: one CTA per (b*h, 64-row q tile); each warp owns 16 q rows and loops
-// over the k tiles its rows can see.
+// ---- dq: one CTA per (b*h, 128-row q tile); K/V tiles of BN keys stream --
+
 template <int D>
-__global__ void __launch_bounds__(NUM_THREADS)
-    flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v,
-                             const __nv_bfloat16* __restrict__ dout,
+struct DqCfg {
+  static constexpr int BM = 128;   // q rows a CTA: two consumers of 64
+  // keys a K/V tile: S and dP take BN / 2 accumulators a thread each, dQ
+  // D / 2; at 128 keys they outgrow the 168 registers a thread of this
+  // 9-warp block gets (ptxas spilled them and serialised the wgmmas)
+  static constexpr int BN = 64;
+  static constexpr int STAGES = 4;
+  static constexpr uint32_t Q_BYTES = BM * D * 2;   // Q, and dO
+  static constexpr uint32_t KV_BYTES = BN * D * 2;  // one K or V tile
+  // 1 KB of barriers and slot tile indices, the slots' key segment ids
+  // (BN ints each, rounded up to 1 KB), then Q, dO and STAGES x (K, V),
+  // each on a 1024-byte boundary; 1 KB of slack for the alignment
+  static constexpr uint32_t SEG_BYTES =
+      (STAGES * BN * 4 + 1023) / 1024 * 1024;
+  static constexpr size_t SMEM =
+      2048 + SEG_BYTES + 2 * Q_BYTES + (size_t)2 * STAGES * KV_BYTES;
+};
+
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_do,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
                              const int* __restrict__ seg,
                              __nv_bfloat16* __restrict__ dq, int H, int KVH,
-                             int S, int causal, float scale) {
-  constexpr int LD = bf16_ld<D>();
-  constexpr int NK = TILE / 8;
-  constexpr int ND = D / 8;
+                             int S, int causal, float scale,
+                             float scale_log2) {
+  using C = DqCfg<D>;
+  using W = Sw<D>;
+  constexpr int BM = C::BM, BN = C::BN;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sDO = sQ + TILE * LD;
-  __nv_bfloat16* sK = sDO + TILE * LD;
-  __nv_bfloat16* sV = sK + TILE * LD;
-  int* sSeg = reinterpret_cast<int*>(sV + TILE * LD);
+  const uint32_t base = (hopper::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base;
+  const uint32_t sQ = base + 1024 + C::SEG_BYTES;
+  const uint32_t sDO = sQ + C::Q_BYTES;
+  auto bar_full = [=](int st) { return base + 8u + 8u * st; };
+  auto bar_empty = [=](int st) { return base + 8u + 8u * (C::STAGES + st); };
+  auto sK = [=](int st) { return sDO + C::Q_BYTES + 2u * st * C::KV_BYTES; };
+  auto sV = [=](int st) { return sK(st) + C::KV_BYTES; };
+  // what threads read and write themselves: each slot's tile index (-1:
+  // no more tiles) and its keys' segment ids (-1 past S)
+  unsigned char* gbase = smem_raw + (base - hopper::smem_u32(smem_raw));
+  int* slot_tile = reinterpret_cast<int*>(gbase + 512);
+  int* slot_seg = reinterpret_cast<int*>(gbase + 1024);
 
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int kv_row = b * KVH + h / (H / KVH);
-  const int q0 = blockIdx.x * TILE;
-  const int q_last = min(q0 + TILE, S) - 1;
-  const __nv_bfloat16* kb = k + (size_t)kv_row * S * D;
-  const __nv_bfloat16* vb = v + (size_t)kv_row * S * D;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int kv_bh = b * KVH + h / (H / KVH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest first
   const int* segb = seg ? seg + (size_t)b * S : nullptr;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;  // this lane's rows
+  const int wg = threadIdx.x / 128;
 
-  load_tile<__nv_bfloat16, D, LD>(sQ, q + (size_t)bh * S * D, q0, S);
-  load_tile<__nv_bfloat16, D, LD>(sDO, dout + (size_t)bh * S * D, q0, S);
-  const float lse0 = row0 < S ? lse[(size_t)bh * S + row0] : 0.f;
-  const float lse1 = row1 < S ? lse[(size_t)bh * S + row1] : 0.f;
-  const float dl0 = row0 < S ? delta[(size_t)bh * S + row0] : 0.f;
-  const float dl1 = row1 < S ? delta[(size_t)bh * S + row1] : 0.f;
-  const int seg_q0 = (segb && row0 < S) ? segb[row0] : 0;
-  const int seg_q1 = (segb && row1 < S) ? segb[row1] : 0;
-  const __nv_bfloat16* sQw = sQ + warp * 16 * LD;
-  const __nv_bfloat16* sDOw = sDO + warp * 16 * LD;
-
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  int nk = (S + TILE - 1) / TILE;
-  if (causal) nk = min(nk, q_last / TILE + 1);  // tiles past the diagonal
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * TILE, k_last = min(k0 + TILE, S) - 1;
-    // uniform across the block, so the barriers below stay matched
-    if (segb && segments_disjoint(segb, q0, q_last, k0, k_last)) continue;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<__nv_bfloat16, D, LD>(sK, kb, k0, S);
-    load_tile<__nv_bfloat16, D, LD>(sV, vb, k0, S);
-    if (segb && tid < TILE) sSeg[tid] = k0 + tid < S ? segb[k0 + tid] : -1;
-    __syncthreads();
-
-    float s[NK][4], dp[NK][4];
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar_q, 1);
+    for (int st = 0; st < C::STAGES; ++st) {
+      hopper::mbar_init(bar_full(st), 1);
+      hopper::mbar_init(bar_empty(st), 8);  // one arrival a consumer warp
     }
-    gemm_rows_rows<D, LD>(s, sQw, sK, g, t);    // S = Q K^T
-    gemm_rows_rows<D, LD>(dp, sDOw, sV, g, t);  // dP = dO V^T
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1), kj = k0 + c;
-        const int qi = e < 2 ? row0 : row1;
-        bool keep = kj < S;
-        if (causal) keep = keep && kj <= qi;
-        if (segb) keep = keep && sSeg[c] == (e < 2 ? seg_q0 : seg_q1);
-        const float p = keep ? expf(s[n][e] * scale - (e < 2 ? lse0 : lse1))
-                             : 0.f;  // exp(NEG_INF - lse) == 0
-        s[n][e] = p * (dp[n][e] - (e < 2 ? dl0 : dl1)) * scale;  // ds
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == PRODUCER_WG) {
+    // producer: one warp keeps the ring full; lane 0 issues the TMA loads,
+    // the warp copies the keys' segment ids
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(bar_q, 2 * C::Q_BYTES);
+      for (int c = 0; c < W::CHUNKS; ++c) {
+        hopper::tma_load_3d(sQ + c * BM * W::SW, &tm_q, bar_q, c * W::CW,
+                            q0, bh);
+        hopper::tma_load_3d(sDO + c * BM * W::SW, &tm_do, bar_q,
+                            c * W::CW, q0, bh);
       }
     }
-    gemm_tile_rows<D, LD>(acc, s, sK, g, t);    // dQ += dS K
-  }
-
+    // the key tiles this q tile sees: up to the diagonal, and with segment
+    // ids the run whose ids meet the q tile's (its two ends)
+    const int q_last = min(q0 + BM, S) - 1;
+    int lo = 0, hi = (S + BN - 1) / BN - 1;
+    if (causal) hi = min(hi, q_last / BN);
+    if (segb)
+      live_run(segb, S, BN, __ldg(segb + q0), __ldg(segb + q_last), lane, lo,
+               hi);
+    int stage = 0, phase = 0;
+    for (int kt = lo;; ++kt) {
+      const bool end = kt > hi;  // past the last tile: the end marker
+      const int k0 = kt * BN;
+      int ids[BN / 32];  // loaded before the wait, stored after it
+      if (segb && !end)
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (row0 < S)
-      *reinterpret_cast<uint32_t*>(dq + ((size_t)bh * S + row0) * D + c) =
-          pack_bf16(acc[n][0], acc[n][1]);
-    if (row1 < S)
-      *reinterpret_cast<uint32_t*>(dq + ((size_t)bh * S + row1) * D + c) =
-          pack_bf16(acc[n][2], acc[n][3]);
+        for (int i = 0; i < BN / 32; ++i) {
+          const int col = k0 + lane + 32 * i;
+          ids[i] = col < S ? __ldg(segb + col) : -1;
+        }
+      hopper::mbar_wait(bar_empty(stage), phase ^ 1);  // slot released
+      if (segb && !end)
+#pragma unroll
+        for (int i = 0; i < BN / 32; ++i)
+          slot_seg[stage * BN + lane + 32 * i] = ids[i];
+      if (lane == 0) slot_tile[stage] = end ? -1 : kt;
+      __syncwarp();  // the warp's writes before lane 0's arrival
+      if (lane == 0) {
+        const uint32_t full = bar_full(stage);
+        if (end) {
+          hopper::mbar_arrive(full);
+        } else {
+          hopper::mbar_arrive_expect_tx(full, 2 * C::KV_BYTES);
+          for (int c = 0; c < W::CHUNKS; ++c) {
+            hopper::tma_load_3d(sK(stage) + c * BN * W::SW, &tm_k, full,
+                                c * W::CW, k0, kv_bh);
+            hopper::tma_load_3d(sV(stage) + c * BN * W::SW, &tm_v, full,
+                                c * W::CW, k0, kv_bh);
+          }
+        }
+      }
+      if (++stage == C::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+      if (end) break;
+    }
+  } else {
+    // consumers: warpgroup cw owns q rows [q0 + 64 cw, q0 + 64 cw + 64)
+    const int cw = wg;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int w_lo = q0 + 64 * cw;
+    const int r0 = w_lo + 16 * warp + g, r1 = r0 + 8;  // this thread's rows
+    // each row's lse (base 2) and delta (times scale), read once
+    const size_t row0 = (size_t)bh * S + r0;
+    const float lse0 = r0 < S ? __ldg(lse + row0) * LOG2E : 0.f;
+    const float lse1 = r1 < S ? __ldg(lse + row0 + 8) * LOG2E : 0.f;
+    const float dl0 = r0 < S ? __ldg(delta + row0) * scale : 0.f;
+    const float dl1 = r1 < S ? __ldg(delta + row0 + 8) * scale : 0.f;
+    int sq0 = 0, sq1 = 0, sw_lo = 0, sw_hi = 0;
+    if (segb) {
+      sq0 = __ldg(segb + min(r0, S - 1));
+      sq1 = __ldg(segb + min(r1, S - 1));
+      sw_lo = __ldg(segb + min(w_lo, S - 1));
+      sw_hi = __ldg(segb + min(w_lo + 63, S - 1));
+    }
+    // descriptors of this warpgroup's Q and dO rows (K-major A), of slot
+    // 0's K and V as the K-major B of the score products, and of slot 0's
+    // K read MN-major as the B of dQ += dS K; a step adds its byte offset
+    // / 16 to the start-address field
+    const uint64_t dq_a = hopper::make_desc(sQ + cw * 64 * W::SW, 16,
+                                            8 * W::SW, W::LAYOUT);
+    const uint64_t ddo_a = hopper::make_desc(sDO + cw * 64 * W::SW, 16,
+                                             8 * W::SW, W::LAYOUT);
+    const uint64_t dk_b = hopper::make_desc(sK(0), 16, 8 * W::SW, W::LAYOUT);
+    const uint64_t dv_b = hopper::make_desc(sV(0), 16, 8 * W::SW, W::LAYOUT);
+    const uint64_t dk_t = hopper::make_desc(sK(0), BN * W::SW, 8 * W::SW,
+                                            W::LAYOUT);
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    const PingPong turn(cw);
+
+    hopper::mbar_wait(bar_q, 0);
+    for (int stage = 0, phase = 0;;) {
+      hopper::mbar_wait(bar_full(stage), phase);
+      const int kt = slot_tile[stage];
+      if (kt < 0) break;
+      const int k0 = kt * BN;
+      const int* tseg = slot_seg + stage * BN;  // this tile's key ids
+      const uint32_t slot = stage * (2 * C::KV_BYTES / 16);
+
+      // S = Q K^T and dP = dO V^T for this warpgroup's 64 rows x BN keys
+      float s[BN / 2], dp[BN / 2];
+      turn.take();
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<BN>(s, dq_a + hopper::kmajor_step(kk, BM, W::SW),
+                             dk_b + slot + hopper::kmajor_step(kk, BN, W::SW),
+                             kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<BN>(dp, ddo_a + hopper::kmajor_step(kk, BM, W::SW),
+                             dv_b + slot + hopper::kmajor_step(kk, BN, W::SW),
+                             kk > 0);
+      hopper::wgmma_commit();
+      turn.pass();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+
+      // mask only where some entry of this warpgroup's block needs it
+      bool need = k0 + BN > S || (causal && k0 + BN - 1 > w_lo);
+      if (segb && !need) {
+        const int a = tseg[0], z = tseg[BN - 1];  // a full tile here
+        need = !(a == z && a == sw_lo && sw_lo == sw_hi);
+      }
+      // p = exp2(s * scale_log2 - lse2), 0 where masked; ds = p * (dp *
+      // scale - delta * scale), kept in s
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p0 = fast_exp2(fmaf(s[4 * j + e], scale_log2, -lse0));
+          float p1 = fast_exp2(fmaf(s[4 * j + 2 + e], scale_log2, -lse1));
+          if (need) {
+            const int col = k0 + 8 * j + 2 * t + e;
+            bool keep0 = col < S, keep1 = col < S;
+            if (causal) {
+              keep0 = keep0 && col <= r0;
+              keep1 = keep1 && col <= r1;
+            }
+            if (segb) {
+              const int sk = tseg[8 * j + 2 * t + e];
+              keep0 = keep0 && sk == sq0;
+              keep1 = keep1 && sk == sq1;
+            }
+            if (!keep0) p0 = 0.f;
+            if (!keep1) p1 = 0.f;
+          }
+          s[4 * j + e] = p0 * fmaf(dp[4 * j + e], scale, -dl0);
+          s[4 * j + 2 + e] = p1 * fmaf(dp[4 * j + 2 + e], scale, -dl1);
+        }
+      }
+
+      // dQ += dS K: dS (bf16) from registers, K read MN-major in its slot
+      uint32_t da[BN / 16][4];
+      to_a_frags<BN>(da, s);
+      turn.take();
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < BN / 16; ++c)  // 16 keys: 16 rows of K down
+        hopper::wgmma_rs_tnsp<D>(acc, da[c], dk_t + slot + c * W::SW);
+      hopper::wgmma_commit();
+      turn.pass();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(bar_empty(stage));  // slot read
+      if (++stage == C::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    turn.finish();
+    store_rows<D>(dq, acc, row0, r0, S, t);
   }
 }
 
-// dk/dv: one CTA per (b*kvh, 64-row k tile); each warp owns 16 k rows and
-// loops over the group's q heads and the q tiles that can see its keys,
-// working on transposed tiles (keys as rows) so dk and dv accumulate in its
-// registers.
+// ---- dk/dv: one warpgroup CTA per (b*kvh, 64-key tile), two CTAs an SM --
+//
+// Each thread holds S^T, dP^T (32 f32 each) and dK, dV (64 each at hd 128):
+// 192 accumulators, more than the 168 registers a thread of a 9- or
+// 12-warp block gets (three warps then share one of the SM's four 16K
+// register files; ptxas held such blocks to 168 whatever setmaxnreg
+// claimed, and spilled). A 4-warp block launched two to an SM gets 255.
+// So the warpgroup that multiplies also keeps its own ring full: warp 0
+// refills a slot as soon as the products that read it are done (their
+// completion means all four warps are past the slot's row data), with the
+// next tile's row data loaded one tile ahead. The live q tiles form one
+// contiguous run per head (causal start; nondecreasing segment ids), found
+// once, so every thread computes tile i's head and rows from i alone.
+
 template <int D>
-__global__ void __launch_bounds__(NUM_THREADS)
-    flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                              const __nv_bfloat16* __restrict__ k,
-                              const __nv_bfloat16* __restrict__ v,
-                              const __nv_bfloat16* __restrict__ dout,
+struct DkvCfg {
+  static constexpr int BN = 64;  // keys a CTA: one warpgroup's wgmma M
+  // q rows a Q/dO tile: S^T and dP^T take BM / 2 accumulators a thread
+  // each, dK and dV D / 2; 128 rows fit 255 registers below hd 128
+  static constexpr int BM = D == 128 ? 64 : 128;
+  static constexpr int THREADS = 128;
+  // two CTAs an SM: at most ~113 KB of shared memory each
+  static constexpr int STAGES = D == 32 ? 4 : 2;
+  static constexpr uint32_t KV_BYTES = BN * D * 2;  // K, and V
+  static constexpr uint32_t QT_BYTES = BM * D * 2;  // one Q or dO tile
+  // 1 KB of barriers and the live range, each slot's rows' lse, delta and
+  // segment ids (3 x BM words, rounded up to 1 KB in all), then K, V and
+  // STAGES x (Q, dO), each on a 1024-byte boundary; 1 KB of slack
+  static constexpr uint32_t META_BYTES =
+      (STAGES * 3 * BM * 4 + 1023) / 1024 * 1024;
+  static constexpr size_t SMEM =
+      2048 + META_BYTES + 2 * KV_BYTES + (size_t)2 * STAGES * QT_BYTES;
+};
+
+// One q tile's BM rows as a slot needs them, BM / 32 a lane of warp 0:
+// lse times log2 e (LSE_PAD past S), delta times scale (0 past S), segment
+// id (-1 past S).
+template <int BM>
+struct RowMeta {
+  static constexpr int N = BM / 32;
+  float l2[N], dl[N];
+  int id[N];
+
+  __device__ __forceinline__ void load(const float* lse_h, const float* dl_h,
+                                       const int* segb, int q0, int S,
+                                       float scale, int lane) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int row = q0 + lane + 32 * i;
+      const bool in = row < S;
+      l2[i] = in ? __ldg(lse_h + row) * LOG2E : LSE_PAD;
+      dl[i] = in ? __ldg(dl_h + row) * scale : 0.f;
+      id[i] = segb && in ? __ldg(segb + row) : -1;
+    }
+  }
+  __device__ __forceinline__ void store(float* l2_at, float* dl_at,
+                                        int* id_at, int lane) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      l2_at[lane + 32 * i] = l2[i];
+      dl_at[lane + 32 * i] = dl[i];
+      id_at[lane + 32 * i] = id[i];
+    }
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(DkvCfg<D>::THREADS, 2)
+    flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do,
                               const float* __restrict__ lse,
                               const float* __restrict__ delta,
                               const int* __restrict__ seg,
                               __nv_bfloat16* __restrict__ dk,
                               __nv_bfloat16* __restrict__ dv, int H, int KVH,
-                              int S, int causal, float scale) {
-  constexpr int LD = bf16_ld<D>();
-  constexpr int NQ = TILE / 8;
-  constexpr int ND = D / 8;
+                              int S, int causal, float scale,
+                              float scale_log2, int fold) {
+  using C = DkvCfg<D>;
+  using W = Sw<D>;
+  constexpr int BM = C::BM, BN = C::BN;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + TILE * LD;
-  __nv_bfloat16* sQ = sV + TILE * LD;
-  __nv_bfloat16* sDO = sQ + TILE * LD;
-  float* sLse = reinterpret_cast<float*>(sDO + TILE * LD);
-  float* sDelta = sLse + TILE;
-  int* sSeg = reinterpret_cast<int*>(sDelta + TILE);
+  const uint32_t base = (hopper::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_kv = base;
+  const uint32_t sK = base + 1024 + C::META_BYTES;
+  const uint32_t sV = sK + C::KV_BYTES;
+  auto bar_full = [=](int st) { return base + 8u + 8u * st; };
+  auto sQ = [=](int st) { return sV + C::KV_BYTES + 2u * st * C::QT_BYTES; };
+  auto sDO = [=](int st) { return sQ(st) + C::QT_BYTES; };
+  // the live range (first q tile, live tiles a head), and each slot's rows'
+  // lse * log2 e, delta * scale and segment ids
+  unsigned char* gbase = smem_raw + (base - hopper::smem_u32(smem_raw));
+  int* live = reinterpret_cast<int*>(gbase + 512);
+  float* slot_lse = reinterpret_cast<float*>(gbase + 1024);
+  float* slot_dl = slot_lse + C::STAGES * BM;
+  int* slot_seg = reinterpret_cast<int*>(slot_dl + C::STAGES * BM);
 
-  const int bkv = blockIdx.y, b = bkv / KVH, kvh = bkv % KVH;
+  // launch order: heaviest first (causal: the first key tiles see the most
+  // q tiles). When the grid is one wave of two CTAs an SM (`fold`: the SM
+  // count, else 0), the blocks after the first `fold` take the lightest
+  // tiles, lightest first, so that the two CTAs an SM carry about the mean
+  int r = blockIdx.x + gridDim.x * blockIdx.y;
+  if (fold > 0 && r >= fold) r = gridDim.x * gridDim.y - 1 - (r - fold);
+  const int bkv = r % gridDim.x, b = bkv / KVH, kvh = bkv % KVH;
   const int rep = H / KVH;
-  const int k0 = blockIdx.x * TILE;
-  const int k_last = min(k0 + TILE, S) - 1;
+  const int k0 = r / gridDim.x * BN;
   const int* segb = seg ? seg + (size_t)b * S : nullptr;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;  // this lane's keys
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
 
-  load_tile<__nv_bfloat16, D, LD>(sK, k + (size_t)bkv * S * D, k0, S);
-  load_tile<__nv_bfloat16, D, LD>(sV, v + (size_t)bkv * S * D, k0, S);
-  const int seg_k0 = (segb && key0 < S) ? segb[key0] : 0;
-  const int seg_k1 = (segb && key1 < S) ? segb[key1] : 0;
-  const __nv_bfloat16* sKw = sK + warp * 16 * LD;
-  const __nv_bfloat16* sVw = sV + warp * 16 * LD;
-
-  float dk_acc[ND][4], dv_acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    dk_acc[n][0] = dk_acc[n][1] = dk_acc[n][2] = dk_acc[n][3] = 0.f;
-    dv_acc[n][0] = dv_acc[n][1] = dv_acc[n][2] = dv_acc[n][3] = 0.f;
+  if (warp == 0) {
+    if (lane == 0) {
+      hopper::mbar_init(bar_kv, 1);
+      for (int st = 0; st < C::STAGES; ++st)
+        hopper::mbar_init(bar_full(st), 1);
+      hopper::fence_barrier_init();
+      hopper::mbar_arrive_expect_tx(bar_kv, 2 * C::KV_BYTES);
+      for (int c = 0; c < W::CHUNKS; ++c) {
+        hopper::tma_load_3d(sK + c * BN * W::SW, &tm_k, bar_kv, c * W::CW,
+                            k0, bkv);
+        hopper::tma_load_3d(sV + c * BN * W::SW, &tm_v, bar_kv, c * W::CW,
+                            k0, bkv);
+      }
+    }
+    // causal: q tiles wholly before these keys see none of them; with
+    // segment ids, the run of q tiles whose ids meet these keys'
+    int lo = causal ? k0 / BM : 0, hi = (S + BM - 1) / BM - 1;
+    if (segb)
+      live_run(segb, S, BM, __ldg(segb + k0),
+               __ldg(segb + min(k0 + BN, S) - 1), lane, lo, hi);
+    if (lane == 0) {
+      live[0] = lo;
+      live[1] = max(0, hi - lo + 1);
+    }
   }
+  __syncthreads();
+  const int q_lo = live[0], per_head = live[1], n = rep * per_head;
 
-  const int nq = (S + TILE - 1) / TILE;
-  // causal: q tiles wholly before this k tile see none of it
-  const int qt_start = causal ? k0 / TILE : 0;
-  for (int r = 0; r < rep; ++r) {
-    const size_t bh = (size_t)b * H + kvh * rep + r;
-    for (int qt = qt_start; qt < nq; ++qt) {
-      const int q0 = qt * TILE, q_last = min(q0 + TILE, S) - 1;
-      if (segb && segments_disjoint(segb, q0, q_last, k0, k_last)) continue;
-      __syncthreads();  // the previous tile's readers are done
-      load_tile<__nv_bfloat16, D, LD>(sQ, q + bh * S * D, q0, S);
-      load_tile<__nv_bfloat16, D, LD>(sDO, dout + bh * S * D, q0, S);
-      if (tid < TILE) {
-        const bool in = q0 + tid < S;
-        sLse[tid] = in ? lse[bh * S + q0 + tid] : 0.f;
-        sDelta[tid] = in ? delta[bh * S + q0 + tid] : 0.f;
-        if (segb) sSeg[tid] = in ? segb[q0 + tid] : -1;
+  // tile i of the walk: q head kvh * rep + i / per_head, rows from
+  // (q_lo + i % per_head) * BM
+  const auto head_of = [&](int i) { return b * H + kvh * rep + i / per_head; };
+  const auto row_of = [&](int i) { return (q_lo + i % per_head) * BM; };
+  // warp 0: the tile's row data into slot st, then its Q and dO by TMA
+  const auto publish = [&](int i, int st, const RowMeta<BM>& m) {
+    m.store(slot_lse + st * BM, slot_dl + st * BM, slot_seg + st * BM, lane);
+    __syncwarp();  // the warp's writes before lane 0's arrival
+    if (lane == 0) {
+      const uint32_t full = bar_full(st);
+      const int bh = head_of(i), q0 = row_of(i);
+      hopper::mbar_arrive_expect_tx(full, 2 * C::QT_BYTES);
+      for (int c = 0; c < W::CHUNKS; ++c) {
+        hopper::tma_load_3d(sQ(st) + c * BM * W::SW, &tm_q, full, c * W::CW,
+                            q0, bh);
+        hopper::tma_load_3d(sDO(st) + c * BM * W::SW, &tm_do, full,
+                            c * W::CW, q0, bh);
       }
-      __syncthreads();
+    }
+  };
+  const auto meta_of = [&](int i) {
+    RowMeta<BM> m;
+    const size_t row0 = (size_t)head_of(i) * S;
+    m.load(lse + row0, delta + row0, segb, row_of(i), S, scale, lane);
+    return m;
+  };
+  if (warp == 0)
+    for (int i = 0; i < min(n, C::STAGES); ++i) publish(i, i, meta_of(i));
 
-      float pt[NQ][4], dst[NQ][4];  // P^T, then dP^T -> dS^T (keys x queries)
+  // register i of a transposed score tile is key row 16 warp + g + 8 ((i /
+  // 2) % 2) and q column 8 (i / 4) + 2 t + i % 2
+  const int ka = k0 + 16 * warp + g, kb = ka + 8;  // this thread's keys
+  int ska = 0, skb = 0, sk_lo = 0, sk_hi = 0;
+  if (segb) {
+    ska = __ldg(segb + min(ka, S - 1));
+    skb = __ldg(segb + min(kb, S - 1));
+    sk_lo = __ldg(segb + k0);
+    sk_hi = __ldg(segb + min(k0 + BN, S) - 1);
+  }
+  // descriptors: K and V (K-major A), slot 0's Q and dO as the K-major B of
+  // the score products, and slot 0's Q and dO read MN-major as the B of
+  // dK += dS^T Q and dV += P^T dO
+  const uint64_t dk_a = hopper::make_desc(sK, 16, 8 * W::SW, W::LAYOUT);
+  const uint64_t dv_a = hopper::make_desc(sV, 16, 8 * W::SW, W::LAYOUT);
+  const uint64_t dq_b = hopper::make_desc(sQ(0), 16, 8 * W::SW, W::LAYOUT);
+  const uint64_t ddo_b = hopper::make_desc(sDO(0), 16, 8 * W::SW, W::LAYOUT);
+  const uint64_t dq_t = hopper::make_desc(sQ(0), BM * W::SW, 8 * W::SW,
+                                          W::LAYOUT);
+  const uint64_t ddo_t = hopper::make_desc(sDO(0), BM * W::SW, 8 * W::SW,
+                                           W::LAYOUT);
+
+  float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-      for (int n = 0; n < NQ; ++n) {
-        pt[n][0] = pt[n][1] = pt[n][2] = pt[n][3] = 0.f;
-        dst[n][0] = dst[n][1] = dst[n][2] = dst[n][3] = 0.f;
-      }
-      gemm_rows_rows<D, LD>(pt, sKw, sQ, g, t);    // S^T = K Q^T
-      gemm_rows_rows<D, LD>(dst, sVw, sDO, g, t);  // dP^T = V dO^T
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  hopper::mbar_wait(bar_kv, 0);
+  for (int i = 0; i < n; ++i) {
+    const int stage = i % C::STAGES;
+    // warp 0 refills this slot with tile i + STAGES once it is read; that
+    // tile's row data loads meanwhile
+    const bool refill = warp == 0 && i + C::STAGES < n;
+    RowMeta<BM> next;
+    if (refill) next = meta_of(i + C::STAGES);
+    hopper::mbar_wait(bar_full(stage), (i / C::STAGES) & 1);
+    const int q0 = row_of(i);
+    const float* tl = slot_lse + stage * BM;
+    const float* td = slot_dl + stage * BM;
+    const int* ts = slot_seg + stage * BM;
+    const uint32_t slot = stage * (2 * C::QT_BYTES / 16);
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x BM q rows
+    float st[BM / 2], dpt[BM / 2];
+    hopper::wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < NQ; ++n) {
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::wgmma_ss<BM>(st, dk_a + hopper::kmajor_step(kk, BN, W::SW),
+                           dq_b + slot + hopper::kmajor_step(kk, BM, W::SW),
+                           kk > 0);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = n * 8 + 2 * t + (e & 1), qi = q0 + c;
-          const int kj = e < 2 ? key0 : key1;
-          bool keep = qi < S && kj < S;
-          if (causal) keep = keep && kj <= qi;
-          if (segb) keep = keep && sSeg[c] == (e < 2 ? seg_k0 : seg_k1);
-          const float p = keep ? expf(pt[n][e] * scale - sLse[c]) : 0.f;
-          pt[n][e] = p;
-          dst[n][e] = p * (dst[n][e] - sDelta[c]) * scale;
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::wgmma_ss<BM>(dpt, dv_a + hopper::kmajor_step(kk, BN, W::SW),
+                           ddo_b + slot + hopper::kmajor_step(kk, BM, W::SW),
+                           kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(st);
+    hopper::fence_regs(dpt);
+
+    // mask only where some entry of the tile needs it (q rows past S need
+    // none: their lse is LSE_PAD, so p is 0)
+    bool need = causal && k0 + BN - 1 > q0;
+    if (segb && !need) {
+      const int a = ts[0], z = ts[BM - 1];  // -1 past S
+      need = !(a == z && a == sk_lo && sk_lo == sk_hi);
+    }
+    // p^T = exp2(s^T * scale_log2 - lse2[col]), 0 where masked, kept in st;
+    // ds^T = p^T * (dp^T * scale - delta[col] * scale), kept in dpt
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j) {
+      const int c0 = 8 * j + 2 * t;
+      const float2 l2 = *reinterpret_cast<const float2*>(tl + c0);
+      const float2 dl = *reinterpret_cast<const float2*>(td + c0);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float lc = e ? l2.y : l2.x, dc = e ? dl.y : dl.x;
+        float pa = fast_exp2(fmaf(st[4 * j + e], scale_log2, -lc));
+        float pb = fast_exp2(fmaf(st[4 * j + 2 + e], scale_log2, -lc));
+        if (need) {
+          const int col = q0 + c0 + e;
+          bool keep_a = true, keep_b = true;
+          if (causal) {
+            keep_a = ka <= col;
+            keep_b = kb <= col;
+          }
+          if (segb) {
+            const int sq = ts[c0 + e];
+            keep_a = keep_a && ska == sq;
+            keep_b = keep_b && skb == sq;
+          }
+          if (!keep_a) pa = 0.f;
+          if (!keep_b) pb = 0.f;
         }
+        st[4 * j + e] = pa;
+        st[4 * j + 2 + e] = pb;
+        dpt[4 * j + e] = pa * fmaf(dpt[4 * j + e], scale, -dc);
+        dpt[4 * j + 2 + e] = pb * fmaf(dpt[4 * j + 2 + e], scale, -dc);
       }
-      gemm_tile_rows<D, LD>(dv_acc, pt, sDO, g, t);  // dV += P^T dO
-      gemm_tile_rows<D, LD>(dk_acc, dst, sQ, g, t);  // dK += dS^T Q
     }
-  }
 
+    // dV += P^T dO and dK += dS^T Q: the left operands (bf16) from
+    // registers, dO and Q read MN-major in their slot
+    uint32_t pf[BM / 16][4], df[BM / 16][4];
+    to_a_frags<BM>(pf, st);
+    to_a_frags<BM>(df, dpt);
+    hopper::wgmma_fence();
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int c = n * 8 + 2 * t;
-    const size_t o0 = ((size_t)bkv * S + key0) * D + c;
-    const size_t o1 = ((size_t)bkv * S + key1) * D + c;
-    if (key0 < S) {
-      *reinterpret_cast<uint32_t*>(dk + o0) =
-          pack_bf16(dk_acc[n][0], dk_acc[n][1]);
-      *reinterpret_cast<uint32_t*>(dv + o0) =
-          pack_bf16(dv_acc[n][0], dv_acc[n][1]);
-    }
-    if (key1 < S) {
-      *reinterpret_cast<uint32_t*>(dk + o1) =
-          pack_bf16(dk_acc[n][2], dk_acc[n][3]);
-      *reinterpret_cast<uint32_t*>(dv + o1) =
-          pack_bf16(dv_acc[n][2], dv_acc[n][3]);
-    }
+    for (int c = 0; c < BM / 16; ++c)  // 16 q rows of dO down
+      hopper::wgmma_rs_tnsp<D>(dv_acc, pf[c], ddo_t + slot + c * W::SW);
+#pragma unroll
+    for (int c = 0; c < BM / 16; ++c)
+      hopper::wgmma_rs_tnsp<D>(dk_acc, df[c], dq_t + slot + c * W::SW);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dv_acc);
+    hopper::fence_regs(dk_acc);
+
+    // the products are done, so every warp is past this slot
+    if (refill) publish(i + C::STAGES, stage, next);
   }
+  // a CTA with no tile to visit writes zeros
+  const size_t row = (size_t)bkv * S + ka;
+  store_rows<D>(dk, dk_acc, row, ka, S, t);
+  store_rows<D>(dv, dv_acc, row, ka, S, t);
 }
 
 // ---------------------------------------------------------------------------
-// float32: plain FMAs over the same tiling, all tiles in shared memory
+// float32: plain FMAs over 64-row tiles, all tiles in shared memory
 // ---------------------------------------------------------------------------
 
 constexpr int PLD = TILE + 1;  // row stride of the 64 x 64 f32 scratch tile
@@ -598,10 +964,51 @@ __global__ void __launch_bounds__(NUM_THREADS)
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename Kern>
-cudaError_t prepare(Kern kern, size_t smem) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+// cudaFuncSetAttribute once per kernel instantiation and device, not on
+// every launch (KIND tells the four kernels apart)
+template <int KIND, int D>
+cudaError_t set_smem_once(const void* kern, size_t smem) {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+// The current device's SM count, looked up once per device.
+cudaError_t sm_count(int* n) {
+  static int count[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && count[dev] > 0) {
+    *n = count[dev];
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < 64) count[dev] = *n;
+  return err;
+}
+
+// The four per-head tensor maps: q and dO as [B*H, S, D] with boxes of
+// q_rows, k and v as [B*KVH, S, D] with boxes of k_rows.
+template <int D>
+int encode_maps(CUtensorMap (&m)[4], const void* q, const void* k,
+                const void* v, const void* dout, int B, int H, int KVH,
+                int S, int q_rows, int k_rows) {
+  constexpr int CW = Sw<D>::CW;
+  int err = hopper::encode_tensor_map(&m[0], q, B * H, S, D, q_rows, CW);
+  if (err == 0)
+    err = hopper::encode_tensor_map(&m[1], k, B * KVH, S, D, k_rows, CW);
+  if (err == 0)
+    err = hopper::encode_tensor_map(&m[2], v, B * KVH, S, D, k_rows, CW);
+  if (err == 0)
+    err = hopper::encode_tensor_map(&m[3], dout, B * H, S, D, q_rows, CW);
+  return err;
 }
 
 template <int D>
@@ -609,21 +1016,29 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, const int* seg, void* dq,
               int B, int H, int KVH, int S, int causal, float scale,
               int is_bf16, cudaStream_t st) {
-  dim3 grid((S + TILE - 1) / TILE, B * H);
   if (is_bf16) {
-    using T = __nv_bfloat16;
-    const size_t smem = bf16_smem_bytes<D>();
-    cudaError_t err = prepare(flash_bwd_dq_bf16_kernel<D>, smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_bf16_kernel<D><<<grid, NUM_THREADS, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        seg, static_cast<T*>(dq), H, KVH, S, causal, scale);
+    using C = DqCfg<D>;
+    const int q_tiles = (S + C::BM - 1) / C::BM;
+    if (q_tiles > 65535) return (int)cudaErrorInvalidValue;
+    CUtensorMap m[4];
+    int err = encode_maps<D>(m, q, k, v, dout, B, H, KVH, S, C::BM, C::BN);
+    if (err != 0) return err;
+    cudaError_t e = set_smem_once<0, D>(
+        reinterpret_cast<const void*>(&flash_bwd_dq_bf16_kernel<D>),
+        C::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    flash_bwd_dq_bf16_kernel<D><<<dim3(B * H, q_tiles), WS_THREADS, C::SMEM,
+                                  st>>>(
+        m[0], m[1], m[2], m[3], lse, delta, seg,
+        static_cast<__nv_bfloat16*>(dq), H, KVH, S, causal, scale,
+        scale * LOG2E);
   } else {
     const size_t smem = f32_dq_smem_bytes<D>();
-    cudaError_t err = prepare(flash_bwd_dq_f32_kernel<D>, smem);
+    cudaError_t err = set_smem_once<1, D>(
+        reinterpret_cast<const void*>(&flash_bwd_dq_f32_kernel<D>), smem);
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_f32_kernel<D><<<grid, NUM_THREADS, smem, st>>>(
+    flash_bwd_dq_f32_kernel<D><<<dim3((S + TILE - 1) / TILE, B * H),
+                                 NUM_THREADS, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         delta, seg, static_cast<float*>(dq), H, KVH, S, causal, scale);
@@ -636,22 +1051,33 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, const int* seg, void* dk,
                void* dv, int B, int H, int KVH, int S, int causal,
                float scale, int is_bf16, cudaStream_t st) {
-  dim3 grid((S + TILE - 1) / TILE, B * KVH);
   if (is_bf16) {
-    using T = __nv_bfloat16;
-    const size_t smem = bf16_smem_bytes<D>();
-    cudaError_t err = prepare(flash_bwd_dkv_bf16_kernel<D>, smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkv_bf16_kernel<D><<<grid, NUM_THREADS, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        seg, static_cast<T*>(dk), static_cast<T*>(dv), H, KVH, S, causal,
-        scale);
+    using C = DkvCfg<D>;
+    const int k_tiles = (S + C::BN - 1) / C::BN;
+    if (k_tiles > 65535) return (int)cudaErrorInvalidValue;
+    CUtensorMap m[4];
+    int err = encode_maps<D>(m, q, k, v, dout, B, H, KVH, S, C::BM, C::BN);
+    if (err != 0) return err;
+    cudaError_t e = set_smem_once<2, D>(
+        reinterpret_cast<const void*>(&flash_bwd_dkv_bf16_kernel<D>),
+        C::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    int sms = 0;
+    e = sm_count(&sms);
+    if (e != cudaSuccess) return (int)e;
+    const int fold = causal && B * KVH * k_tiles <= 2 * sms ? sms : 0;
+    flash_bwd_dkv_bf16_kernel<D><<<dim3(B * KVH, k_tiles), C::THREADS,
+                                   C::SMEM, st>>>(
+        m[0], m[1], m[2], m[3], lse, delta, seg,
+        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H,
+        KVH, S, causal, scale, scale * LOG2E, fold);
   } else {
     const size_t smem = f32_dkv_smem_bytes<D>();
-    cudaError_t err = prepare(flash_bwd_dkv_f32_kernel<D>, smem);
+    cudaError_t err = set_smem_once<3, D>(
+        reinterpret_cast<const void*>(&flash_bwd_dkv_f32_kernel<D>), smem);
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkv_f32_kernel<D><<<grid, NUM_THREADS, smem, st>>>(
+    flash_bwd_dkv_f32_kernel<D><<<dim3((S + TILE - 1) / TILE, B * KVH),
+                                  NUM_THREADS, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         delta, seg, static_cast<float*>(dk), static_cast<float*>(dv), H, KVH,
@@ -667,7 +1093,8 @@ bool bad_shape(int B, int H, int KVH, int S) {
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each returns a cudaError_t code.
-// All tensors contiguous on the current device; seg may be null.
+// All tensors contiguous on the current device, q/k/v/dO 16-byte aligned
+// (the TMA descriptors need it); seg may be null.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, const int* seg, void* dq,

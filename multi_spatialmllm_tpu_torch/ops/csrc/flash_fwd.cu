@@ -323,8 +323,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         // 16 columns along D: the next 32 bytes of a row, or the next chunk
-        const uint32_t off =
-            ((kk * 32 / C::SW) * WS_BM * C::SW + (kk * 32) % C::SW) / 16;
+        const uint32_t off = hopper::kmajor_step(kk, WS_BM, C::SW);
         hopper::wgmma_m64n128k16_ss(s, dq + off, dk + slot + off, kk > 0);
       }
       hopper::wgmma_commit();

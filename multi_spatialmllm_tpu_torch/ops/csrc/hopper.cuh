@@ -193,6 +193,36 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// The same at N = 64.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_ACC32(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x N] (+)= A[64 x 16] * B[16 x N] for a tile width N of 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+  if constexpr (N == 128)
+    wgmma_m64n128k16_ss(d, da, db, scale_d);
+  else
+    wgmma_m64n64k16_ss(d, da, db, scale_d);
+}
+
+// Start-address step (in the descriptor's 16-byte units) of the 16-deep
+// slice kk along K of a K-major swizzled tile stored as boxes of
+// [rows, sw / 2] (rows `sw` bytes long): the next 32 bytes of a row, or
+// the next box.
+__host__ __device__ constexpr uint32_t kmajor_step(int kk, int rows, int sw) {
+  return (uint32_t)(((kk * 32 / sw) * rows * sw + (kk * 32) % sw) / 16);
+}
+
 // D[64 x N] += A[64 x 16] * B[16 x N], A from registers, B MN-major in
 // shared memory (transposed read), bf16 in, f32 accumulate.
 template <int N>

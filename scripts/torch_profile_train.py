@@ -13,9 +13,9 @@ tile defaults), files suffixed `_moe`.
 After one warm-up step it times a step with CUDA events around the
 optimizer update (clip + AdamW over every parameter), then profiles a
 third step: the device-busy share of its host-clock time, the top
-kernels, and device time by kind (the flash kernels, K8's grouped
-products, matrix products, everything else). Writes the operator table
-under DIR. Needs CUDA.
+kernels, and device time by kind (the flash forward K1, the flash
+backward K2/K3, K8's grouped products, matrix products, everything
+else). Writes the operator table under DIR. Needs CUDA.
 """
 
 import argparse
@@ -35,8 +35,10 @@ GEMM_MARKERS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
 
 def kind_of(name: str) -> str:
     low = name.lower()
-    if "flash_" in low:
-        return "flash kernels"
+    if "flash_fwd" in low:
+        return "flash forward (K1)"
+    if "flash_bwd" in low:
+        return "flash backward (K2/K3)"
     if "gmm_" in low:
         return "grouped matmul (K8)"
     if any(m in low for m in GEMM_MARKERS):

@@ -36,6 +36,16 @@ def _segments(kind, b, s):
         seg = np.zeros((b, s), np.int32)
         seg[:, :70], seg[:, 70:150], seg[:, 150:s - 30] = 1, 2, 3
         return seg
+    if kind == "per_row":        # each row its own boundaries, inside tiles
+        seg = np.zeros((b, s), np.int32)
+        for r, starts in enumerate(((30, 100, 200), (50, 170))[:b]):
+            for x in starts:
+                seg[r, x:] += 1
+        return seg
+    if kind == "pad_tile":       # the last 128 keys (whole tiles) are pad
+        seg = np.zeros((b, s), np.int32)
+        seg[:, s - 128:] = 1
+        return seg
     return None
 
 
@@ -46,6 +56,13 @@ CASES = {
     "causal_gqa_kvh2": (2, 4, 2, 256, 64, True, None),
     "packed_segments_causal": (2, 4, 2, 256, 32, True, "packed"),
     "vit_pad_noncausal": (2, 2, 2, 256, 64, False, "vit_pad"),
+    # the edges of the card kernels' 64- and 128-row tiles
+    "s64_causal_gqa_hd64": (1, 4, 2, 64, 64, True, None),
+    "s192_noncausal_kvh1_hd32": (2, 2, 1, 192, 32, False, None),
+    "s320_causal_hd128": (1, 2, 2, 320, 128, True, None),
+    "rep4_causal_hd128": (1, 8, 2, 256, 128, True, None),
+    "segments_in_64_row_tiles_per_row": (2, 4, 2, 256, 64, True, "per_row"),
+    "pad_key_tile_noncausal": (1, 4, 2, 384, 64, False, "pad_tile"),
 }
 
 
@@ -74,12 +91,13 @@ def test_plain_bwd_matches_jax_flash_bwd_interpret(case):
     seg = _segments(kind, b, s)
     jseg = None if seg is None else jnp.asarray(seg)
     sm = hd ** -0.5
+    blk = 128 if s % 128 == 0 else 64   # the JAX kernels tile S exactly
     with pltpu.force_tpu_interpret_mode():
         o, lse = JA._flash_fwd(jnp.asarray(q), jnp.asarray(k),
-                               jnp.asarray(v), causal, sm, 128, 128,
+                               jnp.asarray(v), causal, sm, blk, blk,
                                segment_ids=jseg)
         want = JA._flash_bwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                             o, lse, jnp.asarray(g), causal, sm, 128, 128,
+                             o, lse, jnp.asarray(g), causal, sm, blk, blk,
                              segment_ids=jseg)
     _check(_port_bwd(q, k, v, o, lse, g, causal, seg), want)
 

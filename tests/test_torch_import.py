@@ -273,8 +273,8 @@ def test_library_path_follows_the_shared_headers(tmp_path):
 
 def test_misaligned_operand_raises_before_launch():
     """TMA needs 16-byte-aligned operands: the alignment helper refuses a
-    contiguous view at an odd offset, and the forward wrapper raises on
-    one before any build or launch (no fallback)."""
+    contiguous view at an odd offset, and the forward and backward
+    wrappers raise on one before any build or launch (no fallback)."""
     n = 2 * 4 * 128 * 64
     buf = torch.zeros(n + 8, dtype=torch.bfloat16)
     good = buf[:n].view(2, 4, 128, 64)
@@ -288,3 +288,12 @@ def test_misaligned_operand_raises_before_launch():
         with pytest.raises(ValueError, match="16-byte"):
             TA.flash_attention_fwd_cuda(*args, True)
     assert TA.FLASH_FWD.launches == before
+    # the backward wrapper: a misaligned q, k, v or dO
+    lse = torch.zeros(2, 4, 128)
+    bwd = (TA.FLASH_BWD_DQ.launches, TA.FLASH_BWD_DKV.launches)
+    for at in (0, 1, 2, 5):   # q, k, v, dO in (q, k, v, o, lse, do)
+        args = [good, good, good, good, lse, good]
+        args[at] = bad
+        with pytest.raises(ValueError, match="16-byte"):
+            TA.flash_attention_bwd_cuda(*args, True)
+    assert (TA.FLASH_BWD_DQ.launches, TA.FLASH_BWD_DKV.launches) == bwd

@@ -50,6 +50,17 @@ FLASH_CASES = {
     "s129_rep1_d32": (1, 2, 2, 129, 32, True, ()),
     "s200_segments_in_tile_d128": (2, 4, 2, 200, 128, True, (70, 160)),
     "s1153_segment_in_tile_rep4_d64": (1, 8, 2, 1153, 64, True, (600,)),
+    # the backward's tiles: dq 128 q rows x 64 keys, dk/dv 64 keys x 64
+    # (hd 128) or 128 q rows; S a multiple of 64 but not of 128
+    "s64_rep2_d64": (1, 4, 2, 64, 64, True, ()),
+    "s192_noncausal_rep2_d32": (2, 4, 2, 192, 32, False, ()),
+    "s320_causal_d128": (1, 2, 2, 320, 128, True, ()),
+    "rep4_d128": (1, 8, 2, 256, 128, True, ()),
+    # a boundary inside a 64-row q tile, each batch row its own
+    "per_row_segments_in_tile_d64": (2, 4, 2, 256, 64, True,
+                                     ((30, 100, 200), (50, 170))),
+    # the last 128 keys (whole key tiles) are one pad segment
+    "pad_key_tile_d128": (1, 4, 2, 384, 128, False, (256,)),
 }
 # forward only: at S 1 the one row sees only itself, so the backward's dq
 # and dk are zero in exact arithmetic and a tolerance relative to the
@@ -58,12 +69,15 @@ FLASH_FWD_CASES = {**FLASH_CASES, "s1_rep4_d128": (1, 4, 1, 1, 128, True, ())}
 
 
 def _segments(b, s, starts, dev):
-    """`[B, S]` int32 ids stepping up by one at each of `starts`."""
+    """`[B, S]` int32 ids stepping up by one at each of `starts` (or, where
+    `starts` holds one tuple a batch row, at that row's own)."""
     if not starts:
         return None
+    rows = starts if isinstance(starts[0], tuple) else (starts,) * b
     seg = torch.zeros(b, s, dtype=torch.int32, device=dev)
-    for x in starts:
-        seg[:, x:] += 1
+    for r, row_starts in enumerate(rows):
+        for x in row_starts:
+            seg[r, x:] += 1
     return seg
 
 
@@ -122,6 +136,26 @@ def test_flash_bwd_matches_plain(dev, case, dtype):
             mine, yard = _normalised_errors(g, w), _normalised_errors(p, w)
             assert all(a <= 2 * b for a, b in zip(mine, yard)), \
                 (name, mine, yard)
+
+
+@pytest.mark.parametrize("case", ["s320_causal_d128",
+                                  "per_row_segments_in_tile_d64",
+                                  "s192_noncausal_rep2_d32"])
+def test_flash_bwd_is_bit_identical_across_runs(dev, case):
+    """No atomics: two runs of the backward on the same inputs give the
+    same bits (the group sum of dk/dv is taken in one CTA, in order)."""
+    b, h, kvh, s, d, causal, starts = FLASH_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, do = (_normal(gen, dev, torch.bfloat16, b, h, s, d) for _ in range(2))
+    k, v = (_normal(gen, dev, torch.bfloat16, b, kvh, s, d)
+            for _ in range(2))
+    seg = _segments(b, s, starts, dev)
+    o, lse = TA.flash_attention_fwd(q, k, v, causal, seg)
+    first = TA.flash_attention_bwd(q, k, v, o, lse, do, causal, seg)
+    second = TA.flash_attention_bwd(q, k, v, o, lse, do, causal, seg)
+    torch.cuda.synchronize()
+    for name, a, c in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, c), name
 
 
 def _normalised_errors(got, ref):
