@@ -10,9 +10,11 @@ result line):
 
 1. Device: needs CUDA; prints the card's name and power limit.
 2. Build: compiles the four kernel sources in ops/csrc with nvcc, in
-   parallel (one nvcc per source), and reads the SASS of the bf16 flash
-   kernels (cuobjdump; K1, K2 and K3 at hd 32, 64 and 128): each must hold
-   wgmma (HGMMA) and TMA loads (UTMALDG).
+   parallel (one nvcc per source), and reads the SASS of the bf16 wgmma
+   kernels (cuobjdump; K1, K2 and K3 at hd 32, 64 and 128; K8's general
+   kernel for gmm, gmm_t and tgmm at BN 128 and 256 and its few-rows
+   kernel at 16, 32 and 64 rows): each must hold wgmma (HGMMA) and TMA
+   loads (UTMALDG); ptxas must report no spill for K8's bf16 kernels.
 3. flash_fwd (K1) against its plain version, timed beside its bound and
    `scaled_dot_product_attention` at the shapes its paths run (flagship
    prefill S 2048, the ViT shape with its pad segment, the bench MoE
@@ -57,13 +59,19 @@ result line):
    copies: the preflight shape (NK 16384, D = F = 2048, E 4, uniform and
    skewed groups), the MoE train shape (NK 8192, D 2048, F 8192, and the
    down projection), gmm at the MoE serve shapes (a decode step's 16 rows
-   in four groups, one empty, and a 512-row prefill, both projections)
-   and small float32 cases (an empty group, boundaries inside a tile,
-   rows past the groups' total). bf16 results are held as
-   in phase 7 (tgmm per group and 64-row tile of K), a probe shows the
-   check failing a tgmm with one tile of one group 10% off; timings
-   against the bound and `torch._grouped_mm` (timed only, where it exists
-   and computes the same function).
+   in four groups, one empty, and a 512-row prefill, both projections),
+   all forms at M = 1, 64 and 65 (the few-rows gmm kernel takes M <= 64),
+   64 groups of which four hold rows, a group inside one 128-row tile, a
+   one-row group, and small float32 cases (an empty group, boundaries
+   inside a tile, rows past the groups' total). bf16 results are held as
+   in phase 7 (tgmm per group and 64-row tile of K); probes show the check
+   failing a gmm and a tgmm with one tile 10% off; the split few-rows gmm
+   must repeat bit for bit. Every form timed at every train and serve
+   shape against its bound (TFLOP/s or GB/s, and the share) and
+   `torch._grouped_mm` (timed only, where it exists and computes the same
+   function), the general kernel also at BN 128 and 256, gmm at 16 and 64
+   rows also on the general kernel, and gmm at 1-64 rows on both kernels
+   and at 1-8 K parts (device times from CUDA graphs).
 11. paged_decode_int8 (K7 int8) against its plain version (quantised
    write, dequantised window): pools and scale pools bit-equal after the
    fused write, outputs within the K7 tolerances; timed beside native K7.
@@ -154,6 +162,41 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters=20):
+    """Mean device milliseconds per call of `fn`, replayed from a CUDA
+    graph of `iters` calls (no host work between the launches), by CUDA
+    events around a replay; None where `fn` cannot be captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+    except Exception as exc:  # noqa: BLE001 (a yardstick may not capture)
+        log(f"    not capturable in a CUDA graph: {type(exc).__name__}: "
+            f"{str(exc).splitlines()[0][:120]}")
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def ms_text(t):
+    return "none" if t is None else f"{t:.4f} ms"
 
 
 def bound_ms(flops, n_bytes, peak_flops=PEAK_BF16_FLOPS):
@@ -1040,19 +1083,38 @@ def grouped_library(torch, form, a, b, sizes):
     return call
 
 
-def phase_k8(torch, G):
+def gmm_general(torch, G, lhs, rhs, gs):
+    """gmm through its C entry with splits 0: the general kernel at any M
+    (the wrapper takes the few-rows kernel at M <= G.ROWS_PATH_MAX)."""
+    m, k = lhs.shape
+    out = torch.empty(m, rhs.shape[2], dtype=lhs.dtype, device=lhs.device)
+    G.GMM(G.ptr(lhs), G.ptr(rhs), G.ptr(gs), G.ptr(out), G.ptr(None), m, k,
+          rhs.shape[2], gs.numel(), 1, 0)
+    return out
+
+
+def phase_k8(torch, G, B):
     """gmm, gmm_t and tgmm (K8) against their plain versions on float32
     copies: the preflight shape (NK 16384, D = F = 2048, E 4; uniform and
     skewed groups), the MoE train shape (NK 8192, D 2048, F 8192, and the
     down projection F -> D), gmm at the serve shapes (16 decode rows, 512
-    prefill rows), and small f32 cases with an empty group and a boundary
-    inside a tile. Returns (max abs err per entry, timings)."""
+    prefill rows), 64 groups of which four hold rows, a group inside one
+    128-row tile and a one-row group, M = 1, 64 and 65 around the few-rows
+    path's threshold (all forms), and small f32 cases. Fault probes: a gmm
+    and a tgmm with one 64-row tile 10% off must fail the check. The split
+    few-rows path must repeat bit for bit. Every form is timed at every
+    shape of the train and serve paths against its bound and
+    `torch._grouped_mm`, the general kernels also at BN 256, and gmm at 16
+    and 64 rows also on the general kernel. Returns (max abs err per
+    entry, timings)."""
+    import ctypes
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     errs = {"gmm": 0.0, "gmm_t": 0.0, "tgmm": 0.0}
+    all_forms = ("gmm", "gmm_t", "tgmm")
 
-    def case(name, m, k, n, sizes, dtype, probe=False,
-             forms=("gmm", "gmm_t", "tgmm")):
+    def case(name, m, k, n, sizes, dtype, probe=(), forms=all_forms):
         gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
         e = len(sizes)
         lhs = torch.randn(m, k, generator=gen, device=dev).to(dtype)
@@ -1084,19 +1146,24 @@ def phase_k8(torch, G):
             ok = ok and ok_f
             errs[form] = max(errs[form], err)
             parts.append(f"{form} {text}")
-            if probe and form == "tgmm":   # one tile of group 1, 10% off
+            if form in probe:   # one 64-row tile 10% off
                 bad = got.clone()
-                r0 = 3 * k // 4
-                bad[1, r0:r0 + 64] *= 1.1
+                if form == "tgmm":
+                    r0, what = 3 * k // 4, "one 64-row tile of group 1"
+                    bad[1, r0:r0 + 64] *= 1.1
+                else:
+                    r0 = sizes[0] + 64
+                    what = f"rows {r0}-{r0 + 63}"
+                    bad[r0:r0 + 64] *= 1.1
                 ok_b, err_b, text_b = verdict(view(bad), view(want), tol,
                                               view(pl))
-                log(f"  fault probe, tgmm with one 64-row tile of group 1 "
-                    f"10% off: {text_b}; max|err| alone "
+                log(f"  fault probe, {form} with {what} 10% off: "
+                    f"{text_b}; max|err| alone "
                     f"{'passes' if err_b <= tol else 'fails'} it, the whole"
                     f" check {'passes' if ok_b else 'fails'} it")
                 if ok_b:
-                    fail("the bf16 check passes a tgmm with one tile 10% "
-                         "off")
+                    fail(f"the bf16 check passes a {form} with one tile 10% "
+                         f"off")
         log(f"  K8 {name}: " + "; ".join(parts) +
             f" {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -1104,42 +1171,86 @@ def phase_k8(torch, G):
         return lhs, rhs, dy, gs
 
     bf = torch.bfloat16
-    pre = case("preflight NK16384 D2048 F2048 E4 uniform bf16", 16384, 2048,
-               2048, [4096] * 4, bf, probe=True)
-    case("preflight skewed groups [9001, 4000, 3000, 383] bf16", 16384, 2048,
-         2048, [9001, 4000, 3000, 383], bf)
-    train = case("train gate/up NK8192 D2048 -> F8192 E4 bf16", 8192, 2048,
-                 8192, [2500, 1800, 2200, 1692], bf)
-    down = case("train down NK8192 F8192 -> D2048 E4 bf16", 8192, 8192, 2048,
-                [2500, 1800, 2200, 1692], bf)
+    shapes = {}
+    shapes["preflight"] = case(
+        "preflight NK16384 D2048 F2048 E4 uniform bf16", 16384, 2048, 2048,
+        [4096] * 4, bf, probe=("gmm", "tgmm"))
+    shapes["preflight skewed"] = case(
+        "preflight skewed groups [9001, 4000, 3000, 383] bf16", 16384, 2048,
+        2048, [9001, 4000, 3000, 383], bf)
+    shapes["train gate/up"] = case(
+        "train gate/up NK8192 D2048 -> F8192 E4 bf16", 8192, 2048, 8192,
+        [2500, 1800, 2200, 1692], bf)
+    shapes["train down"] = case(
+        "train down NK8192 F8192 -> D2048 E4 bf16", 8192, 8192, 2048,
+        [2500, 1800, 2200, 1692], bf)
     # the serve path's shapes (gmm only; serving takes no gradient): a
     # decode step's 16 rows (8 slots, top 2) with all four groups, one of
     # them empty, inside one partial 128-row tile, and a prefill's rows
-    decode = case("serve decode gate/up 16 rows D2048 -> F8192 groups "
-                  "[5, 0, 7, 4] bf16", 16, 2048, 8192, [5, 0, 7, 4], bf,
-                  forms=("gmm",))
-    case("serve decode down 16 rows F8192 -> D2048 groups [5, 0, 7, 4] "
-         "bf16", 16, 8192, 2048, [5, 0, 7, 4], bf, forms=("gmm",))
+    shapes["decode gate/up"] = case(
+        "serve decode gate/up 16 rows D2048 -> F8192 groups [5, 0, 7, 4] "
+        "bf16", 16, 2048, 8192, [5, 0, 7, 4], bf, forms=("gmm",))
+    shapes["decode down"] = case(
+        "serve decode down 16 rows F8192 -> D2048 groups [5, 0, 7, 4] bf16",
+        16, 8192, 2048, [5, 0, 7, 4], bf, forms=("gmm",))
     for name, k, n in (("gate/up", 2048, 8192), ("down", 8192, 2048)):
-        case(f"serve prefill {name} 512 rows {k} -> {n} groups "
-             f"[190, 141, 97, 84] bf16", 512, k, n, [190, 141, 97, 84], bf,
-             forms=("gmm",))
+        shapes[f"prefill {name}"] = case(
+            f"serve prefill {name} 512 rows {k} -> {n} groups "
+            f"[190, 141, 97, 84] bf16", 512, k, n, [190, 141, 97, 84], bf,
+            forms=("gmm",))
+    # around the few-rows path's threshold (gmm_t and tgmm stay on the
+    # general kernel at every M), and the group layouts the schedules must
+    # get right
+    case("M1 D2048 -> F8192 groups [0, 1, 0, 0] bf16", 1, 2048, 8192,
+         [0, 1, 0, 0], bf)
+    shapes["64 rows gate/up"] = case(
+        "M64 D2048 -> F8192 groups [20, 0, 30, 14] bf16", 64, 2048, 8192,
+        [20, 0, 30, 14], bf)
+    case("M65 D2048 -> F8192 groups [20, 0, 30, 15] bf16", 65, 2048, 8192,
+         [20, 0, 30, 15], bf)
+    case("E64, four live groups, rows past the total, M4096 K1024 N1024 "
+         "bf16", 4096, 1024, 1024,
+         [0] * 5 + [1500] + [0] * 30 + [1] + [0] * 20 + [2000] + [0] * 6
+         + [500], bf)
+    case("a group inside one 128-row tile, a one-row group, M2048 K1024 "
+         "N2048 bf16", 2048, 1024, 2048, [700, 20, 1, 1327], bf,
+         probe=("gmm",))
     case("f32 M300 K64 N96, an empty group, boundaries mid-tile", 300, 64,
          96, [70, 0, 150, 60], torch.float32)
     case("f32 M256 K128 N136, rows past the groups' total", 256, 128, 136,
          [10, 100, 40], torch.float32)
 
+    # the split few-rows path sums its partials in a fixed order: one row
+    # of the down projection (one live group), which the wrapper splits
+    one = case("M1 F8192 -> D2048 groups [0, 0, 1, 0] bf16 (split K)", 1,
+               8192, 2048, [0, 0, 1, 0], bf, forms=("gmm",))
+    splits = G.rows_path_splits(1, 8192, 2048, 4, G.sm_count(dev))
+    runs = [G.gmm(one[0], one[1], one[3]) for _ in range(3)]
+    torch.cuda.synchronize()
+    if splits < 2 or not all(torch.equal(runs[0], r) for r in runs[1:]):
+        fail(f"the few-rows gmm with {splits} K parts is not bitwise "
+             f"repeatable")
+    log(f"  K8 few-rows gmm, one row of the down projection, {splits} K "
+        f"parts: three calls bit-identical")
+
+    tile_n = ctypes.CDLL(B.library_path("grouped_matmul")).gmm_tile_n
+    tile_n.argtypes, tile_n.restype = [ctypes.c_int], ctypes.c_int
     timings = {}
-    all_forms = ("gmm", "gmm_t", "tgmm")
-    for label, (lhs, rhs, dy, gs), timed in (
-            ("preflight", pre, all_forms), ("train", train, all_forms),
-            ("down", down, all_forms), ("decode", decode, ("gmm",))):
+    serve_only = ("gmm",)
+    for label, forms in (
+            ("preflight", all_forms), ("preflight skewed", all_forms),
+            ("train gate/up", all_forms), ("train down", all_forms),
+            ("prefill gate/up", serve_only), ("prefill down", serve_only),
+            ("decode gate/up", serve_only), ("decode down", serve_only),
+            ("64 rows gate/up", serve_only)):
+        lhs, rhs, dy, gs = shapes[label]
         m, k = lhs.shape
         n = rhs.shape[2]
         rows = int(gs.sum())
         flops = 2 * rows * k * n
         # the weights of an empty group need not be read
         dead_b = nbytes(rhs) * int((gs == 0).sum()) // gs.numel()
+        few_rows = m <= G.ROWS_PATH_MAX
         for form, kern, plain, args, out_b in (
                 ("gmm", lambda: G.gmm(lhs, rhs, gs),
                  lambda: G.gmm_plain(lhs, rhs, gs), (lhs, rhs), m * n * 2),
@@ -1149,9 +1260,26 @@ def phase_k8(torch, G):
                 ("tgmm", lambda: G.tgmm(lhs, dy, gs),
                  lambda: G.tgmm_plain(lhs, dy, gs), (lhs, dy),
                  rhs.numel() * 2)):
-            if form not in timed:
+            if form not in forms:
                 continue
             t_k = cuda_ms(torch, kern)
+            if few_rows:
+                # the wrapper's time by events holds its host work when that
+                # outruns the device; a graph's replay holds none
+                t_dev = graph_ms(torch, kern) or t_k
+                t_gen = graph_ms(torch, lambda: gmm_general(torch, G, lhs,
+                                                            rhs, gs))
+                alt = (f"on the device (CUDA graph) {t_dev:.4f} ms, the "
+                       f"general kernel there {ms_text(t_gen)}")
+            else:
+                t_dev, alt = t_k, ""
+                for bn in (128, 256):
+                    tile_n(bn)
+                    try:
+                        alt += f"BN {bn} {cuda_ms(torch, kern):.4f} ms, "
+                    finally:
+                        tile_n(0)
+                alt = alt[:-2]
             t_p = cuda_ms(torch, plain, iters=3, warmup=1)
             lib = grouped_library(torch, form, *args, gs)
             t_l = None
@@ -1166,15 +1294,51 @@ def phase_k8(torch, G):
                 if not same:
                     log(f"    torch._grouped_mm ({form}) computes another "
                         f"function here; not timed")
+                elif few_rows:
+                    alt += (f", torch._grouped_mm on the device "
+                            f"{ms_text(graph_ms(torch, lib))}")
             in_b = nbytes(*args) - (dead_b if form != "tgmm" else 0)
-            bound = bound_ms(flops, in_b + out_b + nbytes(gs))
+            n_bytes = in_b + out_b + nbytes(gs)
+            bound = bound_ms(flops, n_bytes)
+            rate = (f"{flops / t_dev / 1e9:.1f} TFLOP/s"
+                    if bound[1] == "operations"
+                    else f"{n_bytes / t_dev / 1e6:.1f} GB/s")
+            where = " on the device" if few_rows else ""
             log(f"  K8 {form} {label} ({m}x{k}x{n}, {rows} rows in groups) "
-                f"timing: kernel {t_k:.4f} ms "
-                f"({flops / t_k / 1e9:.1f} TFLOP/s), plain {t_p:.4f} ms, "
-                f"torch._grouped_mm "
+                f"timing: kernel {t_k:.4f} ms ({rate}, "
+                f"{bound[0] / t_dev:.1%} of the bound{where}), {alt}; "
+                f"plain {t_p:.4f} ms, torch._grouped_mm "
                 f"{'none' if t_l is None else f'{t_l:.4f} ms'}, bound "
-                f"{bound[0]:.4f} ms ({bound[1]}; {flops / 1e9:.1f} GFLOP)")
-            timings[(form, label)] = (t_k, t_p, t_l, bound)
+                f"{bound[0]:.4f} ms ({bound[1]}; {flops / 1e9:.1f} GFLOP, "
+                f"{n_bytes / 1e6:.1f} MB)")
+            timings[(form, label)] = (t_k, t_p, t_l, bound, t_dev)
+
+    # where the few-rows kernel pays: both projections of a decode-like
+    # step at M rows (up to three live groups of four), device ms from CUDA
+    # graphs of the C entry: the general kernel (splits 0) against the
+    # few-rows kernel at 1, 2, 4 and 8 K parts
+    log(f"  K8 gmm at few rows, ms on the device (the wrapper's choice in "
+        f"brackets; rows path at M <= {G.ROWS_PATH_MAX}):")
+    for m in (1, 8, 16, 32, 48, 64):
+        sizes = [m - m // 2 - m // 4, 0, m // 2, m // 4]
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        lhs = torch.randn(m, 8192, generator=gen, device=dev).to(bf)
+        for name, k, n in (("gate/up", 2048, 8192), ("down", 8192, 2048)):
+            rhs = (torch.randn(4, k, n, generator=gen, device=dev)
+                   * k ** -0.5).to(bf)
+            x = lhs[:, :k].contiguous()
+            out = torch.empty(m, n, dtype=bf, device=dev)
+            ws = torch.empty(8 * m * n, dtype=torch.float32, device=dev)
+            res = []
+            for sp in (0, 1, 2, 4, 8):
+                call = lambda sp=sp: G.GMM(  # noqa: E731
+                    G.ptr(x), G.ptr(rhs), G.ptr(gs), G.ptr(out), G.ptr(ws),
+                    m, k, n, 4, 1, sp)
+                res.append(ms_text(graph_ms(torch, call)))
+            log(f"    M {m} {name} {k}->{n} groups {sizes}: general "
+                f"{res[0]}; few-rows by K parts 1: {res[1]}, 2: {res[2]}, "
+                f"4: {res[3]}, 8: {res[4]} [wrapper: "
+                f"{G.rows_path_splits(m, k, n, 4, G.sm_count(dev))}]")
     return errs, timings
 
 
@@ -1273,42 +1437,76 @@ def build_all(kernels):
     log(f"      all kernels built in {time.perf_counter() - t0:.1f} s")
 
 
-def ptxas_report(build_log):
-    """One line a kernel from nvcc's -Xptxas=-v output (its name and
-    template arguments, registers, stack and spill bytes), and every
-    C75xx warning (a wgmma chain serialised)."""
+def ptxas_kernels(build_log):
+    """(name, registers, spill store bytes, spill load bytes) a kernel from
+    nvcc's -Xptxas=-v output; the name carries the template arguments."""
     import re
 
-    lines, name, spill = [], None, ""
+    found, name, spill = [], None, (0, 0)
     for line in build_log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             # the name follows its length in the mangled symbol
             k = re.search(r"(?<=\d)([a-z]+(?:_(?:[a-z]+|bf16|f32|int8))*"
-                          r"_kernel)I((?:L[a-z]\d+E)+)E", m.group(1))
-            name = m.group(1) if k is None else (
-                f"{k.group(1)}<{','.join(re.findall(r'(\d+)E', k.group(2)))}>")
-            spill = ""
+                          r"_kernel)(?:I((?:L[a-z]\d+E)+)E)?", m.group(1))
+            name = m.group(1) if k is None else k.group(1) + (
+                f"<{','.join(re.findall(r'(\d+)E', k.group(2)))}>"
+                if k.group(2) else "")
+            spill = (0, 0)
         elif "spill stores" in line:
-            spill = line.strip()
+            st = re.search(r"(\d+) bytes spill stores", line)
+            ld = re.search(r"(\d+) bytes spill loads", line)
+            spill = (int(st.group(1)), int(ld.group(1)))
         elif name and re.search(r"Used \d+ registers", line):
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            lines.append(f"{name}: {regs} registers, {spill}")
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            found.append((name, regs, *spill))
             name = None
-        elif "C75" in line:
-            lines.append(line.strip())
-    return lines
+    return found
 
 
-def check_flash_sass(build):
-    """cuobjdump's SASS of the flash_fwd and flash_bwd libraries: each bf16
-    kernel (K1, K2 dq and K3 dk/dv at hd 32, 64 and 128) must hold HGMMA
-    (wgmma) and UTMALDG (TMA loads). Prints the counts."""
+def ptxas_report(build_log):
+    """One line a kernel from nvcc's -Xptxas=-v output (its name and
+    template arguments, registers, spill bytes), and every C75xx warning
+    (a wgmma chain serialised)."""
+    lines = [f"{n}: {r} registers, {st} bytes spill stores, {ld} bytes "
+             f"spill loads" for n, r, st, ld in ptxas_kernels(build_log)]
+    return lines + [line.strip() for line in build_log.splitlines()
+                    if "C75" in line]
+
+
+# The bf16 kernels whose SASS must hold wgmma (HGMMA) and TMA loads
+# (UTMALDG), by library: the mangled names carry the template arguments
+# (...flash_bwd_dq_bf16_kernelILi128EE..., ...gmm_wgmma_kernelILi0ELi128EE...)
+SASS_KERNELS = {
+    "flash_fwd": r"(flash_fwd)_bf16_kernelI((?:Li\d+E)+)E",
+    "flash_bwd": r"(flash_bwd_[a-z]+)_bf16_kernelI((?:Li\d+E)+)E",
+    "grouped_matmul": r"(gmm_wgmma|gmm_rows)_kernelI((?:Li\d+E)+)E",
+}
+SASS_WANT = (
+    {f"{k}<{d}>" for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+     for d in (32, 64, 128)}
+    | {f"gmm_wgmma<{m},{bn}>" for m in (0, 1, 2) for bn in (128, 256)}
+    | {f"gmm_rows<{nr}>" for nr in (16, 32, 64)})
+# K8's bf16 kernels, which the entry points take by shape: ptxas must
+# report no spill for them
+K8_NO_SPILL = ({f"gmm_wgmma_kernel<{m},{bn}>" for m in (0, 1, 2)
+                for bn in (128, 256)}
+               | {f"gmm_rows_kernel<{nr}>" for nr in (16, 32, 64)}
+               | {"gmm_splitk_reduce_kernel"})
+
+
+def check_sass(build, k8_build_log):
+    """cuobjdump's SASS of the flash and grouped-matmul libraries: each
+    bf16 kernel (K1, K2 dq and K3 dk/dv at hd 32, 64 and 128; K8's general
+    kernel for gmm, gmm_t and tgmm at BN 128 and 256 and its few-rows
+    kernel at 16, 32 and 64 rows) must hold HGMMA (wgmma) and UTMALDG (TMA
+    loads); and ptxas must report no spill for K8's kernels.
+    Prints the counts."""
     import re
 
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     bf16 = {}
-    for source in ("flash_fwd", "flash_bwd"):
+    for source, pattern in SASS_KERNELS.items():
         out = subprocess.run([tool, "-sass", build.library_path(source)],
                              capture_output=True, text=True, timeout=120)
         if out.returncode != 0:
@@ -1316,23 +1514,27 @@ def check_flash_sass(build):
         counts = None
         for line in out.stdout.splitlines():
             if "Function :" in line:
-                # the mangled names carry the head dim:
-                # ...flash_bwd_dq_bf16_kernelILi128EE...
-                m = re.search(r"(?<=\d)(flash_[a-z_]+)_bf16_kernelILi(\d+)E",
-                              line)
+                m = re.search(pattern, line)
                 counts = None if m is None else bf16.setdefault(
-                    f"{m.group(1)} hd {m.group(2)}",
+                    f"{m.group(1)}<"
+                    f"{','.join(re.findall(r'(\d+)E', m.group(2)))}>",
                     dict.fromkeys(("HGMMA", "UTMALDG"), 0))
             elif counts is not None:
                 for op in counts:
                     counts[op] += op in line
-    log(f"      cuobjdump -sass of the flash bf16 kernels: {bf16}")
-    want = {f"{k} hd {d}" for k in ("flash_fwd", "flash_bwd_dq",
-                                    "flash_bwd_dkv") for d in (32, 64, 128)}
-    if set(bf16) != want or not all(min(c.values()) > 0
-                                    for c in bf16.values()):
-        fail(f"the flash bf16 kernels lack HGMMA or UTMALDG (want one of "
-             f"each in {sorted(want)}): {bf16}")
+    log(f"      cuobjdump -sass of the bf16 wgmma kernels: {bf16}")
+    if set(bf16) != SASS_WANT or not all(min(c.values()) > 0
+                                         for c in bf16.values()):
+        fail(f"the bf16 kernels lack HGMMA or UTMALDG (want one of each in "
+             f"{sorted(SASS_WANT)}): {bf16}")
+    k8 = {n: (st, ld) for n, _, st, ld in ptxas_kernels(k8_build_log)}
+    if not k8:
+        log("      grouped_matmul was built before this run: no ptxas "
+            "report to read")
+        return
+    spilled = {n: k8.get(n) for n in K8_NO_SPILL if k8.get(n) != (0, 0)}
+    if spilled:
+        fail(f"K8 kernels spill or were not reported by ptxas: {spilled}")
 
 
 def kernel_entry(name, source, replaces, launches_by_path, err, timing,
@@ -1396,7 +1598,7 @@ def main(argv=None):
             f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
     build_all([A.FLASH_FWD, P.PAGED_DECODE, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV,
                P.PAGED_DECODE_INT8, G.GMM, G.GMM_T, G.TGMM])
-    check_flash_sass(B)
+    check_sass(B, "".join(k.build_log for k in (G.GMM, G.GMM_T, G.TGMM)))
     tok = serve_tokenizer()
     res = {}
     if 3 in phases:
@@ -1429,7 +1631,7 @@ def main(argv=None):
             [A.FLASH_FWD, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV])
     if 10 in phases:
         head(10, "gmm, gmm_t, tgmm (K8) against their plain versions")
-        res["k8"] = phase_k8(torch, G)
+        res["k8"] = phase_k8(torch, G, B)
         torch.cuda.empty_cache()
     if 11 in phases:
         head(11, "paged_decode_int8 (K7 int8) against its plain version")
@@ -1522,10 +1724,19 @@ def main(argv=None):
              dict(moe_train=moe_train)),
             ("tgmm", f"{jax_moe}:146-165 (VJP: megablox tgmm)",
              dict(moe_train=moe_train))):
-        t_k, t_p, t_l, bound = k8[(name, "train")]
+        t_k, t_p, t_l, bound, _ = k8[(name, "train gate/up")]
         kernels.append(kernel_entry(name, "grouped_matmul.cu", replaces,
                                     by_path(name, **paths), k8_err[name],
                                     (t_k, t_p, bound), t_l))
+        # every timed shape beside; the device kernels behind the entry
+        entry = kernels[-1]
+        entry["device_kernels"] = (
+            ["gmm_wgmma_kernel", "gmm_rows_kernel", "gmm_splitk_reduce_kernel"]
+            if name == "gmm" else ["gmm_wgmma_kernel"])
+        shown = {lb: t for (f, lb), t in k8.items() if f == name}
+        entry["ms_by_shape"] = {lb: t[0] for lb, t in shown.items()}
+        entry["bound_ms_by_shape"] = {lb: t[3][0] for lb, t in shown.items()}
+        entry["library_ms_by_shape"] = {lb: t[2] for lb, t in shown.items()}
     # K2/K3's `ms` is at the unpacked S 4096 row; every timed shape beside
     for entry, part in ((kernels[1], "dq"), (kernels[2], "dkv")):
         entry["ms_by_shape"] = {s: t[part][0] for s, t in bwd.items()}

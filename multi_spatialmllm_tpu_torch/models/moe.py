@@ -117,6 +117,15 @@ def top_k_routing(logits: torch.Tensor, top_k: int, capacity: int,
     return dispatch, combine, aux
 
 
+def expert_counts(ei: torch.Tensor, e: int) -> torch.Tensor:
+    """Token copies routed to each of the `e` experts, int32 `[e]` (the
+    JAX path's `jnp.bincount(ei, length=e)`), counted on ei's device:
+    `torch.bincount` on a CUDA tensor reads its input's max on the host
+    to size its output, a sync a MoE layer."""
+    return (ei[:, None] == torch.arange(e, device=ei.device)).sum(
+        dim=0, dtype=torch.int32)
+
+
 def ragged_dot_xla(xs, w, group_sizes):
     """`lax.ragged_dot` as XLA lowers it: one product per group over its
     rows (rows past the groups' total are zero), in xs's dtype. Reads the
@@ -156,7 +165,7 @@ def ragged_moe(cfg, x, router, wi_gate, wi_up, wo,
     ei = idx.reshape(n * k).long()
     order = torch.argsort(ei, stable=True)
     xs = xf[order // k].to(dtype)
-    group_sizes = torch.bincount(ei, minlength=e).to(torch.int32)
+    group_sizes = expert_counts(ei, e)
 
     def gd(a, w):
         return _grouped_dot(a, w.to(dtype), group_sizes, cfg.moe_kernel)

@@ -122,11 +122,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // The accumulators of a 64 x N score tile (this thread: N / 2 registers)
 // re-packed as the bf16 A fragments of the N / 16 steps of a product that
 // contracts the tile's columns (step c: columns [16c, 16c + 16)).
@@ -135,10 +130,10 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[N / 16][4],
                                            const float (&x)[N / 2]) {
 #pragma unroll
   for (int c = 0; c < N / 16; ++c) {
-    a[c][0] = pack_bf16(x[8 * c], x[8 * c + 1]);
-    a[c][1] = pack_bf16(x[8 * c + 2], x[8 * c + 3]);
-    a[c][2] = pack_bf16(x[8 * c + 4], x[8 * c + 5]);
-    a[c][3] = pack_bf16(x[8 * c + 6], x[8 * c + 7]);
+    a[c][0] = hopper::pack_bf16(x[8 * c], x[8 * c + 1]);
+    a[c][1] = hopper::pack_bf16(x[8 * c + 2], x[8 * c + 3]);
+    a[c][2] = hopper::pack_bf16(x[8 * c + 4], x[8 * c + 5]);
+    a[c][3] = hopper::pack_bf16(x[8 * c + 6], x[8 * c + 7]);
   }
 }
 
@@ -154,10 +149,10 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
     const int c = 8 * j + 2 * t;
     if (r0 < S)
       *reinterpret_cast<uint32_t*>(out + row0 * D + c) =
-          pack_bf16(acc[4 * j], acc[4 * j + 1]);
+          hopper::pack_bf16(acc[4 * j], acc[4 * j + 1]);
     if (r0 + 8 < S)
       *reinterpret_cast<uint32_t*>(out + (row0 + 8) * D + c) =
-          pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+          hopper::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 

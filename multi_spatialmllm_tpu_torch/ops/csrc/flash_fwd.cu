@@ -139,11 +139,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // The K/V tiles one q tile visits. Only the producer walks it: it
 // publishes each live tile's index in the slot it fills, then an end
 // marker, and the consumers follow the slots, so the two sides cannot
@@ -398,10 +393,10 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       uint32_t pa[WS_BN / 16][4];
 #pragma unroll
       for (int c = 0; c < WS_BN / 16; ++c) {
-        pa[c][0] = pack_bf16(s[8 * c], s[8 * c + 1]);
-        pa[c][1] = pack_bf16(s[8 * c + 2], s[8 * c + 3]);
-        pa[c][2] = pack_bf16(s[8 * c + 4], s[8 * c + 5]);
-        pa[c][3] = pack_bf16(s[8 * c + 6], s[8 * c + 7]);
+        pa[c][0] = hopper::pack_bf16(s[8 * c], s[8 * c + 1]);
+        pa[c][1] = hopper::pack_bf16(s[8 * c + 2], s[8 * c + 3]);
+        pa[c][2] = hopper::pack_bf16(s[8 * c + 4], s[8 * c + 5]);
+        pa[c][3] = hopper::pack_bf16(s[8 * c + 6], s[8 * c + 7]);
       }
       take_turn();
       hopper::wgmma_fence();
@@ -432,10 +427,10 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       const int c = 8 * j + 2 * t;
       if (r0 < S)
         *reinterpret_cast<uint32_t*>(o + row0 * D + c) =
-            pack_bf16(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+            hopper::pack_bf16(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
       if (r1 < S)
         *reinterpret_cast<uint32_t*>(o + row1 * D + c) =
-            pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+            hopper::pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
     }
     if (t == 0) {  // lse = m * scale + ln l, from base 2
       if (r0 < S) lse[row0] = (m0 * scale_log2 + log2f(l0)) * LN2;

@@ -10,6 +10,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -17,6 +18,13 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// two floats as a bf16 pair in one register, lo in the low half (round to
+// nearest even)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // ---------------------------------------------------------------------------
@@ -213,6 +221,73 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
     wgmma_m64n128k16_ss(d, da, db, scale_d);
   else
     wgmma_m64n64k16_ss(d, da, db, scale_d);
+}
+
+#define HOPPER_ACC128(d)                                                    \
+  HOPPER_ACC64(d), HOPPER_ACC8(d, 64), HOPPER_ACC8(d, 72),                  \
+      HOPPER_ACC8(d, 80), HOPPER_ACC8(d, 88), HOPPER_ACC8(d, 96),           \
+      HOPPER_ACC8(d, 104), HOPPER_ACC8(d, 112), HOPPER_ACC8(d, 120)
+#define HOPPER_REGS8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define HOPPER_REGS128                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "  \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "  \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "  \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "      \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "      \
+  "%122, %123, %124, %125, %126, %127}"
+
+// D[64 x N] (+)= A[64 x 16] * B[16 x N], bf16 in, f32 accumulate, both
+// operands in shared memory, each K-major (0) or MN-major (1, read
+// transposed: TA for A, TB for B), for N = 16, 32, 64, 128 or 256.
+// Operands: the N/2 accumulators, then da, db, scale_d, TA, TB.
+#define HOPPER_WGMMA_SS_T(NN, REGS, ACC, IA, IB, IS, ITA, ITB)             \
+  template <int TA, int TB>                                                 \
+  __device__ __forceinline__ void wgmma_m64n##NN##k16_ss_t(                 \
+      float (&d)[NN / 2], uint64_t da, uint64_t db, int scale_d) {          \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IS ", 0;\n"           \
+                 "wgmma.mma_async.sync.aligned.m64n" #NN                    \
+                 "k16.f32.bf16.bf16 " REGS ", %" IA ", %" IB                \
+                 ", p, 1, 1, %" ITA ", %" ITB ";\n}\n"                      \
+                 : ACC(d)                                                   \
+                 : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));       \
+  }
+#define HOPPER_ACC8_0(d) HOPPER_ACC8(d, 0)
+HOPPER_WGMMA_SS_T(16, HOPPER_REGS8, HOPPER_ACC8_0, "8", "9", "10", "11", "12")
+HOPPER_WGMMA_SS_T(32, HOPPER_REGS16, HOPPER_ACC16, "16", "17", "18", "19",
+                  "20")
+HOPPER_WGMMA_SS_T(64, HOPPER_REGS32, HOPPER_ACC32, "32", "33", "34", "35",
+                  "36")
+HOPPER_WGMMA_SS_T(128, HOPPER_REGS64, HOPPER_ACC64, "64", "65", "66", "67",
+                  "68")
+HOPPER_WGMMA_SS_T(256, HOPPER_REGS128, HOPPER_ACC128, "128", "129", "130",
+                  "131", "132")
+#undef HOPPER_WGMMA_SS_T
+
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128 || N == 256,
+                "wgmma_ss_t: N is 16, 32, 64, 128 or 256");
+  if constexpr (N == 16)
+    wgmma_m64n16k16_ss_t<TA, TB>(d, da, db, scale_d);
+  else if constexpr (N == 32)
+    wgmma_m64n32k16_ss_t<TA, TB>(d, da, db, scale_d);
+  else if constexpr (N == 64)
+    wgmma_m64n64k16_ss_t<TA, TB>(d, da, db, scale_d);
+  else if constexpr (N == 128)
+    wgmma_m64n128k16_ss_t<TA, TB>(d, da, db, scale_d);
+  else
+    wgmma_m64n256k16_ss_t<TA, TB>(d, da, db, scale_d);
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// reads of it by the async proxy (wgmma operands, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Start-address step (in the descriptor's 16-byte units) of the 16-deep

@@ -12,22 +12,71 @@ Rows are grouped by `group_sizes` `[E]` int32: row r belongs to group g
 when `sum(group_sizes[:g]) <= r < sum(group_sizes[:g+1])`. Rows at or past
 `sum(group_sizes)` come out zero. Products accumulate in float32 and round
 once to lhs's dtype.
+
+The bf16 `gmm` takes one of two kernels by M, a shape known on the host:
+the general path (every form, any M) or, at `M <= ROWS_PATH_MAX` (decode
+steps), the few-rows path, which swaps the operands so that the weights
+stream through the tensor cores' 64-row side and cuts the contraction
+into `rows_path_splits` parts (f32 partials in a workspace, summed in a
+fixed order by a second kernel of the same call).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from ._build import CudaKernel, check_cuda_operand, ptr
+from ._build import CudaKernel, check_cuda_operand, check_tma_aligned, ptr
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5  # a, b, sizes, out,
 #                                                     M, K, N, E, bf16
-GMM = CudaKernel("gmm", _ARGS, source="grouped_matmul")
+_GMM_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6  # a, b, sizes, out,
+#                                             ws, M, K, N, E, bf16, splits
+GMM = CudaKernel("gmm", _GMM_ARGS, source="grouped_matmul")
 GMM_T = CudaKernel("gmm_t", _ARGS, source="grouped_matmul")
 TGMM = CudaKernel("tgmm", _ARGS, source="grouped_matmul")
 MAX_GROUPS = 512                # the kernels' shared-memory offset table
+# the few-rows kernel's limits and tiles (ROWS_MAX, RN and BK in the .cu)
+ROWS_PATH_MAX = 64   # bf16 gmm at M <= this takes the few-rows kernel
+ROWS_BLOCK = 128     # weight columns a few-rows item
+K_STEP = 64          # contraction a pipeline stage
+MIN_SPLIT_STEPS = 4  # stages a K split keeps at least
+SMS_PER_ITEM = 4     # a K split only while items < SMs / SMS_PER_ITEM
+
+
+def rows_path_splits(m: int, k: int, n: int, e: int, sms: int) -> int:
+    """0 where the bf16 `gmm` of lhs `[m, k]` on `e` weight slabs `[k, n]`
+    takes the general path; else the number of parts its contraction is
+    cut into on the few-rows path. A split costs a pass over f32 partials
+    and a second launch, and an item streams its weights fast enough that
+    48 items on 132 SMs read the MoE decode step's weights at ~80% of the
+    bytes bound (chip_smoke.py phase 10): so the parts double only while
+    the items (live groups, at most min(e, m), times ROWS_BLOCK-column
+    blocks, times parts) number fewer than a 1/SMS_PER_ITEM of the SMs,
+    and each part keeps MIN_SPLIT_STEPS stages of K_STEP."""
+    if not 0 < m <= ROWS_PATH_MAX:
+        return 0
+    items = min(e, m) * -(-n // ROWS_BLOCK)
+    steps = -(-k // K_STEP)
+    splits = 1
+    while (items * splits * SMS_PER_ITEM < sms
+           and 2 * splits * MIN_SPLIT_STEPS <= steps):
+        splits *= 2
+    return splits
+
+
+def workspace_numel(m: int, n: int, splits: int) -> int:
+    """float32 elements of the few-rows path's partials `[splits, m, n]`
+    (none without a split)."""
+    return splits * m * n if splits > 1 else 0
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (a host property; no sync)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def group_bounds(group_sizes: torch.Tensor, m: int) -> list[tuple[int, int]]:
@@ -95,13 +144,22 @@ def gmm_cuda(lhs, rhs, group_sizes, transpose_rhs: bool = False):
     check_cuda_operand("lhs", lhs, dev, lhs.dtype, (m, k))
     check_cuda_operand("rhs", rhs, dev, lhs.dtype,
                        (e, n, k) if transpose_rhs else (e, k, n))
-    out = torch.empty(m, n, dtype=lhs.dtype, device=dev)
     bf16 = int(lhs.dtype == torch.bfloat16)
+    if bf16:
+        check_tma_aligned("lhs", lhs)
+        check_tma_aligned("rhs", rhs)
+    out = torch.empty(m, n, dtype=lhs.dtype, device=dev)
     if transpose_rhs:   # the kernel's names: dy [M, N'], rhs [E, K', N']
         GMM_T(ptr(lhs), ptr(rhs), ptr(group_sizes), ptr(out), m, n, k, e,
               bf16)
-    else:
-        GMM(ptr(lhs), ptr(rhs), ptr(group_sizes), ptr(out), m, k, n, e, bf16)
+        return out
+    splits = rows_path_splits(m, k, n, e, sm_count(dev)) if bf16 else 0
+    ws = None
+    if workspace_numel(m, n, splits):
+        ws = torch.empty(workspace_numel(m, n, splits), dtype=torch.float32,
+                         device=dev)
+    GMM(ptr(lhs), ptr(rhs), ptr(group_sizes), ptr(out), ptr(ws), m, k, n, e,
+        bf16, splits)
     return out
 
 
@@ -115,6 +173,9 @@ def tgmm_cuda(lhs, dy, group_sizes):
     _check_sizes("tgmm", group_sizes, dev)
     check_cuda_operand("lhs", lhs, dev, lhs.dtype, (m, k))
     check_cuda_operand("dy", dy, dev, lhs.dtype, (m, n))
+    if lhs.dtype == torch.bfloat16:
+        check_tma_aligned("lhs", lhs)
+        check_tma_aligned("dy", dy)
     out = torch.empty(e, k, n, dtype=lhs.dtype, device=dev)
     TGMM(ptr(lhs), ptr(dy), ptr(group_sizes), ptr(out), m, k, n, e,
          int(lhs.dtype == torch.bfloat16))

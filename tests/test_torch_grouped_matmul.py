@@ -7,10 +7,12 @@ The same numpy inputs go to both: `gmm_plain` against the forward, the
 transposed form and `tgmm_plain` against `jax.vjp` of the forward
 (dlhs = gmm(dy, rhs, transpose_rhs=True), drhs = tgmm(lhs, dy)), and the
 port's `GroupedMatmul` backward against the same VJP. Group sizes cover an
-empty group, a boundary inside a tile, rows past the groups' total and
-`sum == M`. Megablox in interpret mode leaves the rows past the groups'
-total unwritten (NaN), so those rows are held to `lax.ragged_dot`'s zeros
-(`kernel="xla"`) instead. Tolerances are the JAX test's own: 1e-5 forward,
+empty group, a boundary inside a tile, rows past the groups' total,
+`sum == M`, 64 groups of which four hold rows, a group that starts and
+ends inside one 128-row tile, a one-row group, and M = 1, 16, 64 and 65
+(both sides of the few-rows path's threshold). Megablox in interpret mode
+leaves the rows past the groups' total unwritten (NaN), so those rows are
+held to `lax.ragged_dot`'s zeros (`kernel="xla"`) instead. Tolerances are the JAX test's own: 1e-5 forward,
 2e-4 gradients (f32)."""
 
 import jax
@@ -27,6 +29,14 @@ CASES = {
     "empty_group_boundary_midtile": (40, 16, 24, [10, 0, 21, 6]),
     "sum_equals_m": (48, 32, 16, [16, 17, 15]),
     "one_group_of_all_rows": (24, 8, 40, [24]),
+    "e64_mostly_empty": (40, 16, 24, [0] * 3 + [10] + [0] * 13 + [1]
+                         + [0] * 22 + [20] + [0] * 22 + [5]),
+    "group_inside_one_tile": (200, 16, 24, [100, 20, 80]),
+    "one_row_group": (20, 16, 24, [7, 1, 12]),
+    "m1": (1, 16, 24, [0, 1]),
+    "m16_decode_rows": (16, 32, 40, [5, 0, 7, 4]),
+    "m64": (64, 16, 24, [30, 34]),
+    "m65_rows_past_total": (65, 16, 24, [30, 33]),
 }
 FWD_TOL, GRAD_TOL = 1e-5, 2e-4
 
@@ -126,3 +136,45 @@ def test_unsupported_device_raises_not_falls_back():
         TG.gmm(x, torch.empty(2, 8, 8, device="meta"), gs)
     with pytest.raises(ValueError, match="unsupported device"):
         TG.tgmm(x, x, gs)
+
+
+@pytest.mark.parametrize("m,k,n,e,splits", [
+    (16, 2048, 8192, 4, 1),    # MoE decode, gate/up: 256 items at most
+    (16, 8192, 2048, 4, 1),    # MoE decode, down: 64 items at most
+    (1, 8192, 2048, 4, 4),     # one row: one group, 16 column blocks
+    (2, 8192, 2048, 4, 2),
+    (1, 2048, 8192, 4, 1),
+    (64, 2048, 8192, 4, 1),    # the threshold
+    (65, 2048, 8192, 4, 0),    # past it: the general path
+    (0, 2048, 8192, 4, 0),     # nothing to do
+    (1, 256, 128, 4, 1),       # too shallow to split
+    (512, 2048, 8192, 4, 0),   # prefill rows
+])
+def test_rows_path_splits(m, k, n, e, splits):
+    assert TG.rows_path_splits(m, k, n, e, sms=132) == splits
+
+
+def test_rows_path_splits_fill_the_card_and_keep_deep_parts():
+    """Over a grid of shapes: a power of two; enough items for a
+    1/SMS_PER_ITEM of the SMs unless a part would fall under
+    MIN_SPLIT_STEPS stages; no split makes a part shallower than that."""
+    for m in (1, 5, 16, 33, 64):
+        for k in (64, 256, 1000, 2048, 8192):
+            for n in (8, 512, 2048, 8192):
+                for e in (1, 4, 64):
+                    s = TG.rows_path_splits(m, k, n, e, sms=132)
+                    assert s >= 1 and s & (s - 1) == 0
+                    steps = -(-k // TG.K_STEP)
+                    items = min(e, m) * -(-n // TG.ROWS_BLOCK)
+                    if s > 1:
+                        assert steps // s >= TG.MIN_SPLIT_STEPS
+                    assert (items * s * TG.SMS_PER_ITEM >= 132
+                            or 2 * s * TG.MIN_SPLIT_STEPS > steps)
+
+
+@pytest.mark.parametrize("m,n,splits,numel", [
+    (16, 2048, 8, 16 * 2048 * 8), (16, 8192, 2, 16 * 8192 * 2),
+    (16, 8192, 1, 0), (64, 8, 0, 0)])
+def test_workspace_numel(m, n, splits, numel):
+    assert TG.workspace_numel(m, n, splits) == numel
+

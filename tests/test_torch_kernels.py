@@ -298,7 +298,9 @@ def test_paged_decode_int8_matches_plain(dev, dtype, h, kvh, ps, hd):
 
 
 # (rows M, contraction K, output N, group sizes): an empty group, a group
-# boundary inside a 128-row tile, rows past the groups' total, sum == M
+# boundary inside a 128-row tile, rows past the groups' total, sum == M;
+# bf16 gmm at M <= 64 takes the few-rows kernel (a K split where K is deep
+# enough), every other call the general one
 GMM_CASES = {
     "empty_group_midtile": (300, 64, 96, [70, 0, 150, 60]),
     "tail_rows_zero": (256, 128, 136, [10, 100, 40]),
@@ -306,6 +308,15 @@ GMM_CASES = {
     "one_group": (130, 64, 64, [130]),
     # a decode step's rows (8 slots, top 2): four groups in one partial tile
     "decode_rows": (16, 256, 512, [5, 0, 7, 4]),
+    "e64_mostly_empty": (300, 128, 192, [0] * 5 + [90] + [0] * 30 + [1]
+                         + [0] * 20 + [150] + [0] * 6 + [40]),
+    "group_inside_one_tile": (400, 64, 128, [100, 20, 280]),
+    "one_row_group": (200, 64, 128, [60, 1, 139]),
+    "m1": (1, 512, 256, [0, 1, 0]),
+    "m16_split_k": (16, 2048, 1024, [5, 0, 7, 4]),
+    "m64": (64, 1024, 512, [20, 0, 44]),
+    "m65": (65, 1024, 512, [20, 0, 44]),
+    "m33_rows_past_total": (33, 2048, 256, [10, 12]),
 }
 
 
@@ -318,7 +329,10 @@ def test_grouped_matmul_matches_plain(dev, case, dtype):
     e = len(sizes)
     gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
     lhs = _normal(gen, dev, dtype, m, k)
-    rhs = _normal(gen, dev, dtype, e, k, n)
+    # weights at a fan-in scale, as the model's: products stay O(1) at
+    # every depth, so the absolute f32 tolerance reads rounding alone
+    rhs = (torch.randn(e, k, n, generator=gen, device=dev)
+           * k ** -0.5).to(dtype)
     dy = _normal(gen, dev, dtype, m, n)
     got = (TG.gmm(lhs, rhs, gs), TG.gmm(dy, rhs, gs, transpose_rhs=True),
            TG.tgmm(lhs, dy, gs))
@@ -356,3 +370,81 @@ def test_grouped_matmul_grads_on_the_card(dev):
         assert (x.grad - y.grad).abs().max().item() <= 2e-4
     assert [k.launches for k in (TG.GMM, TG.GMM_T, TG.TGMM)] == \
         [c + 1 for c in counts]
+
+
+def test_grouped_matmul_split_k_is_bitwise_repeatable(dev):
+    """The few-rows path with a K split sums its f32 partials in a fixed
+    order: two calls give the same bits, and they agree with the general
+    path and the unsplit few-rows path (the same entry point) to bf16
+    rounding; so does the wrapper's own split (one row, one live group)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    m, k, n, sizes = 16, 8192, 2048, [5, 0, 7, 4]
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    lhs = _normal(gen, dev, torch.bfloat16, m, k)
+    rhs = (torch.randn(4, k, n, generator=gen, device=dev)
+           * k ** -0.5).to(torch.bfloat16)
+    ws = torch.empty(8 * m * n, dtype=torch.float32, device=dev)
+
+    def entry(splits):
+        out = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
+        TG.GMM(TG.ptr(lhs), TG.ptr(rhs), TG.ptr(gs), TG.ptr(out),
+               TG.ptr(ws), m, k, n, 4, 1, splits)
+        return out
+
+    first, second = entry(8), entry(8)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    want = TG.gmm_plain(lhs.float(), rhs.float(), gs)
+    tol = 1e-2 * want.abs().max().item()
+    for got in (first, entry(0), entry(1)):
+        assert (got.float() - want).abs().max().item() <= tol
+    one = torch.tensor([0, 1, 0, 0], dtype=torch.int32, device=dev)
+    assert TG.rows_path_splits(1, k, n, 4, TG.sm_count(dev)) > 1
+    a, b = TG.gmm(lhs[:1], rhs, one), TG.gmm(lhs[:1], rhs, one)
+    want = TG.gmm_plain(lhs[:1].float(), rhs.float(), one)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert (a.float() - want).abs().max().item() <= \
+        1e-2 * want.abs().max().item()
+
+
+def test_ragged_moe_runs_with_no_host_sync(dev):
+    """One ragged MoE layer forward and backward on K8 under
+    `set_sync_debug_mode("error")`: the routing count and the three
+    grouped products never wait on the device."""
+    import dataclasses
+
+    from multi_spatialmllm_tpu_torch.models import mllm as TM
+    from multi_spatialmllm_tpu_torch.models import moe as TMoE
+
+    cfg = dataclasses.replace(TM.tiny_moe_config().llm, dtype="bfloat16",
+                              moe_impl="ragged", moe_kernel="pallas")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    mlp = TMoE.MoEMLP(cfg, device=dev)
+    for p in mlp.parameters():
+        p.data.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.1)
+    # 96 token copies (the general kernels) and a decode step's 16 (the
+    # few-rows gmm)
+    xs = [torch.randn(b, t, cfg.hidden_size, generator=gen,
+                      device=dev).to(torch.bfloat16).requires_grad_()
+          for b, t in ((2, 24), (8, 1))]
+    valid = torch.ones(2, 24, dtype=torch.bool, device=dev)
+    valid[1, 20:] = False
+
+    def step():
+        for x, v in zip(xs, (valid, None)):
+            y, aux = mlp(x, valid=v)
+            (y.float().square().sum() + aux).backward()
+
+    step()                      # builds the kernels outside the check
+    torch.cuda.synchronize()
+    counts = [k.launches for k in (TG.GMM, TG.GMM_T, TG.TGMM)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert [k.launches for k in (TG.GMM, TG.GMM_T, TG.TGMM)] == \
+        [c + n for c, n in zip(counts, (6, 6, 6))]
+    assert all(torch.isfinite(p.grad).all() for p in mlp.parameters())

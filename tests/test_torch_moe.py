@@ -128,6 +128,30 @@ def test_topk_select_matches_jax(with_mask):
     np.testing.assert_allclose(float(aux_t), float(aux_j), rtol=1e-6)
 
 
+@pytest.mark.parametrize("with_mask", [False, True], ids=["all", "masked"])
+def test_expert_counts_match_jax_bincount(with_mask):
+    """The ragged path's group sizes, counted on the device, equal the JAX
+    ragged path's `jnp.bincount(ei, length=e)` on the same routing, pads
+    and an expert that no token picks included."""
+    rng = np.random.default_rng(11)
+    e, k = 6, 2
+    logits = rng.standard_normal((40, e)).astype(np.float32) * 2
+    logits[:, 4] = -30.0                      # expert 4 never chosen
+    vmask = None
+    if with_mask:
+        vmask = (rng.random(40) > 0.3).astype(np.float32)
+    idx_j, _, _ = JMoE._topk_select(
+        jnp.asarray(logits), k, None if vmask is None else jnp.asarray(vmask))
+    want = np.asarray(jnp.bincount(idx_j.reshape(-1), length=e))
+    idx_t, _, _ = TMoE._topk_select(
+        torch.from_numpy(logits), k,
+        None if vmask is None else torch.from_numpy(vmask))
+    got = TMoE.expert_counts(idx_t.reshape(-1).long(), e)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want[4] == 0 and want.sum() == 40 * k
+
+
 def test_topk_gate_gradient_shares_ties_like_jax():
     """`amax` splits the gradient among tied maxima as `jnp.max` does."""
     logits = np.asarray([[2.0, 2.0, 0.0, -1.0], [0.5, 1.5, 1.5, 1.5]],
