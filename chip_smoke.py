@@ -14,7 +14,9 @@ result line):
    kernels (cuobjdump; K1, K2 and K3 at hd 32, 64 and 128; K8's general
    kernel for gmm, gmm_t and tgmm at BN 128 and 256 and its few-rows
    kernel at 16, 32 and 64 rows): each must hold wgmma (HGMMA) and TMA
-   loads (UTMALDG); ptxas must report no spill for K8's bf16 kernels.
+   loads (UTMALDG); ptxas must report no spill for K8's bf16 kernels;
+   every instantiation of K7's `paged_decode_split_kernel` must hold its
+   bulk copies (UBLKCP) and no spill.
 3. flash_fwd (K1) against its plain version, timed beside its bound and
    `scaled_dot_product_attention` at the shapes its paths run (flagship
    prefill S 2048, the ViT shape with its pad segment, the bench MoE
@@ -23,8 +25,18 @@ result line):
    128-row tiling (S 1, 127, 129, 200, 1153, segment boundaries inside a
    tile, GQA rep 1, 2 and 4, head dims 32, 64, 128) and small float32
    cases; prints the entry point's host cost a call.
-4. paged_decode (K7) against the plain gather-window version, fused write
-   included (pools must be bit-equal).
+4. paged_decode (K7) against the plain gather-window version at the
+   flagship serve shape (8 slots, H32 over KVH8, hd 128, page 64), a long
+   shape (8 slots at 4,096 positions) and a skewed one (one slot at
+   4,096, seven at 0), then at the split plan's edges (index at a run's
+   edges, in the table's last run, every slot idle at the sink page, rep
+   1, 2, 4, 8, hd 32, 64, 128, float32): pools bit-equal after the fused
+   write, outputs within the K7 tolerances and, in bf16, per (slot,
+   head) row within NORM_RATIO of the plain version's own bf16 error (a
+   probe shows that check failing one row 10% off), two calls
+   bit-identical, a CUDA-graph replay equal to the eager call. Timed at
+   the three shapes: device ms from a graph's replay, the wrapper by CUDA
+   events, its host us a call, the plain version, the bytes bound.
 5. Model check: the `tiny` config in float32 with seeded weights through
    the PagedBatcher on the CPU (plain versions) and on the card (kernels);
    greedy tokens must be identical, a difference admitted only at a step
@@ -72,9 +84,10 @@ result line):
    function), the general kernel also at BN 128 and 256, gmm at 16 and 64
    rows also on the general kernel, and gmm at 1-64 rows on both kernels
    and at 1-8 K parts (device times from CUDA graphs).
-11. paged_decode_int8 (K7 int8) against its plain version (quantised
-   write, dequantised window): pools and scale pools bit-equal after the
-   fused write, outputs within the K7 tolerances; timed beside native K7.
+11. paged_decode_int8 (K7 int8) as phase 4 (quantised write, dequantised
+   window; pools and scale pools bit-equal) at the bench MoE serve shape
+   (H16 over KVH8, page 128) and the long and skewed shapes at page 128;
+   timed beside native K7 on the same rows.
 12. Tiny MoE: `tiny_moe_config` in float32 with the einsum impl and with
    the ragged impl on K8 (`moe_kernel="pallas"`): phase 8's 3 train steps
    and phase 5's greedy serving with int8 kv pools, CPU vs card.
@@ -446,67 +459,232 @@ def sdpa_bwd_ms(torch, q, k, v, do, causal, seg):
         out, leaves, do, retain_graph=True), iters=10)
 
 
-def phase_k7(torch, P):
-    """K7 cases; returns (max abs err over cases, timings)."""
+def k7_setup(torch, P, gen, b, h, kvh, ps, pps, hd, n_pages, index, dtype,
+             quant, sink=False):
+    """Seeded K7 inputs `(q, pools, page_table, index, k_new, v_new)`:
+    distinct pool pages per slot (every entry at the sink page 0 with
+    `sink`, where all slots then feed the same new row, as idle slots do,
+    so that the write is no race), unit-normal q, pools `(k, v)` or, int8,
+    `(k, v, k_scale, v_scale)` through the plain quantiser, new rows."""
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
 
-    def setup(b, h, kvh, ps, pps, hd, n_pages, index, dtype):
-        def normal(*shape):
-            return torch.randn(*shape, generator=gen, device=dev).to(dtype)
-        perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
-        pt = perm[: b * pps].reshape(b, pps).to(torch.int32)
-        idx = torch.tensor(index, dtype=torch.int32, device=dev)
-        return (normal(b, h, 1, hd), normal(n_pages, kvh, ps, hd),
-                normal(n_pages, kvh, ps, hd), pt.contiguous(), idx,
-                normal(b, kvh, hd), normal(b, kvh, hd))
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    pt = perm[: b * pps].reshape(b, pps).to(torch.int32).contiguous()
+    if sink:
+        pt.zero_()
+    idx = torch.tensor(index, dtype=torch.int32, device=dev)
+    pools = (normal(n_pages, kvh, ps, hd), normal(n_pages, kvh, ps, hd))
+    if quant:
+        (kp, ks), (vp, vs) = map(P.quantize_kv_rows, pools)
+        pools = (kp, vp, ks, vs)
+    kn, vn = normal(b, kvh, hd), normal(b, kvh, hd)
+    if sink:
+        kn, vn = (t[:1].expand_as(t).contiguous() for t in (kn, vn))
+    return normal(b, h, 1, hd), pools, pt, idx, kn, vn
 
-    def case(name, args, atol):
-        q, kp, vp, pt, idx, kn, vn = args
-        kp_k, vp_k = kp.clone(), vp.clone()
-        out = P.paged_decode_attention_cuda(q, kp_k, vp_k, pt, idx, kn, vn)
-        kp_p, vp_p = kp.clone(), vp.clone()
-        P.write_kv_rows(kp_p, vp_p, pt, idx, kn, vn)
-        ref = P.window_attention(q.float(), kp_p.float(), vp_p.float(), pt,
-                                 idx)
-        torch.cuda.synchronize()
-        pools_equal = torch.equal(kp_k, kp_p) and torch.equal(vp_k, vp_p)
-        err = (out.float() - ref).abs().max().item()
-        ok = pools_equal and err <= atol
-        log(f"  K7 {name}: pools after the fused write "
-            f"{'equal' if pools_equal else 'DIFFER'}, max|o-ref|={err:.3e} "
-            f"(atol {atol:g}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"paged_decode disagrees with its plain version on {name}")
-        return err
 
-    ps = 64
-    # first page, last row of a page, first row of a fresh page, mid-page
-    index = [0, 5, 63, 64, 3 * ps + 17, 5 * ps, 7 * ps - 1, 10 * ps + 40]
-    flagship = setup(8, 32, 8, ps, 11, 128, 105, index, torch.bfloat16)
-    errs = [case("8 slots H32 KVH8 hd128 ps64 bf16", flagship,
-                 K7_BF16_ATOL)]
-    errs.append(case("f32 3 slots H4 KVH2 hd64 ps16",
-                     setup(3, 4, 2, 16, 4, 64, 16, [37, 32, 3],
-                           torch.float32), K7_F32_ATOL))
-    errs.append(case("f32 4 slots H8 KVH1 hd32 ps64",
-                     setup(4, 8, 1, 64, 3, 32, 16, [0, 64, 100, 191],
-                           torch.float32), K7_F32_ATOL))
-    q, kp, vp, pt, idx, kn, vn = flagship
-    t_k = cuda_ms(torch, lambda: P.paged_decode_attention_cuda(
-        q, kp, vp, pt, idx, kn, vn))
-    t_p = cuda_ms(torch, lambda: P.paged_decode_attention_plain(
-        q, kp, vp, pt, idx, kn, vn))
-    rows = int(idx.sum()) + len(index)          # live rows per kv head
-    hd, kvh, h = q.shape[3], kp.shape[1], q.shape[1]
-    # K and V of the live rows read once, q read and o written once, the
-    # new rows written once; 4 flops per (head, row, dim)
-    n_bytes = 2 * rows * kvh * hd * 2 + 2 * nbytes(q) + nbytes(kn, vn)
-    bound = bound_ms(4 * h * rows * hd, n_bytes)
-    log(f"  K7 decode timing (8 slots, {rows} live rows per kv head): "
-        f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {bound[0]:.4f} ms "
-        f"({bound[1]}; {n_bytes / 1e6:.2f} MB)")
-    return max(errs), (t_k, t_p, bound)
+def k7_shapes(torch, P, quant):
+    """The timed K7 shapes (bf16, 8 slots, KVH 8, hd 128): `serve`, the
+    serve path's (flagship native: H32, page 64, 11 table pages; bench MoE
+    int8: H16, page 128, 5 pages); `long`, every slot at 4,096 positions
+    (native 64 pages of 64, int8 32 of 128); `skewed`, the long table with
+    one slot at 4,096 positions and seven at index 0."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + (4 if quant
+                                                             else 1))
+    if quant:
+        h, ps, pps, n_pages = 16, 128, 5, 53
+        index = [0, 5, 127, 128, 300, 400, 511, 600]
+    else:
+        h, ps, pps, n_pages = 32, 64, 11, 105
+        # first page, last row of a page, first row of a fresh page, ...
+        index = [0, 5, 63, 64, 209, 320, 447, 680]
+    wide = 4096 // ps
+    return {label: k7_setup(torch, P, gen, 8, h, 8, ps, n, 128, pages, ix,
+                            torch.bfloat16, quant)
+            for label, n, pages, ix in (
+                ("serve", pps, n_pages, index),
+                ("long", wide, 8 * wide + 1, [4095] * 8),
+                ("skewed", wide, 8 * wide + 1, [4095] + [0] * 7))}
+
+
+def k7_call(P, args, pools=None):
+    """The wrapper on `args`, writing into `pools` (default: args' own)."""
+    q, own, pt, idx, kn, vn = args
+    kp, vp, *scales = pools or own
+    return P.paged_decode_attention_cuda(q, kp, vp, pt, idx, kn, vn,
+                                         *scales)
+
+
+def k7_bound(args):
+    """((bound ms, bound by), MB) of K7 on `args`: K and V of the live rows
+    (int8: with their f32 scales) read once, the new rows read and written
+    once, q read and o written once; 4 flops per (q head, row, dim)."""
+    q, pools, _, idx, kn, vn = args
+    b, h, _, hd = q.shape
+    kvh = pools[0].shape[1]
+    rows = int(idx.sum()) + b                    # live rows per kv head
+    row_bytes = 2 * kvh * (hd + 4 if len(pools) == 4 else 2 * hd)
+    n_bytes = (rows + b) * row_bytes + 2 * nbytes(q) + nbytes(kn, vn)
+    return bound_ms(4 * h * rows * hd, n_bytes), n_bytes / 1e6
+
+
+def k7_times(torch, P, args):
+    """K7 on `args`: device ms from a CUDA graph's replay, ms by CUDA
+    events around back-to-back wrapper calls (the host's cost included
+    where it outruns the device), and the wrapper's host us a call."""
+    fn = lambda: k7_call(P, args)  # noqa: E731
+    times = {"graph_ms": graph_ms(torch, fn), "wrapper_ms": cuda_ms(torch,
+                                                                    fn)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        fn()
+    times["host_us"] = (time.perf_counter() - t0) / 100 * 1e6
+    torch.cuda.synchronize()
+    return times
+
+
+def k7_c_call(torch, P, args, chunk, n_split):
+    """The C entry point on `args` under the split plan (`chunk`,
+    `n_split`), its workspace sized for it (timing only: the sweep)."""
+    q, pools, pt, idx, kn, vn = args
+    b, h, _, hd = q.shape
+    kvh, ps = pools[0].shape[1:3]
+    ws = torch.empty(b * kvh * n_split * P.rep_slots(h // kvh) * (hd + 2),
+                     device=q.device)
+    out = torch.empty_like(q)
+    kern = P.PAGED_DECODE_INT8 if len(pools) == 4 else P.PAGED_DECODE
+    cargs = (*map(P.ptr, (q, *pools, pt, idx, kn, vn, out, ws,
+                          P._tickets(q.device, b * kvh))),
+             b, h, kvh, ps, pt.shape[1], hd, chunk, n_split, hd ** -0.5,
+             int(q.dtype == torch.bfloat16))
+    # the default argument keeps the tensors behind the pointers alive
+    return lambda keep=(ws, out): kern(*cargs)
+
+
+def k7_case(torch, P, name, args, atol):
+    """One K7 case against the plain version: pools (and scale pools)
+    after the fused write bit-equal; the output within `atol` of the
+    float32 reference and, in bf16, per (slot, head) row within NORM_RATIO
+    of the plain version's own bf16 error (`verdict`: a row is one tile);
+    two calls bit-identical; a graph-captured call equal to the eager one,
+    output and pools. Returns (max|err|, out, ref, plain)."""
+    q, pools, pt, idx, kn, vn = args
+    got = [t.clone() for t in pools]
+    out = k7_call(P, args, got)
+    again = k7_call(P, args, got)      # the same row lands again
+    want = [t.clone() for t in pools]
+    P.write_kv_rows(*want[:2], pt, idx, kn, vn, *want[2:])
+    kv_ref = want[:2] if len(want) == 4 else [t.float() for t in want]
+    ref = P.window_attention(q.float(), *kv_ref, pt, idx, *want[2:])
+    plain = (P.window_attention(q, *want[:2], pt, idx, *want[2:])
+             if q.dtype == torch.bfloat16 else None)
+    graphed = [t.clone() for t in pools]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_g = k7_call(P, args, graphed)
+    graph.replay()
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    repeat = torch.equal(out, again)
+    replay = torch.equal(out_g, out) and all(
+        torch.equal(a, b) for a, b in zip(graphed, got))
+    ok, err, text = verdict(out, ref, atol, plain)
+    ok = ok and equal and repeat and replay
+    log(f"  {name}: pools after the fused write "
+        f"{'bit-equal' if equal else 'DIFFER'}; o {text}; repeat "
+        f"{'bit-identical' if repeat else 'DIFFERS'}; graph replay "
+        f"{'= eager' if replay else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name}: the kernel disagrees with its plain version")
+    return err, out, ref, plain
+
+
+def phase_k7(torch, P, quant):
+    """K7 (native pools, phase 4) or K7 int8 (phase 11) against the plain
+    version at the timed shapes and the split plan's edges, then timed.
+    Returns (max abs err over cases, timings by shape)."""
+    tag = "K7 int8" if quant else "K7"
+    shapes = k7_shapes(torch, P, quant)
+    errs = []
+    for label, args in shapes.items():
+        err, out, ref, plain = k7_case(
+            torch, P, f"{tag} {label}: bf16 H{args[0].shape[1]} KVH8 hd128 "
+            f"ps{args[1][0].shape[2]}, index {args[3].tolist()}", args,
+            K7_BF16_ATOL)
+        errs.append(err)
+        if label == "serve":    # the check must see one row 10% off
+            bad = out.clone()
+            bad[7, 0] *= 1.1
+            ok, _, text = verdict(bad, ref, K7_BF16_ATOL, plain)
+            log(f"  fault probe, {tag} serve output with slot 7's head 0 "
+                f"10% off: {text}; the check {'passes' if ok else 'fails'}"
+                f" it")
+            if ok:
+                fail(f"the bf16 check passes a {tag} output with one row "
+                     f"10% off")
+    # the plan's edges at page 16 (16-position chunks): index at a chunk's
+    # last, first and second position and in the table's last chunk;
+    # every slot idle at the sink; rep 1, 2, 4, 8; hd 32, 64, 128
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    for name, b, h, kvh, pps, hd, index, dtype, sink in (
+            ("chunk edges, last chunk, rep4 hd128", 4, 8, 2, 8, 128,
+             [15, 16, 17, 127], torch.bfloat16, False),
+            ("every slot idle, rep2 hd64", 3, 4, 2, 4, 64, [0, 0, 0],
+             torch.bfloat16, True),
+            ("rep8 hd32", 2, 8, 1, 4, 32, [40, 63], torch.bfloat16, False),
+            ("rep1 hd64", 2, 2, 2, 4, 64, [16, 50], torch.bfloat16, False),
+            ("f32 rep2 hd64", 3, 4, 2, 4, 64, [37, 32, 3], torch.float32,
+             False),
+            ("f32 rep8 hd32", 4, 8, 1, 4, 32, [0, 16, 33, 63],
+             torch.float32, False)):
+        args = k7_setup(torch, P, gen, b, h, kvh, 16, pps, hd, b * pps + 1,
+                        index, dtype, quant, sink)
+        atol = K7_BF16_ATOL if dtype == torch.bfloat16 else K7_F32_ATOL
+        errs.append(k7_case(torch, P, f"{tag} {name}, index {index}", args,
+                            atol)[0])
+
+    timings = {}
+    for label, args in shapes.items():
+        (b_ms, b_by), mb = k7_bound(args)
+        t = k7_times(torch, P, args)
+        big = label != "serve"
+        q, pools, pt, idx, kn, vn = args
+        t["plain_ms"] = cuda_ms(
+            torch, lambda: P.paged_decode_attention_plain(
+                q, *pools[:2], pt, idx, kn, vn, *pools[2:]),
+            iters=5 if big else 20, warmup=1 if big else 3)
+        t["bound_ms"], t["bound_by"] = b_ms, b_by
+        if quant:   # native K7 over the same logical rows, in bf16 pools
+            deq = tuple((p.float() * s[..., None]).to(torch.bfloat16)
+                        for p, s in zip(pools[:2], pools[2:]))
+            t["native_graph_ms"] = k7_times(
+                torch, P, (q, deq, pt, idx, kn, vn))["graph_ms"]
+        timings[label] = t
+        plan = P.split_plan(8, 8, pools[0].shape[2], pt.shape[1], 128,
+                            pools[0].element_size(), quant)
+        # the plan against other split counts, half and twice the chunk
+        # (where it fits; device ms by "chunk x splits")
+        ps, itemsize = pools[0].shape[2], pools[0].element_size()
+        chunks = [c for c in (plan[0] // 2, plan[0], 2 * plan[0])
+                  if ps % c == 0 and c * 128 * itemsize <= P.CHUNK_BYTES]
+        t["sweep"] = {f"{c}x{n}": graph_ms(torch, k7_c_call(torch, P, args,
+                                                            c, n))
+                      for c in chunks
+                      for n in sorted({2, 4, plan[1], 8, 16, 32})}
+        log(f"  {tag} {label} timing (chunk, splits: {plan}): "
+            f"device {ms_text(t['graph_ms'])} by graph replay "
+            f"({b_ms / t['graph_ms']:.1%} of the bound), "
+            f"{t['wrapper_ms']:.4f} ms through the wrapper, host "
+            f"{t['host_us']:.1f} us a call, plain {t['plain_ms']:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}; {mb:.2f} MB)"
+            + (f"; native K7 on the same rows {t['native_graph_ms']:.4f} ms"
+               " by graph replay" if quant else "")
+            + "; device ms by chunk x splits: " + ", ".join(
+                f"{per}: {ms:.4f}" for per, ms in t["sweep"].items()))
+    return max(errs), timings
 
 
 def probe_bulk_fault(name, got, ref, tol, plain):
@@ -1342,82 +1520,6 @@ def phase_k8(torch, G, B):
     return errs, timings
 
 
-def phase_k7_int8(torch, P):
-    """K7 int8 against its plain version: pools and scale pools bit-equal
-    after the fused write, outputs within the stated tolerance; timed
-    beside native K7 on the same logical rows. Returns (max abs err,
-    timings)."""
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-
-    def setup(b, h, kvh, ps, pps, hd, n_pages, index, dtype):
-        def normal(*shape):
-            return torch.randn(*shape, generator=gen, device=dev).to(dtype)
-        perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
-        pt = perm[: b * pps].reshape(b, pps).to(torch.int32).contiguous()
-        idx = torch.tensor(index, dtype=torch.int32, device=dev)
-        kp, ks = P.quantize_kv_rows(normal(n_pages, kvh, ps, hd))
-        vp, vs = P.quantize_kv_rows(normal(n_pages, kvh, ps, hd))
-        return (normal(b, h, 1, hd), kp, vp, ks, vs, pt, idx,
-                normal(b, kvh, hd), normal(b, kvh, hd))
-
-    def case(name, args, atol):
-        q, kp, vp, ks, vs, pt, idx, kn, vn = args
-        got_pools = [t.clone() for t in (kp, vp, ks, vs)]
-        out = P.paged_decode_attention_cuda(q, *got_pools[:2], pt, idx, kn,
-                                            vn, *got_pools[2:])
-        want_pools = [t.clone() for t in (kp, vp, ks, vs)]
-        P.write_kv_rows(*want_pools[:2], pt, idx, kn, vn, *want_pools[2:])
-        ref = P.window_attention(q.float(), *want_pools[:2], pt, idx,
-                                 *want_pools[2:])
-        torch.cuda.synchronize()
-        equal = all(torch.equal(a, b) for a, b in zip(got_pools, want_pools))
-        err = (out.float() - ref).abs().max().item()
-        ok = equal and err <= atol
-        log(f"  K7 int8 {name}: pools and scales after the fused write "
-            f"{'bit-equal' if equal else 'DIFFER'}, max|o-ref|={err:.3e} "
-            f"(atol {atol:g}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"paged_decode_int8 disagrees with its plain version on "
-                 f"{name}")
-        return err
-
-    ps = 128
-    # first page, last row of a page, first row of a fresh page, mid-page
-    index = [0, 5, 127, 128, 300, 400, 511, 600]
-    bench = setup(8, 16, 8, ps, 5, 128, 53, index, torch.bfloat16)
-    errs = [case("bench 8 slots H16 KVH8 hd128 ps128 53 pages bf16", bench,
-                 K7_BF16_ATOL)]
-    errs.append(case("f32 3 slots H4 KVH2 hd64 ps16",
-                     setup(3, 4, 2, 16, 4, 64, 16, [37, 32, 3],
-                           torch.float32), K7_F32_ATOL))
-    errs.append(case("f32 4 slots H8 KVH1 hd32 ps64",
-                     setup(4, 8, 1, 64, 3, 32, 16, [0, 64, 100, 191],
-                           torch.float32), K7_F32_ATOL))
-    q, kp, vp, ks, vs, pt, idx, kn, vn = bench
-    t_k = cuda_ms(torch, lambda: P.paged_decode_attention_cuda(
-        q, kp, vp, pt, idx, kn, vn, ks, vs))
-    t_p = cuda_ms(torch, lambda: P.paged_decode_attention_plain(
-        q, kp, vp, pt, idx, kn, vn, ks, vs))
-    # native K7 over the same logical rows, dequantised to bf16 pools
-    kd = (kp.float() * ks[..., None]).to(q.dtype)
-    vd = (vp.float() * vs[..., None]).to(q.dtype)
-    t_native = cuda_ms(torch, lambda: P.paged_decode_attention_cuda(
-        q, kd, vd, pt, idx, kn, vn))
-    rows = int(idx.sum()) + len(index)          # live rows per kv head
-    hd, kvh, h = q.shape[3], kp.shape[1], q.shape[1]
-    # int8 K and V of the live rows and their f32 scales read once, q read
-    # and o written once, the new rows read and written once
-    n_bytes = (rows * kvh * 2 * (hd + 4) + 2 * nbytes(q) + nbytes(kn, vn)
-               + len(index) * kvh * 2 * (hd + 4))
-    bound = bound_ms(4 * h * rows * hd, n_bytes)
-    log(f"  K7 int8 decode timing (8 slots, {rows} live rows per kv head): "
-        f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, native K7 on the same "
-        f"rows {t_native:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
-        f"{n_bytes / 1e6:.3f} MB)")
-    return max(errs), (t_k, t_p, bound, t_native)
-
-
 def build_all(kernels):
     """Build every kernel source with one nvcc each, all at once, then
     bind the remaining entry points of each library."""
@@ -1452,6 +1554,15 @@ def ptxas_kernels(build_log):
             name = m.group(1) if k is None else k.group(1) + (
                 f"<{','.join(re.findall(r'(\d+)E', k.group(2)))}>"
                 if k.group(2) else "")
+            # K7's arguments start with types: q's, the pools' (S..._:
+            # q's again; a: int8), then hd and the rep slots
+            k7 = re.search(r"paged_decode_split_kernelI(13__nv_bfloat16|f)"
+                           r"(S\d*_|a|f)Li(\d+)ELi(\d+)E", m.group(1))
+            if k7:
+                q_t = "bf16" if k7.group(1) == "13__nv_bfloat16" else "f32"
+                pool = "int8" if k7.group(2) == "a" else q_t
+                name = (f"paged_decode_split_kernel<{q_t},{pool},"
+                        f"{k7.group(3)},{k7.group(4)}>")
             spill = (0, 0)
         elif "spill stores" in line:
             st = re.search(r"(\d+) bytes spill stores", line)
@@ -1537,6 +1648,55 @@ def check_sass(build, k8_build_log):
         fail(f"K8 kernels spill or were not reported by ptxas: {spilled}")
 
 
+def k7_timing(timings):
+    """(ms, plain ms, (bound ms, bound by)) of K7 at the serve shape: the
+    device time from a graph's replay."""
+    t = timings["serve"]
+    return t["graph_ms"], t["plain_ms"], (t["bound_ms"], t["bound_by"])
+
+
+# K7's instantiations: q f32 or bf16, native or int8 pools, hd 32, 64 and
+# 128, rep slots 1, 2, 4 and 8
+K7_INSTANCES = 2 * 2 * 3 * 4
+
+
+def check_k7_sass(build, build_log):
+    """cuobjdump's SASS of paged_decode: every instantiation of
+    `paged_decode_split_kernel` must hold its bulk copies (UBLKCP), and
+    ptxas must report no spill for any. Prints the counts."""
+    import re
+
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    lib = build.library_path("paged_decode")
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=120)
+    if out.returncode != 0:
+        fail(f"cuobjdump: {out.stderr.strip()}")
+    copies, current = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            m = re.search(r"paged_decode_split_kernel\S*", line)
+            current = m and m.group(0)
+            if current:
+                copies[current] = 0
+        elif current:
+            copies[current] += "UBLKCP" in line
+    spills = [(st, ld) for n, _, st, ld in ptxas_kernels(build_log)
+              if n.startswith("paged_decode_split_kernel<")]
+    log(f"      K7: {len(copies)} instantiations, UBLKCP a kernel "
+        f"{min(copies.values(), default=0)}-"
+        f"{max(copies.values(), default=0)}; ptxas: "
+        + (f"{len(spills)} reported, {sum(x != (0, 0) for x in spills)} "
+           f"spill" if build_log else "built before this run"))
+    if len(copies) != K7_INSTANCES or min(copies.values()) == 0:
+        fail(f"paged_decode_split_kernel: want {K7_INSTANCES} "
+             f"instantiations, each with UBLKCP: {copies}")
+    if build_log and (len(spills) != K7_INSTANCES
+                      or any(x != (0, 0) for x in spills)):
+        fail(f"paged_decode_split_kernel spills or was not reported by "
+             f"ptxas: {spills}")
+
+
 def kernel_entry(name, source, replaces, launches_by_path, err, timing,
                  library_ms):
     """One entry of the `kernels` line: `timing` is (ms, plain ms,
@@ -1599,6 +1759,8 @@ def main(argv=None):
     build_all([A.FLASH_FWD, P.PAGED_DECODE, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV,
                P.PAGED_DECODE_INT8, G.GMM, G.GMM_T, G.TGMM])
     check_sass(B, "".join(k.build_log for k in (G.GMM, G.GMM_T, G.TGMM)))
+    check_k7_sass(B, "".join(k.build_log for k in (P.PAGED_DECODE,
+                                                   P.PAGED_DECODE_INT8)))
     tok = serve_tokenizer()
     res = {}
     if 3 in phases:
@@ -1606,7 +1768,7 @@ def main(argv=None):
         res["k1"] = phase_k1(torch, A)
     if 4 in phases:
         head(4, "paged_decode (K7) against the plain gather-window version")
-        res["k7"] = phase_k7(torch, P)
+        res["k7"] = phase_k7(torch, P, quant=False)
     if 5 in phases:
         head(5, "tiny f32: PagedBatcher on the CPU vs on the card")
         phase_tiny(torch, M, K)
@@ -1635,7 +1797,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if 11 in phases:
         head(11, "paged_decode_int8 (K7 int8) against its plain version")
-        res["k7i8"] = phase_k7_int8(torch, P)
+        res["k7i8"] = phase_k7(torch, P, quant=True)
     if 12 in phases:
         tiny_moe = M.with_dtype(M.tiny_moe_config(), "float32")
         for impl, kernel in (("einsum", "xla"), ("ragged", "pallas")):
@@ -1710,12 +1872,12 @@ def main(argv=None):
         kernel_entry("paged_decode", "paged_decode.cu",
                      "multi_spatialmllm_tpu/ops/paged_attention.py:95",
                      by_path("paged_decode", serve=res["serve"]), k7_err,
-                     k7, None),
+                     k7_timing(k7), None),
         kernel_entry("paged_decode_int8", "paged_decode.cu",
                      "multi_spatialmllm_tpu/ops/paged_attention.py:95 "
                      "(quant branch, :220-245, :256-275)",
                      by_path("paged_decode_int8", moe_serve=moe_serve),
-                     k7i8_err, k7i8[:3], None),
+                     k7i8_err, k7_timing(k7i8), None),
     ]
     for name, replaces, paths in (
             ("gmm", f"{jax_moe}:133 (_pallas_gmm: megablox gmm)",
@@ -1737,6 +1899,14 @@ def main(argv=None):
         entry["ms_by_shape"] = {lb: t[0] for lb, t in shown.items()}
         entry["bound_ms_by_shape"] = {lb: t[3][0] for lb, t in shown.items()}
         entry["library_ms_by_shape"] = {lb: t[2] for lb, t in shown.items()}
+    # K7's `ms` is the serve shape's device time (graph replay); every
+    # timed shape beside, with the wrapper's time and host cost
+    for entry, timings in ((kernels[3], k7), (kernels[4], k7i8)):
+        entry["device_kernels"] = ["paged_decode_split_kernel"]
+        for key in ("graph_ms", "wrapper_ms", "host_us", "bound_ms",
+                    "plain_ms"):
+            entry[f"{key}_by_shape"] = {lb: t[key]
+                                        for lb, t in timings.items()}
     # K2/K3's `ms` is at the unpacked S 4096 row; every timed shape beside
     for entry, part in ((kernels[1], "dq"), (kernels[2], "dkv")):
         entry["ms_by_shape"] = {s: t[part][0] for s, t in bwd.items()}

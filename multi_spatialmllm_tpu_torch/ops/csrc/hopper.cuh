@@ -102,6 +102,18 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One contiguous run of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global into shared memory, no tensor map; completion is
+// reported to `bar` like a TMA box's.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------

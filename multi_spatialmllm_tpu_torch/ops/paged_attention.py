@@ -8,39 +8,101 @@ for int8 pools with per-row float32 scales) when its tensors lie on a CUDA
 device, and by `paged_decode_attention_plain` when they lie on the CPU.
 Both land the step's kv rows (quantised, for int8 pools) in the pools IN
 PLACE (the JAX package aliases the pools through the kernel instead).
+
+The kernel splits each slot's live positions over a fixed number of CTAs
+(`split_plan`, from the shapes alone) and combines their partial softmax
+sums in split order.
+Its tickets live in a buffer kept per device (`_tickets`), so calls on
+one device must be ordered on one stream, as the serve loop's are.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from ._build import CudaKernel, check_cuda_operand, ptr
+from ._build import CudaKernel, check_cuda_operand, check_tma_aligned, ptr
 from .attention import NEG_INF
 
 # Guard for all-zero kv rows: scale floors here so dequantization of a
 # zero row stays exactly zero instead of dividing by zero.
 KV_QUANT_EPS = 1e-8
 
+_TAIL_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p,                    # workspace, tickets
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, H, KVH
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,            # ps, PPS, HD
+    ctypes.c_int, ctypes.c_int,                          # chunk, n_split
+    ctypes.c_float, ctypes.c_int,                        # scale, bf16
+]
 PAGED_DECODE = CudaKernel("paged_decode", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k/v pages
     ctypes.c_void_p, ctypes.c_void_p,                    # page_table, index
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # k/v new, out
-    ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, H, KVH
-    ctypes.c_int, ctypes.c_int, ctypes.c_int,            # ps, PPS, HD
-    ctypes.c_float, ctypes.c_int,                        # scale, bf16
+    *_TAIL_ARGS,
 ])
 PAGED_DECODE_INT8 = CudaKernel("paged_decode_int8", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k/v pages
     ctypes.c_void_p, ctypes.c_void_p,                    # k/v scales
     ctypes.c_void_p, ctypes.c_void_p,                    # page_table, index
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # k/v new, out
-    ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, H, KVH
-    ctypes.c_int, ctypes.c_int, ctypes.c_int,            # ps, PPS, HD
-    ctypes.c_float, ctypes.c_int,                        # scale, bf16
+    *_TAIL_ARGS,
 ], source="paged_decode")
 KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_MAX_REP = 8          # q heads a kv head
+# the kernel's split plan: a chunk (one bulk copy of K rows, one of V
+# rows) holds at most 128 positions and 16 KB of K; a (slot, kv head) gets
+# up to MAX_CTAS / (slots x kv heads) splits (8 at 8 slots and 8 kv
+# heads), among which each call deals out its live chunks
+CHUNK_POSITIONS = 128
+CHUNK_BYTES = 16384
+MAX_CTAS = 512
+
+
+@functools.lru_cache(maxsize=64)
+def split_plan(b: int, kvh: int, ps: int, pps: int, hd: int,
+               pool_itemsize: int, quant: bool) -> tuple[int, int]:
+    """`(chunk, n_split)`: each (slot, kv head) runs on `n_split` CTAs,
+    among which the kernel deals out in order the live chunks of `chunk`
+    positions 0..index // chunk (q or q + 1 consecutive chunks a split,
+    over min(n_split, their count) splits). A chunk divides the page, so it lies in one page; an
+    int8 chunk is a multiple of 4 positions, so its f32 scales copy in
+    16-byte units. From the shapes alone, never from the indices: the
+    launch is static and captures in a CUDA graph."""
+    cap = min(ps, CHUNK_POSITIONS, CHUNK_BYTES // (hd * pool_itemsize))
+    step = 4 if quant else 1
+    fits = [c for c in range(step, cap + 1, step) if ps % c == 0]
+    if not fits:
+        raise ValueError(f"paged_decode: page size {ps} has no chunk of "
+                         f"{step}-position steps up to {cap}")
+    chunk = fits[-1]
+    return chunk, max(1, min(pps * ps // chunk, MAX_CTAS // (b * kvh)))
+
+
+def rep_slots(rep: int) -> int:
+    """The kernel's q rows a kv head: rep rounded up to 1, 2, 4 or 8."""
+    return next(n for n in (1, 2, 4, 8) if rep <= n)
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The kernel's tickets on `device`: at least `n` int32 zeros, kept
+    across calls (the last CTA of each (slot, kv head) resets its own).
+    Allocated outside any CUDA graph capture, so a captured call finds
+    them made by an earlier eager one."""
+    have = _TICKETS.get(device)
+    if have is None or have.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "paged_decode: call it once outside the CUDA graph capture "
+                "first (its ticket buffer is allocated then)")
+        have = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _TICKETS[device] = have
+    return have
 
 
 def quantize_kv_rows(rows: torch.Tensor):
@@ -127,8 +189,9 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, index,
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(
             f"paged_decode: head dim {hd} not in {KERNEL_HEAD_DIMS}")
-    if kvh == 0 or h % kvh:
-        raise ValueError(f"paged_decode: {h} heads over {kvh} kv heads")
+    if kvh == 0 or h % kvh or h // kvh > KERNEL_MAX_REP:
+        raise ValueError(f"paged_decode: {h} heads over {kvh} kv heads "
+                         f"(at most {KERNEL_MAX_REP} a kv head)")
     dev = q.device
     quant = k_scale is not None
     check_cuda_operand("q", q, dev, q.dtype, (b, h, 1, hd))
@@ -143,8 +206,17 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, index,
     check_cuda_operand("index", index, dev, torch.int32, (b,))
     for name, row in (("k_new", k_new), ("v_new", v_new)):
         check_cuda_operand(name, row, dev, q.dtype, (b, kvh, hd))
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("k_scale", k_scale), ("v_scale", v_scale)):
+        if t is not None:
+            check_tma_aligned(name, t)
+    chunk, n_split = split_plan(b, kvh, ps, pps, hd, k_pages.element_size(),
+                                quant)
     out = torch.empty_like(q)
-    tail = (b, h, kvh, ps, pps, hd, float(hd ** -0.5),
+    ws = torch.empty(b * kvh * n_split * rep_slots(h // kvh) * (hd + 2),
+                     dtype=torch.float32, device=dev)
+    tail = (ptr(ws), ptr(_tickets(dev, b * kvh)), b, h, kvh, ps, pps, hd,
+            chunk, n_split, float(hd ** -0.5),
             int(q.dtype == torch.bfloat16))
     if quant:
         PAGED_DECODE_INT8(ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_scale),

@@ -297,6 +297,97 @@ def test_paged_decode_int8_matches_plain(dev, dtype, h, kvh, ps, hd):
     assert (out.float() - ref).abs().max().item() <= atol
 
 
+def _paged_split_case(dev, dtype, quant, b, h, kvh, ps, pps, hd, index,
+                      sink=False, seed=7):
+    """The kernel at the split plan's edges against the plain version:
+    pools (and int8 scale pools) bit-equal after the fused write, the
+    output within tolerance, a second call on the same inputs
+    bit-identical. With `sink` every table entry is the sink page and all
+    slots feed one new row, as idle slots do."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = b * pps + 1
+    pt = (torch.randperm(n_pages - 1, generator=gen, device=dev)[:b * pps]
+          + 1).reshape(b, pps).to(torch.int32)
+    if sink:
+        pt.zero_()
+    idx = torch.tensor(index, dtype=torch.int32, device=dev)
+    pools = [_normal(gen, dev, dtype, n_pages, kvh, ps, hd)
+             for _ in range(2)]
+    if quant:
+        (kp, ks), (vp, vs) = map(TP.quantize_kv_rows, pools)
+        pools = [kp, vp, ks, vs]
+    q = _normal(gen, dev, dtype, b, h, 1, hd)
+    kn = _normal(gen, dev, dtype, b, kvh, hd)
+    vn = _normal(gen, dev, dtype, b, kvh, hd)
+    if sink:
+        kn, vn = (t[:1].expand_as(t).contiguous() for t in (kn, vn))
+    got = [t.clone() for t in pools]
+    out = TP.paged_decode_attention(q, *got[:2], pt, idx, kn, vn, *got[2:])
+    again = TP.paged_decode_attention(q, *got[:2], pt, idx, kn, vn,
+                                      *got[2:])
+    want = [t.clone() for t in pools]
+    TP.write_kv_rows(*want[:2], pt, idx, kn, vn, *want[2:])
+    kv = want[:2] if quant else [t.float() for t in want]
+    ref = TP.window_attention(q.float(), *kv, pt, idx, *want[2:])
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    assert torch.equal(out, again)
+    atol = 2e-5 if dtype == torch.float32 else ATOL[dtype]
+    assert (out.float() - ref).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["native", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [
+    # b, h, kvh, ps, pps, hd, index: 64-position chunks, a split each;
+    # index at a chunk's last, first and second position and in the last
+    (4, 8, 2, 64, 4, 128, [63, 64, 65, 255]),
+    # 8 x 8 (slot, kv head)s get 8 splits: up to 5 chunks a split
+    (8, 16, 8, 64, 40, 64, [127, 128, 129, 2559, 0, 5, 700, 1000]),
+    # one slot deep, the others at index 0
+    (4, 4, 2, 64, 16, 32, [1023, 0, 0, 0]),
+], ids=["chunk_edges", "several_chunks_a_split", "skewed"])
+def test_paged_decode_split_edges(dev, case, dtype, quant):
+    _paged_split_case(dev, dtype, quant, *case)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["native", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_decode_every_slot_idle(dev, dtype, quant):
+    _paged_split_case(dev, dtype, quant, 4, 8, 2, 16, 4, 64, [0] * 4,
+                      sink=True)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_decode_rep_and_head_dim(dev, dtype, rep, hd):
+    _paged_split_case(dev, dtype, False, 3, 2 * rep, 2, 16, 6, hd,
+                      [15, 16, 95])
+
+
+@pytest.mark.parametrize("ps", [16, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_decode_int8_page_sizes(dev, dtype, ps):
+    _paged_split_case(dev, dtype, True, 4, 8, 4, ps, 3, 128,
+                      [0, ps - 1, ps, 3 * ps - 1])
+
+
+def test_paged_decode_refuses_rep_over_8(dev):
+    q = torch.zeros(1, 16, 1, 32, device=dev)
+    pool = torch.zeros(2, 1, 16, 32, device=dev)
+    row = torch.zeros(1, 1, 32, device=dev)
+    pt = torch.ones(1, 1, dtype=torch.int32, device=dev)
+    idx = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="at most 8"):
+        TP.paged_decode_attention(q, pool, pool, pt, idx, row, row)
+
+
 # (rows M, contraction K, output N, group sizes): an empty group, a group
 # boundary inside a 128-row tile, rows past the groups' total, sum == M;
 # bf16 gmm at M <= 64 takes the few-rows kernel (a K split where K is deep

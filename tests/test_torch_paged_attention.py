@@ -166,3 +166,139 @@ def test_int8_window_matches_jax_kernel_without_write():
     got = TP.window_attention(t(q), t(kp), t(vp), t(PAGE_TABLE), t(INDEX),
                               t(ks), t(vs))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+def _split_runs(index, chunk, n_split):
+    """The kernel's runs for one slot: `(first chunk, chunks)` of each
+    live split, in split order. The chunks 0..index // chunk are dealt out
+    in order over min(n_split, their count) splits, the first ones taking
+    one chunk more where they do not divide evenly."""
+    live = index // chunk + 1
+    n_live = min(n_split, live)
+    q, extra = divmod(live, n_live)
+    return [(s * q + min(s, extra), q + (s < extra)) for s in range(n_live)]
+
+
+@pytest.mark.parametrize("b,kvh,ps,pps,hd,itemsize,quant", [
+    (8, 8, 64, 11, 128, 2, False),      # flagship serve, phase 4
+    (8, 8, 64, 33, 128, 2, False),      # flagship serve's table width
+    (8, 8, 64, 64, 128, 2, False),      # 4,096 positions
+    (8, 8, 128, 6, 128, 1, True),       # bench MoE serve, int8
+    (8, 8, 128, 32, 128, 1, True),      # 4,096 positions, int8
+    (8, 8, 64, 11, 128, 4, False),      # float32 pools
+    (3, 3, 8, 4, 32, 4, False),
+    (4, 2, 16, 4, 64, 1, True),
+    (1, 1, 48, 3, 64, 2, False),        # a page size that is no power of 2
+])
+def test_split_plan_covers_every_live_position_once(b, kvh, ps, pps, hd,
+                                                    itemsize, quant):
+    """The kernel's split plan comes from the shapes alone (it takes no
+    index, so its launch is the same at every step); at every index the
+    runs it deals out cover positions 0..index once, in order, within the
+    plan's splits, each chunk inside one page and within the kernel's
+    chunk limits, the grid within MAX_CTAS."""
+    chunk, n_split = TP.split_plan(b, kvh, ps, pps, hd, itemsize, quant)
+    assert ps % chunk == 0 and not (quant and chunk % 4)
+    assert chunk <= TP.CHUNK_POSITIONS
+    assert chunk * hd * itemsize <= TP.CHUNK_BYTES
+    assert b * kvh * n_split <= max(TP.MAX_CTAS, b * kvh)
+    for index in range(pps * ps):
+        runs = _split_runs(index, chunk, n_split)
+        assert 1 <= len(runs) <= n_split
+        first = [c for c, n in runs]
+        assert first == sorted(first) and first[0] == 0
+        chunks = [c for c0, n in runs for c in range(c0, c0 + n)]
+        assert chunks == list(range(index // chunk + 1))
+        assert max(n for _, n in runs) - min(n for _, n in runs) <= 1
+
+
+def _split_combine(q, kp, vp, pt, idx, ks=None, vs=None, plan=None):
+    """The kernel's arithmetic in float32 torch, after the write: each
+    (slot, kv head)'s live chunks dealt out over the plan's splits
+    (`_split_runs`); inside a split an online softmax chunk by chunk, rows
+    past the index masked with NEG_INF, the k scale on the scores, the v
+    scale on the probabilities; the splits' partials combined in split
+    order, in one pass rescaled to the running max."""
+    b, h, _, hd = q.shape
+    _, kvh, ps, _ = kp.shape
+    rep = h // kvh
+    chunk, n_split = plan or TP.split_plan(
+        b, kvh, ps, pt.shape[1], hd, kp.element_size(), ks is not None)
+    out = torch.empty(b, h, 1, hd)
+    for s in range(b):
+        for g in range(kvh):
+            qg = q[s, g * rep:(g + 1) * rep, 0].float()
+            m_all = torch.full((rep,), TP.NEG_INF)
+            a, l_all = torch.zeros(rep, hd), torch.zeros(rep)
+            for c0, n in _split_runs(int(idx[s]), chunk, n_split):
+                m = torch.full((rep,), TP.NEG_INF)
+                l, acc = torch.zeros(rep), torch.zeros(rep, hd)
+                for c in range(c0, c0 + n):
+                    pos0 = c * chunk
+                    page, off = pt[s, pos0 // ps], pos0 % ps
+                    k = kp[page, g, off:off + chunk].float()
+                    v = vp[page, g, off:off + chunk].float()
+                    sc = (qg @ k.T) * hd ** -0.5
+                    if ks is not None:
+                        sc = sc * ks[page, g, off:off + chunk]
+                    live = torch.arange(pos0, pos0 + chunk) <= idx[s]
+                    sc = sc.masked_fill(~live, TP.NEG_INF)
+                    m_cur = torch.maximum(m, sc.max(-1).values)
+                    p = torch.exp(sc - m_cur[:, None])
+                    alpha = torch.exp(m - m_cur)
+                    l = l * alpha + p.sum(-1)
+                    if vs is not None:
+                        p = p * vs[page, g, off:off + chunk]
+                    acc = acc * alpha[:, None] + p @ v.masked_fill(
+                        ~live[:, None], 0)
+                    m = m_cur
+                m_new = torch.maximum(m_all, m)      # combine, split order
+                f, f_i = torch.exp(m_all - m_new), torch.exp(m - m_new)
+                a = a * f[:, None] + acc * f_i[:, None]
+                l_all = l_all * f + l * f_i
+                m_all = m_new
+            out[s, g * rep:(g + 1) * rep, 0] = a / l_all.clamp(
+                min=1e-30)[:, None]
+    return out
+
+
+# the wrapper's plan at these shapes (a split per 16-position chunk) and
+# two splits of 8-position chunks, so that a split holds several chunks
+SPLIT_PLANS = [None, (8, 2)]
+
+
+@pytest.mark.parametrize("plan", SPLIT_PLANS, ids=["plan", "two_splits"])
+@pytest.mark.parametrize("kvh,h", [(2, 4), (1, 4)])
+def test_split_combine_matches_window_and_jax_kernel(plan, kvh, h):
+    q, kp, vp, kn, vn = _inputs(6, h, kvh)
+    want, kp_j, vp_j = _jax_fused(q, kp, vp, PAGE_TABLE, INDEX, kn, vn)
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    kp_t, vp_t = t(kp), t(vp)
+    TP.write_kv_rows(kp_t, vp_t, t(PAGE_TABLE), t(INDEX), t(kn), t(vn))
+    got = _split_combine(t(q), kp_t, vp_t, PAGE_TABLE, INDEX, plan=plan)
+    window = TP.window_attention(t(q), kp_t, vp_t, t(PAGE_TABLE), t(INDEX))
+    np.testing.assert_allclose(got.numpy(), window.numpy(), atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
+@pytest.mark.parametrize("plan", SPLIT_PLANS, ids=["plan", "two_splits"])
+def test_int8_split_combine_matches_window_and_jax_kernel(plan):
+    from jax.experimental.pallas import tpu as pltpu
+
+    q, kp, vp, ks, vs, kn, vn = _int8_inputs(7, 4, 2)
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    pools = [t(kp), t(vp), t(ks), t(vs)]
+    TP.write_kv_rows(*pools[:2], t(PAGE_TABLE), t(INDEX), t(kn), t(vn),
+                     *pools[2:])
+    got = _split_combine(t(q), *pools[:2], PAGE_TABLE, INDEX, *pools[2:],
+                         plan=plan)
+    window = TP.window_attention(t(q), *pools[:2], t(PAGE_TABLE), t(INDEX),
+                                 *pools[2:])
+    with pltpu.force_tpu_interpret_mode():    # the window, written already
+        want = JP.paged_decode_attention(
+            jnp.asarray(q), *(jnp.asarray(p.numpy()) for p in pools[:2]),
+            jnp.asarray(PAGE_TABLE), jnp.asarray(INDEX),
+            k_scale=jnp.asarray(pools[2].numpy()),
+            v_scale=jnp.asarray(pools[3].numpy()))
+    np.testing.assert_allclose(got.numpy(), window.numpy(), atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
