@@ -10,7 +10,8 @@ result line):
 
 1. Device: needs CUDA; prints the card's name and power limit.
 2. Build: compiles the four kernel sources in ops/csrc with nvcc, in
-   parallel (one nvcc per source), and reads the SASS of the bf16 wgmma
+   parallel (one nvcc per source), and the native JSONL emitter
+   (ingest/native, g++) beside them (it must build), and reads the SASS of the bf16 wgmma
    kernels (cuobjdump; K1, K2 and K3 at hd 32, 64 and 128; K8's general
    kernel for gmm, gmm_t and tgmm at BN 128 and 256 and its few-rows
    kernel at 16, 32 and 64 rows): each must hold wgmma (HGMMA) and TMA
@@ -101,6 +102,21 @@ result line):
    prompts up to 512, 128 new tokens), 16 one-image requests through the
    serve loop; every request finishes, flash_fwd, gmm and
    paged_decode_int8 launched.
+15. Data engine (no kernel of its own: torch ops on the card, and the
+   native JSONL emitter, built with g++ beside the nvcc builds of phase 2;
+   on this path the Python emitter is a failure, not a fallback):
+   real-scale visibility (bench.py's 296-image, 200,000-point scene) in
+   float64 and float32, cold and steady seconds, M tests/s, dispatches,
+   peak device memory; the float64 bits of the first 24 images equal to
+   the port's CPU run. The bench corpus (40 scenes x 96 images): batched
+   f32 visibility (scenes/s), frame relations (pairs/s), camera movement
+   for total_distance, displacement_vector, yaw_angle and x_movement at
+   200,000 samples each with the production config (samples/s, median of
+   3 passes). Then `demo --scenes 2 --images-per-scene 12
+   --points-per-scene 4000` on the card and on the CPU: visibility.npz
+   equal, relation overlap equal and distance/yaw/pitch within
+   DIST_ULP/ANGLE_ULP, every camera-movement JSONL byte-equal. Each
+   number printed beside the card's name and power limit.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -132,7 +148,7 @@ N_SERVE = 16
 TRAIN_LAYERS = 8         # phase 9: LLM depth cut from 32 (see PERF.md)
 # phase 13: the train CLI's --max-tiles and --tiles-per-image defaults
 MOE_MAX_TILES, MOE_TILES_PER_IMAGE = 14, 6
-N_PHASES = 14
+N_PHASES = 15
 # phase 9's steps on one repeated batch run a fresh optimizer on the train
 # CLI's default schedule (--lr 1e-5, --warmup 100, --steps 1000)
 REPEAT_LR, REPEAT_WARMUP, REPEAT_TOTAL = 1e-5, 100, 1000
@@ -1697,6 +1713,271 @@ def check_k7_sass(build, build_log):
              f"ptxas: {spills}")
 
 
+# --------------------------------------------------------------------------
+# Phase 15: the data engine (scene -> visibility -> frame relations ->
+# camera-movement JSONL)
+# --------------------------------------------------------------------------
+
+# card vs CPU: an angle may differ by ANGLE_ULP ulp of its own value on
+# each side of a pair's difference (libdevice's f64 atan2 is within 2 ulp,
+# torch's CPU atan2 within 1; the degree conversion can move the count
+# across a binade), a distance by DIST_ULP ulp (the card's reduction of a
+# 3-term sum of squares may order or contract it differently)
+ANGLE_ULP = 8
+DIST_ULP = 2
+# bench.py's scenes: the real-scale ScanNet-val-shaped scene (:357-362)
+# and the 40-scene bench corpus (:259-263)
+REAL_SCENE = dict(scene_id="real0000_00", seed=7, n_images=296,
+                  n_background=200_000, n_objects=8, image_hw=(968, 1296),
+                  depth_hw=(480, 640), n_invalid_poses=0)
+REAL_CPU_IMAGES = 24
+N_CORPUS = 40
+CM_QTYPES = ("total_distance", "displacement_vector", "yaw_angle",
+             "x_movement")
+CM_SAMPLES = 200_000
+CM_PASSES = 3
+DEMO_ARGS = ["--scenes", "2", "--images-per-scene", "12",
+             "--points-per-scene", "4000"]
+
+
+def corpus_scene(make_scene, i):
+    return make_scene(scene_id=f"bench{i:04d}_00", seed=100 + i,
+                      n_images=96, n_background=4000, n_objects=4,
+                      depth_hw=(24, 32), n_invalid_poses=0)
+
+
+def realscale_visibility(torch, np, V, scene, dtype, card):
+    """Cold and steady seconds, tests/s, dispatches and peak device bytes
+    of `compute_scene_visibility` over the real-scale scene."""
+    pts, _ = scene.padded_points(dtype)
+    ext, _, _ = scene.padded_images(dtype)
+    i_pad, n_pad = ext.shape[0], pts.shape[0]
+    chunk = V.image_chunk_for(i_pad, n_pad, dtype)
+    dispatches = 1 if chunk is None else -(-i_pad // chunk)
+    name = np.dtype(dtype).name
+    t0 = time.perf_counter()
+    V.compute_scene_visibility(scene, dtype)
+    cold = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    steady = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        vis = V.compute_scene_visibility(scene, dtype)
+        steady.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    pairs = i_pad * n_pad
+    # the device program alone, its inputs resident (the rest of a call
+    # is host packing, the upload and the fetch)
+    dev = torch.device("cuda")
+    ext, depth, ivalid = scene.padded_images(dtype)
+    pvalid = scene.padded_points(dtype)[1]
+    args = [torch.from_numpy(a).to(dev) for a in (
+        pts, scene.intrinsic.astype(dtype), ext, depth.astype(np.int32),
+        ivalid, pvalid)]
+    device_ms = cuda_ms(torch, lambda: V._visibility_packed(
+        *args, scene.image_hw), iters=5, warmup=1)
+    del args
+    tests = scene.num_images * scene.num_points
+    log(f"  real-scale visibility {name}: {scene.num_images} images x "
+        f"{scene.num_points} points, cold {cold:.3f} s, steady "
+        f"{min(steady):.3f} s ({[round(t, 4) for t in steady]}), "
+        f"{tests / min(steady) / 1e6:.1f} M tests/s, the device program "
+        f"alone {device_ms:.3f} ms (CUDA events), {dispatches} "
+        f"dispatch(es), peak {peak / 2**30:.3f} GiB over the allocated "
+        f"base, {peak / pairs:.1f} bytes a padded pair "
+        f"({i_pad} x {n_pad}); {card}")
+    return vis, {"cold_s": cold, "steady_s": min(steady),
+                 "mtests_per_s": tests / min(steady) / 1e6,
+                 "device_ms": device_ms,
+                 "dispatches": dispatches, "peak_bytes": peak,
+                 "bytes_per_pair": peak / pairs}
+
+
+def first_difference(np, a, b):
+    """(index, a value, b value) of the first element where a != b."""
+    idx = np.argwhere(a != b)[0]
+    return tuple(int(i) for i in idx), a[tuple(idx)], b[tuple(idx)]
+
+
+def compare_relations(np, card_t, cpu_t):
+    """Card vs CPU relation tables: identity columns and overlap exactly,
+    distance/yaw/pitch within their ulp limits; a difference fails with
+    its scene, its pair and both values."""
+    for c in ("scene_id", "image_id1", "image_id2"):
+        if card_t[c].tolist() != cpu_t[c].tolist():
+            fail(f"relations: column {c} differs card vs CPU")
+    limits = {
+        "overlap": np.zeros(len(cpu_t["overlap"])),
+        "distance": DIST_ULP * np.spacing(np.abs(cpu_t["distance"])),
+        "yaw": 2 * ANGLE_ULP * np.spacing(180.0) * np.ones(
+            len(cpu_t["yaw"])),
+        "pitch": 2 * ANGLE_ULP * np.spacing(90.0) * np.ones(
+            len(cpu_t["pitch"])),
+    }
+    worst = {}
+    for c, lim in limits.items():
+        a, b = card_t[c], cpu_t[c]
+        same_nan = np.isnan(a) & np.isnan(b)
+        gap = np.where(same_nan, 0.0, np.abs(a - b))
+        bad = ~(gap <= lim)
+        if bad.any():
+            k = int(np.argmax(bad))
+            fail(f"relations: {c} of {cpu_t['scene_id'][k]} "
+                 f"({cpu_t['image_id1'][k]}, {cpu_t['image_id2'][k]}) is "
+                 f"{a[k]!r} on the card and {b[k]!r} on the CPU "
+                 f"(limit {lim[k]:.3g})")
+        worst[c] = float(gap.max()) if len(gap) else 0.0
+        worst[c + "_differ"] = int((gap > 0).sum())
+    return worst
+
+
+def demo_card_vs_cpu(np, cli, root, card):
+    """`demo` on the card and on the CPU: visibility.npz equal, relation
+    columns within their limits, every camera-movement JSONL byte-equal."""
+    from multi_spatialmllm_tpu_torch.core.scene import SceneStore
+    from multi_spatialmllm_tpu_torch.pipeline import (
+        PipelineConfig,
+        SpatialEnginePipeline,
+    )
+
+    roots = {}
+    for dev in ("cuda", "cpu"):
+        roots[dev] = os.path.join(root, f"demo_{dev}")
+        t0 = time.perf_counter()
+        cli.main(["demo", "--device", dev, "--output", roots[dev],
+                  *DEMO_ARGS])
+        log(f"  demo on {dev}: {time.perf_counter() - t0:.2f} s")
+    npz = {d: np.load(os.path.join(r, "indices", "visibility.npz"))
+           for d, r in roots.items()}
+    if sorted(npz["cuda"].files) != sorted(npz["cpu"].files):
+        fail("visibility.npz: different entries card vs CPU")
+    for k in npz["cpu"].files:
+        a, b = npz["cuda"][k], npz["cpu"][k]
+        if a.shape != b.shape or not np.array_equal(a, b):
+            fail(f"visibility.npz {k}: card vs CPU differ"
+                 + (f" first at {first_difference(np, a, b)}"
+                    if a.shape == b.shape else ""))
+    tables = {}
+    for dev, r in roots.items():
+        pipe = SpatialEnginePipeline(
+            SceneStore(os.path.join(r, "scenes")), r,
+            PipelineConfig(overlap_min=0.1, overlap_max=100.0, interval=5.0),
+            device=dev)
+        tables[dev] = pipe.frame_relations()
+    worst = compare_relations(np, tables["cuda"], tables["cpu"])
+    n_files = 0
+    for split in ("training_data", "evaluation_data"):
+        d = {dev: os.path.join(r, "qa", split, "camera_movement")
+             for dev, r in roots.items()}
+        names = sorted(os.listdir(d["cpu"]))
+        if sorted(os.listdir(d["cuda"])) != names or not names:
+            fail(f"qa/{split}/camera_movement: different files card vs CPU")
+        for name in names:
+            with open(os.path.join(d["cuda"], name), "rb") as f, \
+                    open(os.path.join(d["cpu"], name), "rb") as g:
+                a, b = f.read(), g.read()
+            if a != b:
+                la, lb = a.splitlines(), b.splitlines()
+                k = next((i for i, (x, y) in enumerate(zip(la, lb))
+                          if x != y), min(len(la), len(lb)))
+                fail(f"qa/{split}/camera_movement/{name}: line {k + 1} "
+                     f"differs card vs CPU")
+            n_files += 1
+    log(f"  demo card vs CPU: visibility.npz equal, {len(tables['cpu']['overlap'])} "
+        f"relation rows (overlap equal; largest gaps {worst}), {n_files} "
+        f"JSONL files byte-equal; {card}")
+    return worst
+
+
+def phase_data_engine(torch, cli, card):
+    """Phase 15: real-scale f64 visibility, the bench corpus through
+    visibility, relations and camera movement, and `demo` card vs CPU."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from multi_spatialmllm_tpu_torch.core.scene import SceneStore
+    from multi_spatialmllm_tpu_torch.core.synthetic import make_scene
+    from multi_spatialmllm_tpu_torch.engines import camera_movement as CM
+    from multi_spatialmllm_tpu_torch.stages import frame_relations as FR
+    from multi_spatialmllm_tpu_torch.stages import visibility as V
+
+    out = {}
+    no_parquet = FR.parquet_unavailable()
+    log(f"  pandas and pyarrow: "
+        f"{'importable' if no_parquet is None else 'missing: ' + no_parquet}")
+    t0 = time.perf_counter()
+    real = make_scene(**REAL_SCENE)
+    log(f"  real-scale scene made in {time.perf_counter() - t0:.1f} s "
+        f"({real.depth_maps.nbytes / 1e6:.1f} MB of depth maps)")
+    vis64, out["real_f64"] = realscale_visibility(torch, np, V, real,
+                                                  np.float64, card)
+    _, out["real_f32"] = realscale_visibility(torch, np, V, real, np.float32,
+                                              card)
+    head = dataclasses.replace(
+        real, image_ids=real.image_ids[:REAL_CPU_IMAGES],
+        extrinsics=real.extrinsics[:REAL_CPU_IMAGES],
+        depth_maps=real.depth_maps[:REAL_CPU_IMAGES])
+    cpu = V.compute_scene_visibility(head, np.float64, device="cpu")
+    if not np.array_equal(vis64[:REAL_CPU_IMAGES], cpu):
+        fail(f"real-scale f64 visibility: card vs CPU differ, first at "
+             f"(image, point) {first_difference(np, vis64[:REAL_CPU_IMAGES], cpu)}")
+    log(f"  real-scale f64 bits card == CPU on the first {REAL_CPU_IMAGES} "
+        f"images ({int(cpu.sum())} visible of {cpu.size})")
+    del real, head, vis64
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        scenes = [corpus_scene(make_scene, i) for i in range(N_CORPUS)]
+        store = SceneStore.write(scenes, os.path.join(tmp, "scenes"))
+        log(f"  bench corpus: {N_CORPUS} scenes made in "
+            f"{time.perf_counter() - t0:.1f} s")
+        V.compute_visibility_batch(scenes[:10], np.float32, batch_size=10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vis = V.compute_visibility_batch(scenes, np.float32, batch_size=10)
+        dt = time.perf_counter() - t0
+        out["visibility_f32_bench"] = N_CORPUS / dt
+        log(f"  visibility f32 batched: {dt:.3f} s, "
+            f"{N_CORPUS / dt:.2f} scenes/s; {card}")
+        FR.build_frame_relations(scenes[:4], visibility=vis,
+                                 dtype=np.float32)
+        t0 = time.perf_counter()
+        relations = FR.build_frame_relations(scenes, visibility=vis,
+                                             dtype=np.float32)
+        dt = time.perf_counter() - t0
+        n_pairs = len(relations["overlap"])
+        out["frame_relations"] = n_pairs / dt
+        log(f"  frame relations: {dt:.3f} s, {n_pairs} pairs, "
+            f"{n_pairs / dt:,.0f} pairs/s; {card}")
+        relations = CM.prepare_relations(relations, store)
+        cfg = CM.CameraMovementConfig()
+        CM.generate_to_jsonl(relations, store, "total_distance", 1000,
+                             os.path.join(tmp, "warmup.jsonl"), cfg)
+        rates = []
+        for _ in range(CM_PASSES):
+            total = 0
+            t0 = time.perf_counter()
+            for qtype in CM_QTYPES:
+                total += CM.generate_to_jsonl(
+                    relations, store, qtype, CM_SAMPLES,
+                    os.path.join(tmp, f"{qtype}_train.jsonl"), cfg)
+            rates.append(total / (time.perf_counter() - t0))
+        out["camera_movement_qa_samples_per_sec"] = sorted(rates)[
+            len(rates) // 2]
+        log(f"  camera movement ({', '.join(CM_QTYPES)}; {CM_SAMPLES} "
+            f"samples each, production config, native emitter): "
+            f"{total} samples a pass, median "
+            f"{out['camera_movement_qa_samples_per_sec']:,.0f} samples/s "
+            f"({[round(r) for r in rates]}); {card}")
+        out["demo"] = demo_card_vs_cpu(np, cli, tmp, card)
+    return out
+
+
 def kernel_entry(name, source, replaces, launches_by_path, err, timing,
                  library_ms):
     """One entry of the `kernels` line: `timing` is (ms, plain ms,
@@ -1756,8 +2037,22 @@ def main(argv=None):
     head(1, f"device: {torch.cuda.get_device_name(0)} "
             f"(count {torch.cuda.device_count()}), torch {torch.__version__}, "
             f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
-    build_all([A.FLASH_FWD, P.PAGED_DECODE, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV,
-               P.PAGED_DECODE_INT8, G.GMM, G.GMM_T, G.TGMM])
+    from concurrent.futures import ThreadPoolExecutor
+
+    from multi_spatialmllm_tpu_torch.ingest import native
+
+    with ThreadPoolExecutor(1) as pool:   # g++ beside the nvcc builds
+        t0 = time.perf_counter()
+        emitter = pool.submit(native.native_available)
+        build_all([A.FLASH_FWD, P.PAGED_DECODE, A.FLASH_BWD_DQ,
+                   A.FLASH_BWD_DKV, P.PAGED_DECODE_INT8, G.GMM, G.GMM_T,
+                   G.TGMM])
+        if not emitter.result():
+            fail(f"the native JSONL emitter did not build: "
+                 f"{native.build_error}")
+        log(f"[2/{N_PHASES}] native JSONL emitter ready "
+            f"({native.library_path()}) {time.perf_counter() - t0:.1f} s "
+            f"after the builds began")
     check_sass(B, "".join(k.build_log for k in (G.GMM, G.GMM_T, G.TGMM)))
     check_k7_sass(B, "".join(k.build_log for k in (P.PAGED_DECODE,
                                                    P.PAGED_DECODE_INT8)))
@@ -1831,6 +2126,12 @@ def main(argv=None):
             torch, M, K, cli, tok, [A.FLASH_FWD, G.GMM, P.PAGED_DECODE_INT8],
             cfg=cfg, pcfg=K.bench_paged_config(kv_dtype="int8"),
             max_images=1, label="bench MoE")
+        torch.cuda.empty_cache()
+    if 15 in phases:
+        head(15, "data engine: real-scale visibility, the bench corpus "
+                 "through visibility, relations and camera movement, and "
+                 "demo card vs CPU")
+        res["data_engine"] = phase_data_engine(torch, cli, card)
         torch.cuda.empty_cache()
     log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 

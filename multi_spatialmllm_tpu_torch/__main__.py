@@ -2,9 +2,16 @@
 
 Commands:
 
-  serve   JSONL serving loop (stdin -> stdout) over the paged batcher
-  train   SFT on a data-mixture meta JSON (one device) -> rolling torch
-          checkpoints
+  demo      synthesize scenes and run the data engine's ported path end to
+            end: visibility, frame relations, camera-movement QA
+  pipeline  the same stages and engine over an existing scene store
+  serve     JSONL serving loop (stdin -> stdout) over the paged batcher
+  train     SFT on a data-mixture meta JSON (one device) -> rolling torch
+            checkpoints
+
+The data-engine commands run the camera-movement engine at the JAX
+pipeline's demo counts; the depth, correspondence, object-perception and
+object-movement engines (and the TAPVid records) are still to come.
 """
 
 from __future__ import annotations
@@ -422,6 +429,61 @@ def cmd_train(args) -> None:
     print(json.dumps({**summary, "devices": 1, "device": str(device)}))
 
 
+# `run_all`'s camera-movement counts in the JAX pipeline (demo scale)
+DEMO_CAMERA_COUNTS = ({"total_distance": 500}, {"total_distance": 50})
+STILL_TO_COME = ("depth_perception", "visual_correspondence",
+                 "object_perception", "object_movement")
+
+
+def _run_data_engine(pipe) -> dict:
+    """The ported path of `run_all`: the L3 stages, then the
+    camera-movement engine at the demo counts."""
+    pipe.visibility()
+    pipe.frame_relations()
+    train, val = DEMO_CAMERA_COUNTS
+    return {"camera_movement": pipe.run_camera_movement(
+        train_counts=train, val_counts=val)}
+
+
+def cmd_demo(args) -> None:
+    """Synthetic scenes -> scene store -> the ported pipeline on
+    `--device`; prints each engine's sample counts (train + val)."""
+    from .core.scene import SceneStore
+    from .core.synthetic import make_scene
+    from .pipeline import PipelineConfig, SpatialEnginePipeline
+
+    scenes = [
+        make_scene(scene_id=f"demo{i:04d}_00", seed=args.seed + i,
+                   n_images=args.images_per_scene,
+                   n_background=args.points_per_scene)
+        for i in range(args.scenes)
+    ]
+    store = SceneStore.write(scenes, os.path.join(args.output, "scenes"))
+    pipe = SpatialEnginePipeline(
+        store, args.output,
+        PipelineConfig(overlap_min=0.1, overlap_max=100.0, interval=5.0),
+        device=args.device)
+    results = _run_data_engine(pipe)
+    summary = {engine: {k: v.n_train + v.n_val for k, v in outs.items()}
+               for engine, outs in results.items()}
+    print(json.dumps(summary, indent=2, default=str))
+
+
+def cmd_pipeline(args) -> None:
+    """The ported pipeline over an existing scene store on `--device`."""
+    from .core.scene import SceneStore
+    from .pipeline import PipelineConfig, SpatialEnginePipeline
+
+    if args.trace_dir:
+        raise NotImplementedError(
+            "--trace-dir is not ported yet (ROADMAP.md, queue 1 item 18)")
+    store = SceneStore(args.scenes)
+    pipe = SpatialEnginePipeline(store, args.output, PipelineConfig(),
+                                 device=args.device)
+    results = _run_data_engine(pipe)
+    print(json.dumps({k: str(v) for k, v in results.items()}, indent=2))
+
+
 def _add_moe_flags(p, group: bool) -> None:
     """The routed-MoE flags of the JAX CLI (`--moe-group`, GShard groups,
     matters to training only)."""
@@ -440,6 +502,29 @@ def _add_moe_flags(p, group: bool) -> None:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(prog="multi_spatialmllm_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+    later = ", ".join(STILL_TO_COME)
+
+    p = sub.add_parser("demo",
+                       help="synthetic scenes through the data engine's "
+                            f"ported path (camera movement; still to come: "
+                            f"{later})")
+    p.add_argument("--output", default="./msm_demo")
+    p.add_argument("--scenes", type=int, default=3)
+    p.add_argument("--images-per-scene", type=int, default=16)
+    p.add_argument("--points-per-scene", type=int, default=6000)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_demo)
+
+    p = sub.add_parser("pipeline",
+                       help="the data engine's ported path over a scene "
+                            f"store (still to come: {later})")
+    p.add_argument("--scenes", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--trace-dir", default=None,
+                   help="not ported yet: raises NotImplementedError")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_pipeline)
 
     p = sub.add_parser("serve",
                        help="JSONL serving loop (stdin -> stdout) over "

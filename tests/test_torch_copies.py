@@ -1,0 +1,106 @@
+"""The port's copies of the JAX package's host code: each byte-identical
+copy equals its original, and each edited copy differs from its original
+only in the lines named here (line numbers of the original, with why)."""
+
+import difflib
+import os
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX, PORT = "multi_spatialmllm_tpu", "multi_spatialmllm_tpu_torch"
+
+IDENTICAL = [
+    "core/io.py",
+    "core/scene.py",
+    "core/synthetic.py",
+    "stages/manifest.py",
+    "utils/logging.py",
+    "engines/__init__.py",
+    "engines/base.py",
+    "engines/sampling.py",
+    "engines/templates/__init__.py",
+    "engines/templates/camera_movement.py",
+    "engines/fast_jsonl.py",
+    "ingest/__init__.py",
+    "ingest/native/src/jsonl_emit.cpp",
+    "ingest/native/src/msm_native.cpp",
+    "ingest/native/src/jpeg_encode.cpp",
+    "ingest/native/src/ryu_tables.h",
+]
+
+# original line ranges (inclusive) an edited copy may change
+EDITED = {
+    "core/rng.py": [
+        (1, 10),     # the module docstring names the copy
+        (35, 43),    # jax_key, which imports jax, is left out
+    ],
+    "ingest/native/__init__.py": [
+        (12, 16),    # imports for the digest and the temporary file
+        (19, 38),    # the library builds at first use under a hashed name
+    ],
+    "ingest/native/build.sh": [
+        (2, 10),     # an optional output path; the g++ flags are kept
+    ],
+    "engines/camera_movement.py": [
+        (3, 3),      # the module docstring names the port
+        (24, 29),    # torch instead of jax
+        (63, 63),    # no jax.jit on _batched_displacement
+        (70, 70),    # device: a bool or a torch device name
+        (78, 98),    # the device path runs torch ops on that device
+    ],
+}
+
+
+def _read(pkg, rel):
+    with open(os.path.join(REPO, pkg, rel), "rb") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("rel", IDENTICAL)
+def test_identical_copy(rel):
+    assert _read(PORT, rel) == _read(JAX, rel)
+
+
+@pytest.mark.parametrize("rel", sorted(EDITED))
+def test_edited_copy_differs_only_in_named_lines(rel):
+    a = _read(JAX, rel).decode().splitlines()
+    b = _read(PORT, rel).decode().splitlines()
+    allowed = EDITED[rel]
+    sm = difflib.SequenceMatcher(a=a, b=b, autojunk=False)
+    changed = 0
+    for tag, i1, i2, _, _ in sm.get_opcodes():
+        if tag == "equal":
+            continue
+        changed += 1
+        # original lines i1+1..i2; an insertion sits between i1 and i1+1
+        lo, hi = (i1 + 1, i2) if i2 > i1 else (i1, i1 + 1)
+        assert any(a_lo <= lo and hi <= a_hi for a_lo, a_hi in allowed), (
+            f"{rel}: lines {lo}-{hi} of the original changed outside "
+            f"{allowed}")
+    assert changed, f"{rel} is identical: move it to IDENTICAL"
+
+
+def test_native_library_name_follows_sources_and_flags(tmp_path):
+    """The port's loader names its build by a digest of the sources and
+    build.sh: an edit to either names a new library; the JAX package's
+    prebuilt library is never the one loaded."""
+    import shutil
+
+    from multi_spatialmllm_tpu_torch.ingest import native
+
+    src = os.path.join(REPO, PORT, "ingest", "native")
+    copy = tmp_path / "native"
+    shutil.copytree(src, copy, ignore=shutil.ignore_patterns("_build"))
+    base = native.library_path()
+    assert native.library_path(str(copy)) == base
+    assert os.path.dirname(base).endswith(os.path.join("native", "_build"))
+    sh = copy / "build.sh"
+    sh.write_text(sh.read_text().replace("-O3", "-O2"))
+    assert native.library_path(str(copy)) != base
+    shutil.copy(os.path.join(src, "build.sh"), sh)
+    cpp = copy / "src" / "jsonl_emit.cpp"
+    cpp.write_bytes(cpp.read_bytes() + b"\n")
+    assert native.library_path(str(copy)) != base
+    assert native.native_available(), native.build_error
+    assert native.build() == base and os.path.exists(base)

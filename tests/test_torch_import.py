@@ -1,7 +1,9 @@
 """Import boundary and build rules of the port: importing every module of
-multi_spatialmllm_tpu_torch loads neither jax nor the JAX package, and its
+multi_spatialmllm_tpu_torch loads neither jax nor the JAX package, its
 `train` and `serve` commands run end to end with that package made
-unimportable; a kernel build on a host without CUDA raises instead of
+unimportable, and its `demo` command runs the data engine with the card's
+installation simulated (no jax, flax, optax, orbax, cv2, pandas, pyarrow
+or JAX package); a kernel build on a host without CUDA raises instead of
 falling back; a library's name changes with its shared headers; a
 misaligned operand raises before any launch; and chip_smoke.py refuses to
 run (non-zero exit, no result line) without a CUDA device or outside the
@@ -29,7 +31,23 @@ PORT_MODULES = [
     "multi_spatialmllm_tpu_torch",
     "multi_spatialmllm_tpu_torch.__main__",
     "multi_spatialmllm_tpu_torch.core",
+    "multi_spatialmllm_tpu_torch.core.geometry",
+    "multi_spatialmllm_tpu_torch.core.io",
     "multi_spatialmllm_tpu_torch.core.rng",
+    "multi_spatialmllm_tpu_torch.core.scene",
+    "multi_spatialmllm_tpu_torch.core.synthetic",
+    "multi_spatialmllm_tpu_torch.engines.base",
+    "multi_spatialmllm_tpu_torch.engines.camera_movement",
+    "multi_spatialmllm_tpu_torch.engines.fast_jsonl",
+    "multi_spatialmllm_tpu_torch.engines.sampling",
+    "multi_spatialmllm_tpu_torch.engines.templates",
+    "multi_spatialmllm_tpu_torch.engines.templates.camera_movement",
+    "multi_spatialmllm_tpu_torch.ingest.native",
+    "multi_spatialmllm_tpu_torch.pipeline",
+    "multi_spatialmllm_tpu_torch.stages.frame_relations",
+    "multi_spatialmllm_tpu_torch.stages.manifest",
+    "multi_spatialmllm_tpu_torch.stages.visibility",
+    "multi_spatialmllm_tpu_torch.utils.logging",
     "multi_spatialmllm_tpu_torch.ops._build",
     "multi_spatialmllm_tpu_torch.ops.attention",
     "multi_spatialmllm_tpu_torch.ops.grouped_matmul",
@@ -197,6 +215,58 @@ def test_unsupported_device_raises_not_falls_back():
                                   torch.empty(1, device="meta"),
                                   torch.empty(1, 2, 32, device="meta"),
                                   torch.empty(1, 2, 32, device="meta"))
+
+
+# the card's installation: what it lacks cannot be imported, and any
+# attempt at jax or the JAX package is reported
+_CARD_BLOCKED = BLOCKED + ("cv2", "pandas", "pyarrow")
+_CARD = textwrap.dedent(f"""
+    import importlib.abc, json, sys
+
+    tried = []
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            top = name.split(".")[0]
+            if top in {_CARD_BLOCKED!r}:
+                tried.append(top)
+                raise ImportError("No module named " + repr(name))
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    from multi_spatialmllm_tpu_torch.__main__ import main
+    main(sys.argv[1:])
+    print(json.dumps({{"tried": sorted(set(tried)), "loaded": sorted(
+        m for m in sys.modules if m.split(".")[0] in {BLOCKED!r})}}))
+""")
+
+
+def test_demo_runs_with_the_cards_installation(tmp_path):
+    """`demo --device cpu` at a tiny size with jax, flax, optax, orbax,
+    cv2, pandas, pyarrow and the JAX package unimportable: it finishes,
+    writes its camera-movement JSONL, records that no relations parquet
+    was written, and never reaches for jax or the JAX package."""
+    out = tmp_path / "demo"
+    proc = subprocess.run(
+        [sys.executable, "-c", _CARD, "demo", "--device", "cpu", "--output",
+         str(out), "--scenes", "2", "--images-per-scene", "8",
+         "--points-per-scene", "1500"],
+        env=_env(), cwd=tmp_path, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    report = json.loads(proc.stdout.splitlines()[-1])
+    bad = {"jax", "jaxlib", "flax", "optax", "orbax", "multi_spatialmllm_tpu"}
+    assert not bad & set(report["tried"]) and not report["loaded"], report
+    qa = out / "qa"
+    for split, name in (("training_data", "total_distance_train.jsonl"),
+                        ("evaluation_data", "total_distance_val.jsonl")):
+        lines = (qa / split / "camera_movement" / name).read_text()
+        assert lines and all(json.loads(ln)["image"]
+                             for ln in lines.splitlines())
+    assert not (out / "indices" / "frame_relations.parquet").exists()
+    rel = [json.loads(ln) for ln in (out / "manifest.jsonl").read_text()
+           .splitlines() if '"frame_relations"' in ln]
+    assert rel and rel[0]["outputs"]["parquet"] is None
 
 
 def _result_lines(stdout: str):
