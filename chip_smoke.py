@@ -113,10 +113,26 @@ result line):
    for total_distance, displacement_vector, yaw_angle and x_movement at
    200,000 samples each with the production config (samples/s, median of
    3 passes). Then `demo --scenes 2 --images-per-scene 12
-   --points-per-scene 4000` on the card and on the CPU: visibility.npz
-   equal, relation overlap equal and distance/yaw/pitch within
-   DIST_ULP/ANGLE_ULP, every camera-movement JSONL byte-equal. Each
+   --points-per-scene 4000` (`run_all` without TAPVid) on the card and on
+   the CPU, in this process: visibility.npz equal, relation overlap equal
+   and distance/yaw/pitch within DIST_ULP/ANGLE_ULP, every file under qa/
+   (the JSONL of every ScanNet engine and the annotated JPEGs, which the
+   card writes with no cv2) and every index pickle byte-equal. Each
    number printed beside the card's name and power limit.
+16. ScanNet engines (torch ops on the card, no kernel of their own): on
+   the real-scale scene, object visibility's counts (M3) and coverage's
+   intervals (M4) card == CPU bit for bit with equal dtypes over every
+   image, each device program alone timed by CUDA events with its inputs
+   resident beside its bytes bound and its peak device bytes; the
+   bench's `object_visibility_realscale`, `coverage_search_realscale`
+   (s/scene) and `object_perception` (samples/s) on that scene; then at
+   bench.py's configurations `depth_estimation_coor`,
+   `depth_comparison_coor` and `correspondence_coor` (50,000, production
+   sampler) on the 40-scene corpus, and `depth_estimation_dot`,
+   `depth_comparison_dot` and `correspondence_dot_multichoice` on two
+   annotated scenes (48 images of 480 x 640, depth 120 x 160) after a
+   warm pass: host clock, median of STAGE_PASSES passes, each beside the
+   card's name and power limit.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -148,7 +164,7 @@ N_SERVE = 16
 TRAIN_LAYERS = 8         # phase 9: LLM depth cut from 32 (see PERF.md)
 # phase 13: the train CLI's --max-tiles and --tiles-per-image defaults
 MOE_MAX_TILES, MOE_TILES_PER_IMAGE = 14, 6
-N_PHASES = 15
+N_PHASES = 16
 # phase 9's steps on one repeated batch run a fresh optimizer on the train
 # CLI's default schedule (--lr 1e-5, --warmup 100, --steps 1000)
 REPEAT_LR, REPEAT_WARMUP, REPEAT_TOTAL = 1e-5, 100, 1000
@@ -1833,9 +1849,18 @@ def compare_relations(np, card_t, cpu_t):
     return worst
 
 
+def first_differing_line(a, b):
+    la, lb = a.splitlines(), b.splitlines()
+    return next((i for i, (x, y) in enumerate(zip(la, lb)) if x != y),
+                min(len(la), len(lb))) + 1
+
+
 def demo_card_vs_cpu(np, cli, root, card):
-    """`demo` on the card and on the CPU: visibility.npz equal, relation
-    columns within their limits, every camera-movement JSONL byte-equal."""
+    """`demo` (`run_all` without TAPVid) on the card and on the CPU, in
+    this one process (the synthetic frames are seeded from Python's string
+    hash): visibility.npz equal, relation columns within their limits,
+    every file under qa/ (JSONL and annotated JPEG) and every pickle under
+    indices/ byte-equal."""
     from multi_spatialmllm_tpu_torch.core.scene import SceneStore
     from multi_spatialmllm_tpu_torch.pipeline import (
         PipelineConfig,
@@ -1867,28 +1892,36 @@ def demo_card_vs_cpu(np, cli, root, card):
             device=dev)
         tables[dev] = pipe.frame_relations()
     worst = compare_relations(np, tables["cuda"], tables["cpu"])
-    n_files = 0
-    for split in ("training_data", "evaluation_data"):
-        d = {dev: os.path.join(r, "qa", split, "camera_movement")
-             for dev, r in roots.items()}
-        names = sorted(os.listdir(d["cpu"]))
-        if sorted(os.listdir(d["cuda"])) != names or not names:
-            fail(f"qa/{split}/camera_movement: different files card vs CPU")
-        for name in names:
-            with open(os.path.join(d["cuda"], name), "rb") as f, \
-                    open(os.path.join(d["cpu"], name), "rb") as g:
+    counts = {"jsonl": 0, "jpg": 0, "pkl": 0}
+    for sub, keep in (("qa", lambda f: True),
+                      ("indices", lambda f: f.endswith(".pkl"))):
+        files = {}
+        for dev, r in roots.items():
+            top = os.path.join(r, sub)
+            files[dev] = sorted(
+                os.path.relpath(os.path.join(d, f), top)
+                for d, _, fs in os.walk(top) for f in fs if keep(f))
+        if files["cuda"] != files["cpu"] or not files["cpu"]:
+            fail(f"{sub}/: different files card vs CPU: "
+                 f"{sorted(set(files['cuda']) ^ set(files['cpu']))[:5]}")
+        for rel in files["cpu"]:
+            with open(os.path.join(roots["cuda"], sub, rel), "rb") as f, \
+                    open(os.path.join(roots["cpu"], sub, rel), "rb") as g:
                 a, b = f.read(), g.read()
             if a != b:
-                la, lb = a.splitlines(), b.splitlines()
-                k = next((i for i, (x, y) in enumerate(zip(la, lb))
-                          if x != y), min(len(la), len(lb)))
-                fail(f"qa/{split}/camera_movement/{name}: line {k + 1} "
-                     f"differs card vs CPU")
-            n_files += 1
+                where = (f"line {first_differing_line(a, b)}"
+                         if rel.endswith(".jsonl") else
+                         f"{len(a)} vs {len(b)} bytes")
+                fail(f"{sub}/{rel}: differs card vs CPU ({where})")
+            ext = rel.rsplit(".", 1)[-1]
+            counts[ext] = counts.get(ext, 0) + 1
     log(f"  demo card vs CPU: visibility.npz equal, {len(tables['cpu']['overlap'])} "
-        f"relation rows (overlap equal; largest gaps {worst}), {n_files} "
-        f"JSONL files byte-equal; {card}")
-    return worst
+        f"relation rows (overlap equal; largest gaps {worst}), byte-equal: "
+        f"{counts['jsonl']} JSONL, {counts['jpg']} JPEG and {counts['pkl']} "
+        f"index pickles; {card}")
+    if not (counts["jsonl"] and counts["jpg"] and counts["pkl"] == 4):
+        fail(f"demo card vs CPU compared too little: {counts}")
+    return {**worst, "files": counts}
 
 
 def phase_data_engine(torch, cli, card):
@@ -1978,6 +2011,244 @@ def phase_data_engine(torch, cli, card):
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 16: the rest of the ScanNet engines (object visibility M3, coverage
+# M4 and its host search, object perception; depth, correspondence)
+# --------------------------------------------------------------------------
+
+STAGE_PASSES = 3         # host-clock passes of a stage or engine (median)
+ANN_SCENE = dict(n_images=48, n_background=4000, n_objects=4,
+                 image_hw=(480, 640), depth_hw=(120, 160), n_invalid_poses=0)
+CORR_COOR_SAMPLES = 50_000
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def device_peak(torch, fn):
+    """Peak device bytes of `fn()` over what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def m3_m4_realscale(torch, np, real, vis, card):
+    """M3 (object counts) and M4 (coverage intervals) on the real-scale
+    scene: card == CPU bit for bit with equal dtypes, each device program
+    alone timed by CUDA events with its inputs resident, beside its bytes
+    bound, and the peak device bytes of each."""
+    from multi_spatialmllm_tpu_torch.stages import coverage as CV
+    from multi_spatialmllm_tpu_torch.stages import object_visibility as OV
+
+    t0 = time.perf_counter()
+    card_out = {"M3": (OV.object_image_counts(real, vis),),
+                "M4": CV.object_coverage_intervals(real, vis)}
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_out = {"M3": (OV.object_image_counts(real, vis, device="cpu"),),
+               "M4": CV.object_coverage_intervals(real, vis, device="cpu")}
+    cpu_s = time.perf_counter() - t0
+    for name, outs in cpu_out.items():
+        for k, (a, b) in enumerate(zip(card_out[name], outs)):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                fail(f"{name} output {k}: {a.dtype}{a.shape} on the card, "
+                     f"{b.dtype}{b.shape} on the CPU")
+            if not np.array_equal(a, b):
+                fail(f"{name} output {k}: card vs CPU differ, first at "
+                     f"{first_difference(np, a, b)}")
+    log(f"  M3 counts {card_out['M3'][0].dtype}{card_out['M3'][0].shape}, "
+        f"M4 mins/maxs {card_out['M4'][0].dtype}{card_out['M4'][0].shape} "
+        f"and counts {card_out['M4'][2].dtype}{card_out['M4'][2].shape}: "
+        f"card == CPU bit for bit on all {real.num_images} images "
+        f"(card {card_s:.3f} s, CPU {cpu_s:.3f} s, both host clock with "
+        f"the upload and fetch)")
+    dev = torch.device("cuda")
+    packed = torch.from_numpy(np.packbits(vis, axis=1)).to(dev)
+    ids = torch.from_numpy(real.instance_ids.astype(np.int32)).to(dev)
+    coords = torch.from_numpy(np.ascontiguousarray(
+        real.points_aligned[:, :3], dtype=np.float64)).to(dev)
+    n, segs, i = vis.shape[1], real.num_objects + 1, vis.shape[0]
+    progs = {
+        "M3": (lambda: OV._count_kernel(packed, ids, n, segs),
+               nbytes(packed, ids) + i * segs * 4),
+        "M4": (lambda: CV._interval_fn(packed, ids, coords, n, segs),
+               nbytes(packed, ids, coords) + 2 * i * 3 * segs * 8
+               + i * segs * 4),
+    }
+    out = {"card_s": card_s, "cpu_s": cpu_s}
+    for name, (fn, n_bytes) in progs.items():
+        peak = device_peak(torch, fn)
+        t = cuda_ms(torch, fn, iters=5, warmup=1)
+        b_ms = n_bytes / PEAK_BYTES * 1e3
+        out[name] = {"ms": t, "bound_ms": b_ms, "bound_by": "bytes",
+                     "bytes": n_bytes, "peak_bytes": peak}
+        log(f"  {name} device program alone: {t:.4f} ms (CUDA events, "
+            f"inputs resident), bytes bound {b_ms:.4f} ms ({n_bytes / 1e6:.2f}"
+            f" MB at {PEAK_BYTES / 1e12:.2f} TB/s; {b_ms / t:.1%} of it), "
+            f"peak {peak / 2**20:.1f} MiB over the allocated base; {card}")
+    return out
+
+
+def timed_passes(fn, passes=STAGE_PASSES):
+    """Host seconds of `passes` calls of fn(i) and the last result."""
+    times, res = [], None
+    for k in range(passes):
+        t0 = time.perf_counter()
+        res = fn(k)
+        times.append(time.perf_counter() - t0)
+    return times, res
+
+
+def phase_scannet_engines(torch, card):
+    """Phase 16: M3/M4 on the real-scale scene (card vs CPU, device ms,
+    bounds, peak bytes) and the bench's object-visibility, coverage and
+    object-perception stages on it; then the depth and correspondence
+    engines at bench.py's configurations. Rates under bench.py's keys."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from multi_spatialmllm_tpu_torch.core.scene import SceneStore
+    from multi_spatialmllm_tpu_torch.core.synthetic import make_scene
+    from multi_spatialmllm_tpu_torch.engines import depth_perception as DP
+    from multi_spatialmllm_tpu_torch.engines import object_perception as OP
+    from multi_spatialmllm_tpu_torch.engines import visual_correspondence as VC
+    from multi_spatialmllm_tpu_torch.engines.annotate import (
+        SyntheticImageProvider,
+    )
+    from multi_spatialmllm_tpu_torch.stages import coverage as CV
+    from multi_spatialmllm_tpu_torch.stages import frame_relations as FR
+    from multi_spatialmllm_tpu_torch.stages import object_visibility as OV
+    from multi_spatialmllm_tpu_torch.stages import visibility as V
+
+    out, rates = {}, {}
+
+    def rate(key, n, times, unit="samples/s"):
+        per = [n / t for t in times]
+        rates[key] = median(per)
+        log(f"  {key}: {n} a pass, median {rates[key]:,.1f} {unit} "
+            f"({[round(r, 1) for r in per]}); {card}")
+
+    def seconds(key, times):
+        rates[key] = median(times)
+        log(f"  {key}: median {rates[key]:.4f} s/scene "
+            f"({[round(t, 4) for t in times]}); {card}")
+
+    real = make_scene(**REAL_SCENE)
+    vis = V.compute_scene_visibility(real, np.float64)
+    out["m3_m4"] = m3_m4_realscale(torch, np, real, vis, card)
+    vmap = {real.scene_id: vis}
+    OV.build_object_visibility([real], visibility=vmap)       # warm
+    times, ovis = timed_passes(
+        lambda k: OV.build_object_visibility([real], visibility=vmap))
+    seconds("object_visibility_realscale", times)
+    CV.build_object_coverage([real], ovis, visibility=vmap)   # warm
+    times, cov = timed_passes(
+        lambda k: CV.build_object_coverage([real], ovis, visibility=vmap))
+    seconds("coverage_search_realscale", times)
+    with tempfile.TemporaryDirectory() as tmp:
+        real_store = SceneStore.write([real], os.path.join(tmp, "real"))
+        cov_by_dim = dict(zip(("height", "length", "width"), cov))
+        OP.generate(real_store, cov_by_dim, os.path.join(tmp, "op_w"),
+                    "train")
+        times, op_out = timed_passes(lambda k: OP.generate(
+            real_store, cov_by_dim, os.path.join(tmp, f"op{k}"), "train"))
+        rate("object_perception", sum(o.n_train for o in op_out.values()),
+             times)
+        del real, vis, vmap, real_store
+        torch.cuda.empty_cache()
+
+        # the 40-scene bench corpus (f32 visibility, as bench.py builds it)
+        scenes = [corpus_scene(make_scene, i) for i in range(N_CORPUS)]
+        store = SceneStore.write(scenes, os.path.join(tmp, "scenes"))
+        cvis = V.compute_visibility_batch(scenes, np.float32, batch_size=10)
+        vindex = V.VisibilityIndex()
+        for s in scenes:
+            vindex.add_scene(s.scene_id, s.image_ids, cvis[s.scene_id])
+        relations = FR.build_frame_relations(scenes, visibility=cvis,
+                                             dtype=np.float32)
+        DP.generate_depth_estimation_to_jsonl(
+            store, vindex, os.path.join(tmp, "de_w.jsonl"), "coor",
+            DP.DepthEngineConfig(all_max_samples=500))
+        times, res = timed_passes(lambda k: DP.generate_depth_estimation_to_jsonl(
+            store, vindex, os.path.join(tmp, "de.jsonl"), "coor",
+            DP.DepthEngineConfig(max_n_points_per_image=5)))
+        rate("depth_estimation_coor", res.n_train, times)
+        DP.generate_depth_comparison_to_jsonl(
+            store, vindex, os.path.join(tmp, "dcc_w.jsonl"), "coor",
+            DP.DepthEngineConfig(all_max_samples=500,
+                                 max_n_points_per_image=2))
+        times, res = timed_passes(lambda k: DP.generate_depth_comparison_to_jsonl(
+            store, vindex, os.path.join(tmp, "dcc.jsonl"), "coor",
+            DP.DepthEngineConfig(max_n_points_per_image=4)))
+        rate("depth_comparison_coor", res.n_train, times)
+        vc_cfg = VC.CorrespondenceConfig()   # production 6-35 / 1.0
+        VC.generate_coor_to_coor_to_jsonl(
+            relations, store, vindex, os.path.join(tmp, "vc_w.jsonl"), 500,
+            vc_cfg)
+        times, res = timed_passes(lambda k: VC.generate_coor_to_coor_to_jsonl(
+            relations, store, vindex, os.path.join(tmp, "vc.jsonl"),
+            CORR_COOR_SAMPLES, vc_cfg))
+        rate("correspondence_coor", res.n_train, times)
+        del scenes, store, cvis, vindex, relations
+
+        # two annotated scenes at the ScanNet export's 480x640 frames
+        ann = [make_scene(scene_id=f"annot{i:04d}_00", seed=300 + i,
+                          **ANN_SCENE) for i in range(2)]
+        ann_store = SceneStore.write(ann, os.path.join(tmp, "ann"))
+        avis = V.compute_visibility_batch(ann, np.float32, batch_size=2)
+        aindex = V.VisibilityIndex()
+        for s in ann:
+            aindex.add_scene(s.scene_id, s.image_ids, avis[s.scene_id])
+        arel = FR.build_frame_relations(ann, visibility=avis,
+                                        dtype=np.float32)
+        provider = SyntheticImageProvider((480, 640))
+
+        def annotated(key, fn):
+            """A warm pass (it prepares every source frame once), then the
+            steady passes, each into a fresh image directory."""
+            fn("w")
+            times, res = [], None
+            for k in range(STAGE_PASSES):
+                t0 = time.perf_counter()
+                res = fn(k)
+                times.append(time.perf_counter() - t0)
+                shutil.rmtree(os.path.join(tmp, f"img_{key}_{k}"))
+            shutil.rmtree(os.path.join(tmp, f"img_{key}_w"))
+            rate(key, res.n_train, times)
+
+        annotated("depth_estimation_dot",
+                  lambda k: DP.generate_depth_estimation_to_jsonl(
+                      ann_store, aindex, os.path.join(tmp, f"dd{k}.jsonl"),
+                      "dot", DP.DepthEngineConfig(max_n_points_per_image=4),
+                      image_provider=provider,
+                      image_output_dir=os.path.join(
+                          tmp, f"img_depth_estimation_dot_{k}")))
+        annotated("depth_comparison_dot",
+                  lambda k: DP.generate_depth_comparison_to_jsonl(
+                      ann_store, aindex, os.path.join(tmp, f"dc{k}.jsonl"),
+                      "dot", DP.DepthEngineConfig(max_n_points_per_image=4),
+                      image_provider=provider,
+                      image_output_dir=os.path.join(
+                          tmp, f"img_depth_comparison_dot_{k}")))
+        vcd_cfg = VC.CorrespondenceConfig(overlap_min=0.1, overlap_max=100.0,
+                                          interval=5.0)
+        annotated("correspondence_dot_multichoice",
+                  lambda k: VC.generate_dot_to_multichoice_to_jsonl(
+                      arel, ann_store, aindex,
+                      os.path.join(tmp, f"vcd{k}.jsonl"), 400,
+                      os.path.join(
+                          tmp, f"img_correspondence_dot_multichoice_{k}"),
+                      image_provider=provider, config=vcd_cfg))
+    out["rates"] = rates
+    return out
+
+
 def kernel_entry(name, source, replaces, launches_by_path, err, timing,
                  library_ms):
     """One entry of the `kernels` line: `timing` is (ms, plain ms,
@@ -2004,7 +2275,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", type=int, nargs="*",
                         default=list(range(3, N_PHASES + 1)),
-                        help="phases to run after the device and the build")
+                        help=f"phases to run after the device and the "
+                             f"build (3-{N_PHASES})")
     phases = set(parser.parse_args(argv).phases)
     # fewer fragments for the training phases' large, short-lived tensors
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -2132,6 +2404,14 @@ def main(argv=None):
                  "through visibility, relations and camera movement, and "
                  "demo card vs CPU")
         res["data_engine"] = phase_data_engine(torch, cli, card)
+        torch.cuda.empty_cache()
+    if 16 in phases:
+        head(16, "ScanNet engines: M3/M4 on the real-scale scene, card vs "
+                 "CPU, and the object-visibility, coverage, object-"
+                 "perception, depth and correspondence rates")
+        res["scannet"] = phase_scannet_engines(torch, card)
+        log(f"  rates under bench.py's keys: "
+            f"{json.dumps(res['scannet']['rates'])}; {card}")
         torch.cuda.empty_cache()
     log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 

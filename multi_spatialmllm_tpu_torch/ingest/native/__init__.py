@@ -205,17 +205,23 @@ def jpeg_available() -> bool:
 
 
 def jpeg_encode(bgr: np.ndarray, quality: int = 95) -> bytes | None:
-    """Full encode of a [H, W, 3] uint8 BGR image; None if unavailable."""
+    """Full encode of a [H, W, 3] uint8 BGR image; None if unavailable.
+    An output buffer the encoder reports short is retried at the size it
+    reports."""
     lib = _load()
     if lib is None or not lib._has_jpeg:
         return None
     img = np.ascontiguousarray(bgr)
     h, w = img.shape[:2]
     cap = h * w * 4 + (1 << 16)
-    out = np.empty(cap, np.uint8)
-    n = lib.msm_jpeg_encode(img.ctypes.data, h, w, quality,
-                            out.ctypes.data, cap)
-    if n <= 0:
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = lib.msm_jpeg_encode(img.ctypes.data, h, w, quality,
+                                out.ctypes.data, cap)
+        if n >= 0:
+            break
+        cap = -n   # short: the encoder reports the size it needs
+    if n == 0:
         return None
     return out[:n].tobytes()
 

@@ -1,13 +1,16 @@
 """The MultiSPA data-engine pipeline on the card: the port of
-multi_spatialmllm_tpu/pipeline.py for its main path, L2 -> L3 -> L4 (a
-scene store, the visibility index, the pairwise frame relations, the
-camera-movement QA engine), with manifest-based resume and structured
+multi_spatialmllm_tpu/pipeline.py for the ScanNet engines, L2 -> L3 -> L4
+(a scene store; the visibility index, the pairwise frame relations, object
+visibility and coverage; the camera-movement, depth, correspondence and
+object-perception QA engines), with manifest-based resume and structured
 logging. Artifact layout under `output_root`, as the JAX pipeline's:
 
     indices/visibility.npz            packed visibility index
     indices/visibility.parquet        reference-dialect export (optional)
     indices/frame_relations.parquet   (+ _nonzero companion)
-    qa/<split>/camera_movement/...jsonl
+    indices/object_visibility.pkl
+    indices/coverage_{dim}.pkl
+    qa/<split>/<engine>/...jsonl      QA outputs (+ annotated images/)
     manifest.jsonl                    stage-unit completion records
     events.jsonl                      stage events and counters
 
@@ -16,9 +19,8 @@ Where pandas or pyarrow is missing, the relations parquet is not written:
 the manifest unit records `"parquet": null` and events.jsonl says why;
 the QA output does not depend on it.
 
-Still to come (ROADMAP.md): the object-visibility, coverage, depth,
-correspondence, object-perception and object-movement engines and
-`run_all`, and the hybrid visibility dtype.
+Still to come (ROADMAP.md): the TAPVid object-movement engines (so
+`run_all` refuses TAPVid records) and the hybrid visibility dtype.
 """
 
 from __future__ import annotations
@@ -28,14 +30,14 @@ import os
 
 import numpy as np
 
+from .core.io import dump_pickle, load_pickle
 from .core.scene import SceneStore
+from .stages import coverage as cov
 from .stages.frame_relations import build_frame_relations, parquet_unavailable
 from .stages.manifest import Manifest, config_hash
+from .stages.object_visibility import build_object_visibility
 from .stages.visibility import VisibilityIndex, compute_scene_visibility
 from .utils.logging import StageLogger
-
-# coverage.TOLERANCE of the JAX package (its stage is not ported yet)
-COVERAGE_TOLERANCE = 0.1
 
 
 @dataclasses.dataclass
@@ -47,7 +49,7 @@ class PipelineConfig:
     overlap_min: float = 6.0
     overlap_max: float = 35.0
     interval: float = 1.0
-    coverage_tolerance: float = COVERAGE_TOLERANCE
+    coverage_tolerance: float = cov.TOLERANCE
     seed: int = 0
 
 
@@ -143,13 +145,55 @@ class SpatialEnginePipeline:
         self._relations = table
         return table
 
+    def object_visibility(self) -> dict:
+        path = os.path.join(self.root, "indices", "object_visibility.pkl")
+        cfg = {"dtype": self.config.dtype}
+        if self.manifest.is_done("object_visibility", "all",
+                                 config_hash(cfg)) and os.path.exists(path):
+            return load_pickle(path)
+        vis_index = self.visibility()
+        vis_map = {sid: vis_index.matrix(sid) for sid in
+                   vis_index.scene_ids()}
+        result = build_object_visibility(
+            self.store, output_pkl=path,
+            warning_path=os.path.join(self.root, "indices",
+                                      "object_visibility_warning.txt"),
+            visibility=vis_map, device=self.device)
+        self.manifest.mark_done("object_visibility", "all",
+                                config_hash(cfg), {"path": path})
+        return result
+
+    def coverage(self) -> dict[str, dict]:
+        paths = {dim: os.path.join(self.root, "indices",
+                                   f"coverage_{dim}.pkl")
+                 for dim in ("height", "length", "width")}
+        cfg = {"tolerance": self.config.coverage_tolerance,
+               "seed": self.config.seed}
+        if self.manifest.is_done("coverage", "all", config_hash(cfg)) and \
+                all(os.path.exists(p) for p in paths.values()):
+            return {dim: load_pickle(p) for dim, p in paths.items()}
+        ov = self.object_visibility()
+        vis_index = self.visibility()
+        vis_map = {sid: vis_index.matrix(sid) for sid in
+                   vis_index.scene_ids()}
+        h, l, w = cov.build_object_coverage(
+            self.store, ov, visibility=vis_map, seed=self.config.seed,
+            tolerance=self.config.coverage_tolerance, device=self.device)
+        result = {"height": h, "length": l, "width": w}
+        for dim, p in paths.items():
+            dump_pickle(result[dim], p)
+        self.manifest.mark_done("coverage", "all", config_hash(cfg),
+                                {k: v for k, v in paths.items()})
+        return result
+
     # ------------------------------------------------------------------
     # L4 engines
     # ------------------------------------------------------------------
 
     # Every engine writes the reference's split layout under qa/:
     #   qa/training_data/<engine>/...    qa/evaluation_data/<engine>/...
-    # (e.g. camera_movement_engine_train_val.py:406-407).
+    # (e.g. depth_estimation_coor_engine.py:318-322,
+    # camera_movement_engine_train_val.py:406-407).
 
     def _train_dir(self, engine: str) -> str:
         return os.path.join(self.root, "qa", "training_data", engine)
@@ -222,3 +266,177 @@ class SpatialEnginePipeline:
                 "engine.camera_movement", qtype,
                 {"cfg": cfg, "n": count, "n_val": n_val}, run)
         return out
+
+    def run_depth_perception(self, all_max_samples=1000,
+                             eval_max_samples=None,
+                             dot_max_samples=None, annotate_dots=True,
+                             points_per_image=None):
+        """All four depth engines, train + eval files each (the reference
+        runs every engine twice: generate_qa_training_data then
+        generate_qa_eval_data, e.g. depth_estimation_coor_engine.py
+        :355-364). Dot variants write annotated JPEGs next to their
+        JSONL (reference depth_estimation_dot_engine.py:162-173) and
+        take their own sample budget (`dot_max_samples`) so volume
+        campaigns can scale the coor engines past the annotated ones."""
+        from .engines import depth_perception as DP
+        from .engines.annotate import SyntheticImageProvider
+
+        if eval_max_samples is None:
+            eval_max_samples = max(all_max_samples // 4, 1)
+        if dot_max_samples is None:
+            dot_max_samples = all_max_samples
+        dot_eval_max = max(dot_max_samples // 4, 1)
+        ppi = (points_per_image if points_per_image is not None
+               else DP.DepthEngineConfig.max_n_points_per_image)
+        provider = None
+        if annotate_dots:
+            first = self.store.get(self.store.scene_ids()[0])
+            provider = SyntheticImageProvider(first.image_hw)
+        out = {}
+        for variant in ("coor", "dot"):
+            trn = all_max_samples if variant == "coor" else dot_max_samples
+            ev_n = eval_max_samples if variant == "coor" else dot_eval_max
+            for kind, gen in (("estimation",
+                               DP.generate_depth_estimation_to_jsonl),
+                              ("comparison",
+                               DP.generate_depth_comparison_to_jsonl)):
+                task = f"depth_{kind}_{variant}"
+                for split, n, outdir, ev in (
+                        ("train", trn, self._train_dir, False),
+                        ("eval", ev_n, self._eval_dir, True)):
+                    key = (f"{kind}_{variant}" if split == "train"
+                           else f"{kind}_{variant}_eval")
+                    img_dir = (os.path.join(outdir(task), "images")
+                               if variant == "dot" and provider is not None
+                               else None)
+                    out[key] = self._unit(
+                        f"engine.{task}", split,
+                        {"n": n, "ppi": ppi, "dtype": self.config.dtype,
+                         "annotated": img_dir is not None},
+                        lambda task=task, n=n, outdir=outdir, ev=ev,
+                        gen=gen, variant=variant, img_dir=img_dir: gen(
+                            self.store, self.visibility(),
+                            os.path.join(outdir(task), f"{task}.jsonl"),
+                            variant=variant, eval_mode=ev,
+                            image_provider=(provider if img_dir else None),
+                            image_output_dir=img_dir,
+                            config=DP.DepthEngineConfig(
+                                all_max_samples=n,
+                                max_n_points_per_image=ppi)))
+        return out
+
+    def run_visual_correspondence(self, desired_count=1000,
+                                  eval_count=None, dot_count=None):
+        from .engines import visual_correspondence as VC
+        from .engines.annotate import SyntheticImageProvider
+
+        cfg = VC.CorrespondenceConfig(
+            overlap_min=self.config.overlap_min,
+            overlap_max=self.config.overlap_max,
+            interval=self.config.interval)
+        if eval_count is None:
+            eval_count = max(desired_count // 4, 1)
+        if dot_count is None:
+            dot_count = desired_count
+        dot_eval_count = max(dot_count // 4, 1)
+        first = self.store.get(self.store.scene_ids()[0])
+        provider = SyntheticImageProvider(first.image_hw)
+        # relations/visibility load lazily inside the unit bodies (the
+        # run_camera_movement `prepared` pattern): resuming a finished
+        # campaign must not pay the ~1M-row parquet + npz load just to
+        # skip four completed units.
+        loaded = None
+
+        def inputs():
+            nonlocal loaded
+            if loaded is None:
+                loaded = (self.frame_relations(), self.visibility())
+            return loaded
+
+        out = {}
+        task = "visual_correspondence_coor_2_coor"
+        out["coor_2_coor"] = self._unit(
+            f"engine.{task}", "train", {"n": desired_count, "cfg": cfg},
+            lambda: VC.generate_coor_to_coor(
+                inputs()[0], self.store, inputs()[1],
+                os.path.join(self._train_dir(task), f"train_{task}.jsonl"),
+                desired_count, cfg))
+        out["coor_2_coor_eval"] = self._unit(
+            f"engine.{task}", "eval", {"n": eval_count, "cfg": cfg},
+            lambda: VC.generate_coor_to_coor(
+                inputs()[0], self.store, inputs()[1],
+                os.path.join(self._eval_dir(task), f"val_{task}.jsonl"),
+                eval_count, cfg, eval_mode=True))
+        task2 = "visual_correspondence_dot_2_multichoice"
+        out["dot_2_multichoice"] = self._unit(
+            f"engine.{task2}", "train", {"n": dot_count, "cfg": cfg},
+            lambda: VC.generate_dot_to_multichoice_to_jsonl(
+                inputs()[0], self.store, inputs()[1],
+                os.path.join(self._train_dir(task2), f"train_{task2}.jsonl"),
+                dot_count,
+                os.path.join(self._train_dir(task2), "images"),
+                image_provider=provider, config=cfg))
+        out["dot_2_multichoice_eval"] = self._unit(
+            f"engine.{task2}", "eval", {"n": dot_eval_count, "cfg": cfg},
+            lambda: VC.generate_dot_to_multichoice_to_jsonl(
+                inputs()[0], self.store, inputs()[1],
+                os.path.join(self._eval_dir(task2), f"val_{task2}.jsonl"),
+                dot_eval_count,
+                os.path.join(self._eval_dir(task2), "images"),
+                image_provider=provider, config=cfg, eval_mode=True))
+        return out
+
+    def run_object_perception(self):
+        from .engines import object_perception as OP
+
+        out = {}
+        out["train"] = self._unit(
+            "engine.object_perception", "train",
+            {"dtype": self.config.dtype, "seed": self.config.seed},
+            lambda: OP.generate(
+                self.store, self.coverage(),
+                self._train_dir("object_perception"), "train"))
+        out["val"] = self._unit(
+            "engine.object_perception", "eval",
+            {"dtype": self.config.dtype, "seed": self.config.seed},
+            lambda: OP.generate(
+                self.store, self.coverage(),
+                self._eval_dir("object_perception"), "val",
+                eval_mode=True))
+        return out
+
+    def run_all(
+        self,
+        tapvid_records: dict | None = None,
+        camera_train_counts: dict | None = None,
+        camera_val_counts: dict | None = None,
+        depth_samples: int = 200,
+        depth_dot_samples: int | None = None,
+        depth_points_per_image: int | None = None,
+        correspondence_count: int = 200,
+        correspondence_dot_count: int | None = None,
+    ) -> dict:
+        """Full run: all stages + engines, train AND eval outputs per
+        engine (full reference directory shape). Defaults are demo
+        scale; a volume campaign passes real counts (every engine unit
+        is manifest-gated, so an interrupted campaign resumes where it
+        stopped — scripts/volume_drill.py). The `*_dot_*` knobs bound
+        the annotated-JPEG engines separately, as a real campaign
+        would (the reference's dot engines run two orders slower than
+        its coor engines). The TAPVid object-movement engines are not
+        ported yet: TAPVid records raise."""
+        if tapvid_records:
+            raise NotImplementedError(
+                "the TAPVid object-movement engines are not ported yet "
+                "(ROADMAP.md, queue 1 item 10: object movement)")
+        results = {}
+        results["camera_movement"] = self.run_camera_movement(
+            train_counts=camera_train_counts or {"total_distance": 500},
+            val_counts=camera_val_counts or {"total_distance": 50})
+        results["depth_perception"] = self.run_depth_perception(
+            depth_samples, dot_max_samples=depth_dot_samples,
+            points_per_image=depth_points_per_image)
+        results["visual_correspondence"] = self.run_visual_correspondence(
+            correspondence_count, dot_count=correspondence_dot_count)
+        results["object_perception"] = self.run_object_perception()
+        return results

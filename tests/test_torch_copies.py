@@ -21,6 +21,12 @@ IDENTICAL = [
     "engines/sampling.py",
     "engines/templates/__init__.py",
     "engines/templates/camera_movement.py",
+    "engines/templates/depth.py",
+    "engines/templates/correspondence.py",
+    "engines/templates/object_perception.py",
+    "engines/depth_perception.py",
+    "engines/visual_correspondence.py",
+    "engines/object_perception.py",
     "engines/fast_jsonl.py",
     "ingest/__init__.py",
     "ingest/native/src/jsonl_emit.cpp",
@@ -38,9 +44,34 @@ EDITED = {
     "ingest/native/__init__.py": [
         (12, 16),    # imports for the digest and the temporary file
         (19, 38),    # the library builds at first use under a hashed name
+        (170, 183),  # jpeg_encode retries a short cap at the size asked
     ],
     "ingest/native/build.sh": [
         (2, 10),     # an optional output path; the g++ flags are kept
+    ],
+    "engines/annotate.py": [
+        (1, 10),     # the module docstring names the port, without cv2
+        (20, 23),    # the stored glyphs (engines/_glyphs.py) are imported
+        (54, 65),    # glyph lookup; _letter_metrics reads the stored size
+        (82, 110),   # _circle_mask and _letter_glyph read stored renders
+        (276, 306),  # the writer raises without the native encoder
+        (397, 407),  # a failed multi-dot splice: whole-frame native encode
+        (416, 436),  # _draw_and_save: no branch for a missing encoder
+        (464, 476),  # _save: a short cap is retried natively, not by cv2
+    ],
+    "stages/object_visibility.py": [
+        (1, 17),     # the module docstring names the port
+        (19, 34),    # torch instead of jax; the shared bit unpacking
+        (35, 66),    # the V @ onehot count program in torch on a device
+        (73, 81),    # compute_object_visibility takes the device
+        (113, 172),  # the multi-device stage is left out
+        (176, 184),  # build_object_visibility takes the device
+    ],
+    "stages/coverage.py": [
+        (1, 25),     # the module docstring names the port
+        (27, 40),    # torch instead of jax; the shared bit unpacking
+        (47, 163),   # the interval program in torch; no multi-device stage
+        (286, 321),  # build_object_coverage takes a device, not a mesh
     ],
     "engines/camera_movement.py": [
         (3, 3),      # the module docstring names the port

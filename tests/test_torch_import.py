@@ -1,9 +1,10 @@
 """Import boundary and build rules of the port: importing every module of
 multi_spatialmllm_tpu_torch loads neither jax nor the JAX package, its
 `train` and `serve` commands run end to end with that package made
-unimportable, and its `demo` command runs the data engine with the card's
-installation simulated (no jax, flax, optax, orbax, cv2, pandas, pyarrow
-or JAX package); a kernel build on a host without CUDA raises instead of
+unimportable, and its `demo` command runs the data engine's ScanNet
+engines with the card's installation simulated (no jax, flax, optax,
+orbax, cv2, pandas, pyarrow or JAX package) and writes the files of a run
+with cv2 importable; a kernel build on a host without CUDA raises instead of
 falling back; a library's name changes with its shared headers; a
 misaligned operand raises before any launch; and chip_smoke.py refuses to
 run (non-zero exit, no result line) without a CUDA device or outside the
@@ -36,16 +37,26 @@ PORT_MODULES = [
     "multi_spatialmllm_tpu_torch.core.rng",
     "multi_spatialmllm_tpu_torch.core.scene",
     "multi_spatialmllm_tpu_torch.core.synthetic",
+    "multi_spatialmllm_tpu_torch.engines._glyphs",
+    "multi_spatialmllm_tpu_torch.engines.annotate",
     "multi_spatialmllm_tpu_torch.engines.base",
     "multi_spatialmllm_tpu_torch.engines.camera_movement",
+    "multi_spatialmllm_tpu_torch.engines.depth_perception",
     "multi_spatialmllm_tpu_torch.engines.fast_jsonl",
+    "multi_spatialmllm_tpu_torch.engines.object_perception",
     "multi_spatialmllm_tpu_torch.engines.sampling",
     "multi_spatialmllm_tpu_torch.engines.templates",
     "multi_spatialmllm_tpu_torch.engines.templates.camera_movement",
+    "multi_spatialmllm_tpu_torch.engines.templates.correspondence",
+    "multi_spatialmllm_tpu_torch.engines.templates.depth",
+    "multi_spatialmllm_tpu_torch.engines.templates.object_perception",
+    "multi_spatialmllm_tpu_torch.engines.visual_correspondence",
     "multi_spatialmllm_tpu_torch.ingest.native",
     "multi_spatialmllm_tpu_torch.pipeline",
+    "multi_spatialmllm_tpu_torch.stages.coverage",
     "multi_spatialmllm_tpu_torch.stages.frame_relations",
     "multi_spatialmllm_tpu_torch.stages.manifest",
+    "multi_spatialmllm_tpu_torch.stages.object_visibility",
     "multi_spatialmllm_tpu_torch.stages.visibility",
     "multi_spatialmllm_tpu_torch.utils.logging",
     "multi_spatialmllm_tpu_torch.ops._build",
@@ -220,7 +231,10 @@ def test_unsupported_device_raises_not_falls_back():
 # the card's installation: what it lacks cannot be imported, and any
 # attempt at jax or the JAX package is reported
 _CARD_BLOCKED = BLOCKED + ("cv2", "pandas", "pyarrow")
-_CARD = textwrap.dedent(f"""
+
+
+def _blocking(blocked):
+    return textwrap.dedent(f"""
     import importlib.abc, json, sys
 
     tried = []
@@ -228,7 +242,7 @@ _CARD = textwrap.dedent(f"""
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
             top = name.split(".")[0]
-            if top in {_CARD_BLOCKED!r}:
+            if top in {blocked!r}:
                 tried.append(top)
                 raise ImportError("No module named " + repr(name))
             return None
@@ -241,21 +255,33 @@ _CARD = textwrap.dedent(f"""
 """)
 
 
+
+def _demo(tmp_path, name, blocked):
+    """`demo --device cpu` at a tiny size in a subprocess with `blocked`
+    unimportable; the string hash that seeds the synthetic frames is
+    pinned, so two runs draw the same frames."""
+    out = tmp_path / name
+    env = _env()
+    env["PYTHONHASHSEED"] = "0"
+    proc = subprocess.run(
+        [sys.executable, "-c", _blocking(blocked), "demo", "--device", "cpu",
+         "--output", str(out), "--scenes", "2", "--images-per-scene", "8",
+         "--points-per-scene", "1500"],
+        env=env, cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return out, json.loads(proc.stdout.splitlines()[-1])
+
+
 def test_demo_runs_with_the_cards_installation(tmp_path):
     """`demo --device cpu` at a tiny size with jax, flax, optax, orbax,
     cv2, pandas, pyarrow and the JAX package unimportable: it finishes,
-    writes its camera-movement JSONL, records that no relations parquet
-    was written, and never reaches for jax or the JAX package."""
-    out = tmp_path / "demo"
-    proc = subprocess.run(
-        [sys.executable, "-c", _CARD, "demo", "--device", "cpu", "--output",
-         str(out), "--scenes", "2", "--images-per-scene", "8",
-         "--points-per-scene", "1500"],
-        env=_env(), cwd=tmp_path, capture_output=True, text=True,
-        timeout=300)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    report = json.loads(proc.stdout.splitlines()[-1])
-    bad = {"jax", "jaxlib", "flax", "optax", "orbax", "multi_spatialmllm_tpu"}
+    writes the JSONL of every ScanNet engine and the annotated JPEGs,
+    records that no relations parquet was written, never reaches for jax,
+    the JAX package or cv2, and writes the JPEGs (and JSONL) of a run with
+    cv2, pandas and pyarrow importable."""
+    out, report = _demo(tmp_path, "card", _CARD_BLOCKED)
+    bad = {"jax", "jaxlib", "flax", "optax", "orbax", "multi_spatialmllm_tpu",
+           "cv2"}
     assert not bad & set(report["tried"]) and not report["loaded"], report
     qa = out / "qa"
     for split, name in (("training_data", "total_distance_train.jsonl"),
@@ -267,6 +293,17 @@ def test_demo_runs_with_the_cards_installation(tmp_path):
     rel = [json.loads(ln) for ln in (out / "manifest.jsonl").read_text()
            .splitlines() if '"frame_relations"' in ln]
     assert rel and rel[0]["outputs"]["parquet"] is None
+    engines = {p.relative_to(qa).parts[1] for p in qa.rglob("*.jsonl")}
+    assert len(engines) == 8, engines
+    with_cv2, _ = _demo(tmp_path, "host", BLOCKED)
+    got = {p.relative_to(qa): p.read_bytes() for p in qa.rglob("*")
+           if p.is_file()}
+    want = {p.relative_to(with_cv2 / "qa"): p.read_bytes()
+            for p in (with_cv2 / "qa").rglob("*") if p.is_file()}
+    assert sum(str(k).endswith(".jpg") for k in got) > 50
+    assert sorted(got) == sorted(want)
+    for k, data in want.items():
+        assert got[k] == data, k
 
 
 def _result_lines(stdout: str):

@@ -1,14 +1,16 @@
 """The port's data-engine pipeline (multi_spatialmllm_tpu_torch/pipeline.py)
 against the JAX pipeline on the CPU at demo scale: the same scene store
-through `visibility()`, `frame_relations()` and `run_camera_movement()` at
-`run_all`'s demo counts. `indices/visibility.npz` and the whole
-`qa/**/camera_movement` tree are byte-equal, the relations parquet holds
-equal columns (pitch within its ulp limit), the manifests' lines are equal
-but for the output root, and a second run resumes without rerunning a
-unit."""
+through `run_all()` without TAPVid records. `indices/visibility.npz`, the
+object-visibility and coverage pickles and the whole `qa/` tree (JSONL and
+annotated JPEGs) are byte-equal, the relations parquet holds equal columns
+(pitch within its ulp limit), the manifests' lines are equal but for the
+output root, a second run resumes without rerunning a unit, and TAPVid
+records are refused. Both pipelines run in one process: the synthetic
+frames are seeded from Python's string hash."""
 
 import json
 import os
+import sys
 
 import numpy as np
 import pandas as pd
@@ -16,6 +18,7 @@ import pytest
 
 from multi_spatialmllm_tpu.core.scene import SceneStore as JStore
 from multi_spatialmllm_tpu.core.synthetic import make_scene
+from multi_spatialmllm_tpu.ingest import native as JN
 from multi_spatialmllm_tpu.pipeline import PipelineConfig as JConfig
 from multi_spatialmllm_tpu.pipeline import SpatialEnginePipeline as JPipe
 from multi_spatialmllm_tpu_torch import __main__ as cli
@@ -45,17 +48,39 @@ def runs(tmp_path_factory):
     scenes = [make_scene(scene_id=f"demo{i:04d}_00", seed=i, n_images=12,
                          n_background=4000) for i in range(2)]
     JStore.write(scenes, str(base / "scenes"))
-    train, val = cli.DEMO_CAMERA_COUNTS
+    # the JAX writer encodes natively only where its library is built
+    JN.build()
+    assert JN.jpeg_available()
     jroot, troot = str(base / "jax"), str(base / "port")
-    j = JPipe(JStore(str(base / "scenes")), jroot, JConfig(**DEMO))
-    j.visibility()
-    j.frame_relations()
-    jres = j.run_camera_movement(train_counts=train, val_counts=val)
+    jres = JPipe(JStore(str(base / "scenes")), jroot,
+                 JConfig(**DEMO)).run_all()
     t = TPipe(TStore(str(base / "scenes")), troot, TConfig(**DEMO),
               device="cpu")
-    tres = cli._run_data_engine(t)["camera_movement"]
+    tres = t.run_all()
     return {"jroot": jroot, "troot": troot, "jres": jres, "tres": tres,
             "store": str(base / "scenes")}
+
+
+def _counts(res):
+    """{engine: {unit: (n_train, n_val)}}, object perception's per
+    dimension."""
+    def one(v):
+        if isinstance(v, dict):
+            return {k: one(x) for k, x in v.items()}
+        return (v.n_train, v.n_val)
+
+    return one(res)
+
+
+def _assert_trees_equal(got_root, want_root, skip=()):
+    want = {k: p for k, p in _tree(want_root).items()
+            if not k.startswith(skip)}
+    got = _tree(got_root)
+    assert sorted(got) == sorted(want) and got
+    for rel, p in want.items():
+        with open(p, "rb") as f, open(got[rel], "rb") as g:
+            assert g.read() == f.read(), rel
+    return got
 
 
 def test_visibility_npz_byte_equal(runs):
@@ -82,14 +107,30 @@ def test_relations_parquet_columns(runs):
 
 
 def test_qa_tree_byte_equal(runs):
-    jt = _tree(os.path.join(runs["jroot"], "qa"))
-    tt = _tree(os.path.join(runs["troot"], "qa"))
-    assert sorted(tt) == sorted(jt) and len(tt) == 2
-    for rel, p in jt.items():
-        with open(p, "rb") as f, open(tt[rel], "rb") as g:
-            assert g.read() == f.read(), rel
-    assert {k: (v.n_train, v.n_val) for k, v in runs["tres"].items()} == \
-        {k: (v.n_train, v.n_val) for k, v in runs["jres"].items()}
+    tree = _assert_trees_equal(os.path.join(runs["troot"], "qa"),
+                               os.path.join(runs["jroot"], "qa"))
+    engines = {rel.split(os.sep)[1] for rel in tree}
+    assert engines == {
+        "camera_movement", "depth_estimation_coor", "depth_comparison_coor",
+        "depth_estimation_dot", "depth_comparison_dot",
+        "visual_correspondence_coor_2_coor",
+        "visual_correspondence_dot_2_multichoice", "object_perception"}
+    assert sum(rel.endswith(".jpg") for rel in tree) > 100
+    assert _counts(runs["tres"]) == _counts(runs["jres"])
+    assert sorted(runs["tres"]) == ["camera_movement", "depth_perception",
+                                    "object_perception",
+                                    "visual_correspondence"]
+
+
+@pytest.mark.parametrize("name", [
+    "object_visibility.pkl", "coverage_height.pkl", "coverage_length.pkl",
+    "coverage_width.pkl"])
+def test_index_pickles_byte_equal(runs, name):
+    rel = os.path.join("indices", name)
+    with open(os.path.join(runs["troot"], rel), "rb") as f, \
+            open(os.path.join(runs["jroot"], rel), "rb") as g:
+        got = f.read()
+        assert got == g.read() and got
 
 
 def _manifest(root):
@@ -110,9 +151,8 @@ def test_resume_without_rerunning_a_unit(runs):
              if "scenes" not in p and not p.endswith("events.jsonl")}
     lines = _manifest(root)
     again = TPipe(TStore(runs["store"]), root, TConfig(**DEMO), device="cpu")
-    res = cli._run_data_engine(again)["camera_movement"]
-    assert {k: (v.n_train, v.n_val) for k, v in res.items()} == \
-        {k: (v.n_train, v.n_val) for k, v in runs["tres"].items()}
+    res = again.run_all()
+    assert _counts(res) == _counts(runs["tres"])
     assert _manifest(root) == lines
     for p, mtime in files.items():
         assert os.path.getmtime(p) == mtime, p
@@ -141,36 +181,68 @@ def test_no_parquet_writer_recorded_not_pretended(runs, tmp_path,
                         lambda: "No module named 'pyarrow'")
     root = str(tmp_path / "nopq")
     pipe = TPipe(TStore(runs["store"]), root, TConfig(**DEMO), device="cpu")
-    cli._run_data_engine(pipe)
+    pipe.run_all()
     assert not os.path.exists(
         os.path.join(root, "indices", "frame_relations.parquet"))
     rec = [r for r in _manifest(root) if r["stage"] == "frame_relations"]
     assert rec[0]["outputs"]["parquet"] is None
     with open(os.path.join(root, "events.jsonl")) as f:
         assert "parquet_not_written" in f.read()
-    qa, ref = _tree(os.path.join(root, "qa")), _tree(
-        os.path.join(runs["jroot"], "qa"))
-    assert sorted(qa) == sorted(ref)
-    for rel, p in qa.items():
-        with open(p, "rb") as f, open(ref[rel], "rb") as g:
-            assert f.read() == g.read(), rel
+    _assert_trees_equal(os.path.join(root, "qa"),
+                        os.path.join(runs["jroot"], "qa"))
 
 
 def test_pipeline_command_against_the_jax_stages(runs, tmp_path):
     """`pipeline --device cpu` over the store (the production sampler
-    config): its camera-movement tree equals the JAX pipeline's stages and
-    engine run with the same config; `--trace-dir` is refused."""
+    config): its qa tree and index pickles equal the JAX pipeline's
+    `run_all` with the same config; `--trace-dir` is refused."""
     out = str(tmp_path / "cli")
     cli.main(["pipeline", "--scenes", runs["store"], "--output", out,
               "--device", "cpu"])
     j = JPipe(JStore(runs["store"]), str(tmp_path / "jax"), JConfig())
-    train, val = cli.DEMO_CAMERA_COUNTS
-    j.run_camera_movement(train_counts=train, val_counts=val)
-    jt, tt = _tree(os.path.join(j.root, "qa")), _tree(os.path.join(out, "qa"))
-    assert sorted(tt) == sorted(jt) and tt
-    for rel, p in jt.items():
-        with open(p, "rb") as f, open(tt[rel], "rb") as g:
-            assert g.read() == f.read(), rel
+    j.run_all()
+    _assert_trees_equal(os.path.join(out, "qa"), os.path.join(j.root, "qa"))
+    for name in ("object_visibility.pkl", "coverage_height.pkl"):
+        with open(os.path.join(out, "indices", name), "rb") as f, \
+                open(os.path.join(j.root, "indices", name), "rb") as g:
+            assert f.read() == g.read(), name
     with pytest.raises(NotImplementedError, match="trace-dir"):
         cli.main(["pipeline", "--scenes", runs["store"], "--output", out,
                   "--device", "cpu", "--trace-dir", str(tmp_path / "t")])
+
+
+def test_run_all_refuses_tapvid_records(runs, tmp_path):
+    pipe = TPipe(TStore(runs["store"]), str(tmp_path), TConfig(**DEMO),
+                 device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md, queue 1 item 10: object movement"):
+        pipe.run_all(tapvid_records={"seq0": {}})
+    assert not os.path.exists(os.path.join(str(tmp_path), "qa",
+                                           "training_data"))
+
+
+def test_demo_command_against_the_jax_demo(tmp_path, capsys, monkeypatch):
+    """`demo --device cpu` writes the JAX `demo`'s tree (its object-
+    movement engines, run on TAPVid records, aside) and prints its summary
+    without the `object_movement` key; stderr says that TAPVid waits."""
+    from multi_spatialmllm_tpu import __main__ as jcli
+
+    JN.build()
+    args = ["--scenes", "2", "--images-per-scene", "8",
+            "--points-per-scene", "2000"]
+    monkeypatch.setattr(sys, "argv", ["multi_spatialmllm_tpu", "demo",
+                                      "--output", str(tmp_path / "jax"),
+                                      *args])
+    jcli.main()
+    jsum = json.loads(capsys.readouterr().out)
+    cli.main(["demo", "--output", str(tmp_path / "port"), "--device", "cpu",
+              *args])
+    cap = capsys.readouterr()
+    tsum = json.loads(cap.out)
+    assert "object_movement" in jsum and "object_movement" in cap.err
+    del jsum["object_movement"]
+    assert tsum == jsum
+    _assert_trees_equal(
+        str(tmp_path / "port" / "qa"), str(tmp_path / "jax" / "qa"),
+        skip=tuple(os.path.join(split, "object_movement")
+                   for split in ("training_data", "evaluation_data")))
