@@ -10,8 +10,9 @@ result line):
 
 1. Device: needs CUDA; prints the card's name and power limit.
 2. Build: compiles the four kernel sources in ops/csrc with nvcc, in
-   parallel (one nvcc per source), and the native JSONL emitter
-   (ingest/native, g++) beside them (it must build), and reads the SASS of the bf16 wgmma
+   parallel (one nvcc per source), and the native library (ingest/native,
+   g++: the JSONL emitter and the JPEG codec) beside them (it must
+   build), and reads the SASS of the bf16 wgmma
    kernels (cuobjdump; K1, K2 and K3 at hd 32, 64 and 128; K8's general
    kernel for gmm, gmm_t and tgmm at BN 128 and 256 and its few-rows
    kernel at 16, 32 and 64 rows): each must hold wgmma (HGMMA) and TMA
@@ -113,12 +114,13 @@ result line):
    for total_distance, displacement_vector, yaw_angle and x_movement at
    200,000 samples each with the production config (samples/s, median of
    3 passes). Then `demo --scenes 2 --images-per-scene 12
-   --points-per-scene 4000` (`run_all` without TAPVid) on the card and on
-   the CPU, in this process: visibility.npz equal, relation overlap equal
-   and distance/yaw/pitch within DIST_ULP/ANGLE_ULP, every file under qa/
-   (the JSONL of every ScanNet engine and the annotated JPEGs, which the
-   card writes with no cv2) and every index pickle byte-equal. Each
-   number printed beside the card's name and power limit.
+   --points-per-scene 4000` (`run_all` with its two TAPVid records) on the
+   card and on the CPU, in this process: visibility.npz equal, relation
+   overlap equal and distance/yaw/pitch within DIST_ULP/ANGLE_ULP, every
+   file under qa/ (the JSONL of every engine, the object-movement `_orig`
+   dumps, frames and annotated JPEGs, which the card writes with no cv2)
+   and every index pickle byte-equal. Each number printed beside the
+   card's name and power limit.
 16. ScanNet engines (torch ops on the card, no kernel of their own): on
    the real-scale scene, object visibility's counts (M3) and coverage's
    intervals (M4) card == CPU bit for bit with equal dtypes over every
@@ -133,6 +135,22 @@ result line):
    annotated scenes (48 images of 480 x 640, depth 120 x 160) after a
    warm pass: host clock, median of STAGE_PASSES passes, each beside the
    card's name and power limit.
+17. TAPVid object movement (M5 as torch ops on the card, no kernel of its
+   own; the native JPEG codec on the host): the codec's encodes and
+   decodes of the golden grid (ingest/_jpeg_golden.json, made with cv2 by
+   scripts/gen_jpeg_golden.py) match every stored digest, and its decode
+   and encode MB/s on 512 x 512 frames; M5 on a record made here at the
+   real-scale stand-in (512 x 512 frames, T 300, N 1,024) card == CPU bit
+   for bit, the device program alone timed by CUDA events with its input
+   resident beside its bytes bound and peak device bytes, and the
+   rigid-body groups equal; `object_movement_coord` and
+   `object_movement_dot` at bench.py's configuration (8 records, T 24,
+   N 60, npairs_per_bin 2; dot into a fresh image directory each pass),
+   a warm pass then the median of STAGE_PASSES, and the real-scale record
+   through both once; then the `tapvid` command over npz files in
+   `<data>/adt/`, train and val, with and without `--dot`, on the card
+   and on the CPU: every file byte-equal. Each number beside the card's
+   name and power limit.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -164,7 +182,7 @@ N_SERVE = 16
 TRAIN_LAYERS = 8         # phase 9: LLM depth cut from 32 (see PERF.md)
 # phase 13: the train CLI's --max-tiles and --tiles-per-image defaults
 MOE_MAX_TILES, MOE_TILES_PER_IMAGE = 14, 6
-N_PHASES = 16
+N_PHASES = 17
 # phase 9's steps on one repeated batch run a fresh optimizer on the train
 # CLI's default schedule (--lr 1e-5, --warmup 100, --steps 1000)
 REPEAT_LR, REPEAT_WARMUP, REPEAT_TOTAL = 1e-5, 100, 1000
@@ -1856,11 +1874,12 @@ def first_differing_line(a, b):
 
 
 def demo_card_vs_cpu(np, cli, root, card):
-    """`demo` (`run_all` without TAPVid) on the card and on the CPU, in
-    this one process (the synthetic frames are seeded from Python's string
-    hash): visibility.npz equal, relation columns within their limits,
-    every file under qa/ (JSONL and annotated JPEG) and every pickle under
-    indices/ byte-equal."""
+    """`demo` (`run_all` with its TAPVid records) on the card and on the
+    CPU, in this one process (the synthetic frames are seeded from
+    Python's string hash): visibility.npz equal, relation columns within
+    their limits, every file under qa/ (JSONL, frames and annotated JPEGs,
+    the object-movement engines' included) and every pickle under indices/
+    byte-equal."""
     from multi_spatialmllm_tpu_torch.core.scene import SceneStore
     from multi_spatialmllm_tpu_torch.pipeline import (
         PipelineConfig,
@@ -1892,7 +1911,7 @@ def demo_card_vs_cpu(np, cli, root, card):
             device=dev)
         tables[dev] = pipe.frame_relations()
     worst = compare_relations(np, tables["cuda"], tables["cpu"])
-    counts = {"jsonl": 0, "jpg": 0, "pkl": 0}
+    counts = {"jsonl": 0, "jpg": 0, "pkl": 0, "object_movement": 0}
     for sub, keep in (("qa", lambda f: True),
                       ("indices", lambda f: f.endswith(".pkl"))):
         files = {}
@@ -1915,11 +1934,14 @@ def demo_card_vs_cpu(np, cli, root, card):
                 fail(f"{sub}/{rel}: differs card vs CPU ({where})")
             ext = rel.rsplit(".", 1)[-1]
             counts[ext] = counts.get(ext, 0) + 1
+            counts["object_movement"] += "object_movement_" in rel
     log(f"  demo card vs CPU: visibility.npz equal, {len(tables['cpu']['overlap'])} "
         f"relation rows (overlap equal; largest gaps {worst}), byte-equal: "
         f"{counts['jsonl']} JSONL, {counts['jpg']} JPEG and {counts['pkl']} "
-        f"index pickles; {card}")
-    if not (counts["jsonl"] and counts["jpg"] and counts["pkl"] == 4):
+        f"index pickles ({counts['object_movement']} of the files from the "
+        f"object-movement engines); {card}")
+    if not (counts["jsonl"] and counts["jpg"] and counts["pkl"] == 4
+            and counts["object_movement"]):
         fail(f"demo card vs CPU compared too little: {counts}")
     return {**worst, "files": counts}
 
@@ -2249,6 +2271,244 @@ def phase_scannet_engines(torch, card):
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 17: the TAPVid object-movement engines (M5, the native JPEG codec)
+# --------------------------------------------------------------------------
+
+# the real-scale stand-in for a long ADT clip (PERF.md section 4): 512 x 512
+# frames, T 300, N 1,024 = 8 groups x 96 points + 256 static
+M5_REAL = dict(n_frames=300, n_groups=8, points_per_group=96, n_static=256,
+               image_hw=(512, 512), seed=11)
+# bench.py's object-movement records and config (:641-679)
+OM_RECORDS = 8
+OM_RECORD = dict(n_frames=24, n_groups=4, points_per_group=10, n_static=20)
+OM_CONFIG = dict(question_type="tapvid3d_total_distance",
+                 npoints_per_group=15, npairs_per_bin=2)
+CODEC_FRAMES = 16        # 512 x 512 frames of each kind, for the MB/s
+
+
+def golden_module():
+    """scripts/gen_jpeg_golden.py: its seeded frames, digest functions and
+    the stored file's path (it imports cv2 only when run)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "gen_jpeg_golden.py")
+    spec = importlib.util.spec_from_file_location("gen_jpeg_golden", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def codec_check(card):
+    """The native codec against cv2's stored digests, then its MB/s (raw
+    BGR bytes over one thread's host seconds) on 512 x 512 frames."""
+    import base64
+
+    from multi_spatialmllm_tpu_torch.ingest import jpeg
+
+    G = golden_module()
+    with open(G.OUT) as f:
+        stored = json.load(f)
+    for c in stored["cases"]:
+        img = G.frame(c["kind"], c["h"], c["w"], c["seed"])
+        data = (jpeg.imencode(img) if c["quality"] is None
+                else jpeg.imencode(img, c["quality"]))
+        if G.sha(data) != c["encode"]:
+            fail(f"codec: encode of {c} differs from cv2's")
+        if G.pixels_sha(jpeg.imdecode(data)) != c["decode"]:
+            fail(f"codec: decode of {c} differs from cv2's")
+    for o in stored["other"]:
+        if G.pixels_sha(jpeg.imdecode(base64.b64decode(o["jpeg"]))) \
+                != o["decode"]:
+            fail(f"codec: decode of cv2's {o['name']} file differs")
+    log(f"  codec: {len(stored['cases'])} encodes byte-equal and their "
+        f"decodes pixel-equal to cv2 {stored['cv2']} ({stored['jpeg']}) by "
+        f"digest; cv2's {', '.join(o['name'] for o in stored['other'])} "
+        f"files decoded pixel-equal")
+    out = {}
+    for kind in G.KINDS:
+        frames = [G.frame(kind, 512, 512, 2000 + i)
+                  for i in range(CODEC_FRAMES)]
+        mb = len(frames) * 512 * 512 * 3 / 1e6
+        encoded = [jpeg.imencode(f) for f in frames]
+        t0 = time.perf_counter()
+        for f in frames:
+            jpeg.imencode(f)
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for b in encoded:
+            jpeg.imdecode(b)
+        dec_s = time.perf_counter() - t0
+        out[kind] = {"encode_MBps": mb / enc_s, "decode_MBps": mb / dec_s,
+                     "jpeg_bytes": sum(map(len, encoded)) / len(encoded)}
+        log(f"  codec on {len(frames)} {kind} 512 x 512 frames (q95, "
+            f"{out[kind]['jpeg_bytes']:,.0f} B each): decode "
+            f"{out[kind]['decode_MBps']:.1f} MB/s, encode "
+            f"{out[kind]['encode_MBps']:.1f} MB/s of BGR pixels, one "
+            f"thread; {card}")
+    return out
+
+
+def m5_realscale(torch, np, OM, rec, card):
+    """M5 on the real-scale stand-in: card == CPU bit for bit, the device
+    program alone by CUDA events with its input resident, its bytes bound
+    and peak device bytes, and the groups equal."""
+    pts_np = rec["tracks_XYZ"]
+    t, n, _ = pts_np.shape
+    t0 = time.perf_counter()
+    on_card = OM.cumulative_loss(pts_np, "cuda")
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = OM.cumulative_loss(pts_np, "cpu")
+    cpu_s = time.perf_counter() - t0
+    if on_card.dtype != on_cpu.dtype or not np.array_equal(on_card, on_cpu):
+        fail(f"M5 card vs CPU differ, first at "
+             f"{first_difference(np, on_card, on_cpu)}")
+    log(f"  M5 at T {t}, N {n}: card == CPU bit for bit "
+        f"({on_card.dtype}{list(on_card.shape)}; card {card_s:.3f} s, CPU "
+        f"{cpu_s:.3f} s, host clock with the upload and fetch); {card}")
+    pts = torch.from_numpy(np.ascontiguousarray(pts_np, np.float32)).cuda()
+    peak = device_peak(torch, lambda: OM.m5(pts))
+    ms = cuda_ms(torch, lambda: OM.m5(pts), iters=5, warmup=1)
+    n_bytes = t * n * 3 * 4 + n * n * 4
+    b_ms = n_bytes / PEAK_BYTES * 1e3
+    log(f"  M5 device program alone: {ms:.4f} ms (CUDA events, input "
+        f"resident), bytes bound {b_ms:.5f} ms ({n_bytes / 1e6:.2f} MB at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s; {b_ms / ms:.2%} of it), peak "
+        f"{peak / 2**20:.1f} MiB over the allocated base; {card}")
+    groups = {dev: OM.rigid_body_segmentation(pts_np, device=dev)
+              for dev in ("cuda", "cpu")}
+    if groups["cuda"] != groups["cpu"]:
+        fail("M5: rigid-body groups differ card vs CPU")
+    log(f"  rigid-body groups card == CPU: {len(groups['cpu'])} groups of "
+        f"{sorted(len(g) for g in groups['cpu'])} points")
+    return {"ms": ms, "bound_ms": b_ms, "bound_by": "bytes",
+            "bytes": n_bytes, "peak_bytes": peak, "card_s": card_s,
+            "cpu_s": cpu_s, "groups": len(groups["cpu"])}
+
+
+def tapvid_card_vs_cpu(cli, make_tapvid_npz, root, card):
+    """The `tapvid` command over npz files in `<data>/adt/` with a small
+    `--meta`, train and val, with and without `--dot`, on the card and on
+    the CPU: every file byte-equal."""
+    data, meta = os.path.join(root, "data"), os.path.join(root, "meta")
+    os.makedirs(os.path.join(data, "adt"))
+    os.makedirs(os.path.join(meta, "adt"))
+    for k, split in enumerate(("train", "val")):
+        ids = [f"{split}_clip{i}" for i in range(2)]
+        for i, sid in enumerate(ids):
+            make_tapvid_npz(os.path.join(data, "adt", f"{sid}.npz"),
+                            seed=300 + 10 * k + i, **OM_RECORD)
+        with open(os.path.join(meta, "adt", f"{split}.txt"), "w") as f:
+            f.write("".join(f"{sid}\n" for sid in ids))
+    n_files = 0
+    for split in ("train", "val"):
+        for dot in (False, True):
+            outs = {}
+            for dev in ("cuda", "cpu"):
+                outs[dev] = os.path.join(root, f"{split}_{dot}_{dev}")
+                cli.main(["tapvid", "--data", data, "--meta", meta,
+                          "--split", split, "--output", outs[dev],
+                          "--device", dev] + ["--dot"] * dot)
+            files = {dev: sorted(
+                os.path.relpath(os.path.join(d, f), o)
+                for d, _, fs in os.walk(o) for f in fs)
+                for dev, o in outs.items()}
+            if files["cuda"] != files["cpu"] or not files["cpu"]:
+                fail(f"tapvid {split} dot={dot}: different files card vs CPU")
+            for rel in files["cpu"]:
+                with open(os.path.join(outs["cuda"], rel), "rb") as f, \
+                        open(os.path.join(outs["cpu"], rel), "rb") as g:
+                    if f.read() != g.read():
+                        fail(f"tapvid {split} dot={dot}: {rel} differs card "
+                             f"vs CPU")
+            n_files += len(files["cpu"])
+    log(f"  tapvid command (train and val, with and without --dot) card vs "
+        f"CPU: {n_files} files byte-equal; {card}")
+    return n_files
+
+
+def phase_object_movement(torch, cli, card):
+    """Phase 17: the codec against cv2's digests and its MB/s, M5 at the
+    real-scale stand-in card vs CPU, the engines' rates under bench.py's
+    keys, and the `tapvid` command card vs CPU."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from multi_spatialmllm_tpu_torch.core.synthetic import make_tapvid_npz
+    from multi_spatialmllm_tpu_torch.engines import object_movement as OM
+
+    out = {"codec": codec_check(card)}
+    t0 = time.perf_counter()
+    real = make_tapvid_npz(**M5_REAL)
+    log(f"  real-scale stand-in record made in {time.perf_counter() - t0:.1f}"
+        f" s: {len(real['images_jpeg_bytes'])} frames of 512 x 512, "
+        f"tracks {list(real['tracks_XYZ'].shape)}; {card}")
+    out["m5"] = m5_realscale(torch, np, OM, real, card)
+    torch.cuda.empty_cache()
+    rates = {}
+
+    def rate(key, n, times):
+        per = [n / t for t in times]
+        rates[key] = median(per)
+        log(f"  {key}: {n} samples a pass, median {rates[key]:,.1f} "
+            f"samples/s ({[round(r, 1) for r in per]}); {card}")
+
+    cfg = OM.ObjectMovementConfig(**OM_CONFIG)
+    dot_cfg = dataclasses.replace(cfg, dot_variant=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        records = {f"seq{i}": make_tapvid_npz(seed=i, **OM_RECORD)
+                   for i in range(OM_RECORDS)}
+        OM.generate_to_jsonl(records, os.path.join(tmp, "om_w.jsonl"), cfg,
+                             device="cuda")
+        times, res = timed_passes(lambda k: OM.generate_to_jsonl(
+            records, os.path.join(tmp, f"om{k}.jsonl"), cfg, device="cuda"))
+        rate("object_movement_coord", res.n_train, times)
+        t0 = time.perf_counter()
+        for rec in records.values():
+            OM.cumulative_loss(rec["tracks_XYZ"], "cuda")
+        m5_s = time.perf_counter() - t0
+        out["m5_share_coord"] = m5_s / median(times)
+        log(f"  M5 over the {OM_RECORDS} records (upload, device program and "
+            f"fetch; host clock): {m5_s:.4f} s, "
+            f"{out['m5_share_coord']:.1%} of a coord pass; {card}")
+
+        def dot_pass(k):
+            img_dir = os.path.join(tmp, f"omd_img{k}")
+            t0 = time.perf_counter()
+            res = OM.generate_to_jsonl(
+                records, os.path.join(tmp, f"omd{k}.jsonl"), dot_cfg,
+                img_output_dir=img_dir, device="cuda")
+            dt = time.perf_counter() - t0
+            shutil.rmtree(img_dir)
+            return res, dt
+
+        dot_pass("w")
+        passes = [dot_pass(k) for k in range(STAGE_PASSES)]
+        rate("object_movement_dot", passes[-1][0].n_train,
+             [dt for _, dt in passes])
+        for key, c, img_dir in (("coord", cfg, None),
+                                ("dot", dot_cfg, os.path.join(tmp, "real"))):
+            t0 = time.perf_counter()
+            res = OM.generate_to_jsonl({"real0": real},
+                                       os.path.join(tmp, f"real_{key}.jsonl"),
+                                       c, img_output_dir=img_dir,
+                                       device="cuda")
+            dt = time.perf_counter() - t0
+            rates[f"object_movement_{key}_realscale"] = res.n_train / dt
+            log(f"  object_movement_{key} on the real-scale record: "
+                f"{res.n_train} samples in {dt:.3f} s, "
+                f"{res.n_train / dt:,.1f} samples/s; {card}")
+        out["tapvid_files"] = tapvid_card_vs_cpu(
+            cli, make_tapvid_npz, os.path.join(tmp, "tapvid"), card)
+    out["rates"] = rates
+    return out
+
+
 def kernel_entry(name, source, replaces, launches_by_path, err, timing,
                  library_ms):
     """One entry of the `kernels` line: `timing` is (ms, plain ms,
@@ -2303,7 +2563,8 @@ def main(argv=None):
     t_start = time.perf_counter()
 
     def head(n, text):
-        log(f"[{n}/{N_PHASES}] {text}")
+        log(f"[{n}/{N_PHASES}] {text} (at {time.perf_counter() - t_start:.1f}"
+            f" s)")
 
     card = card_name_and_power_limit()
     head(1, f"device: {torch.cuda.get_device_name(0)} "
@@ -2320,9 +2581,9 @@ def main(argv=None):
                    A.FLASH_BWD_DKV, P.PAGED_DECODE_INT8, G.GMM, G.GMM_T,
                    G.TGMM])
         if not emitter.result():
-            fail(f"the native JSONL emitter did not build: "
+            fail(f"the native library did not build: "
                  f"{native.build_error}")
-        log(f"[2/{N_PHASES}] native JSONL emitter ready "
+        log(f"[2/{N_PHASES}] native library (JSONL emitter, JPEG codec) ready "
             f"({native.library_path()}) {time.perf_counter() - t0:.1f} s "
             f"after the builds began")
     check_sass(B, "".join(k.build_log for k in (G.GMM, G.GMM_T, G.TGMM)))
@@ -2412,6 +2673,14 @@ def main(argv=None):
         res["scannet"] = phase_scannet_engines(torch, card)
         log(f"  rates under bench.py's keys: "
             f"{json.dumps(res['scannet']['rates'])}; {card}")
+        torch.cuda.empty_cache()
+    if 17 in phases:
+        head(17, "TAPVid object movement: the codec against cv2's digests, "
+                 "M5 at the real-scale stand-in card vs CPU, the engines' "
+                 "rates and the tapvid command card vs CPU")
+        res["tapvid"] = phase_object_movement(torch, cli, card)
+        log(f"  rates under bench.py's keys: "
+            f"{json.dumps(res['tapvid']['rates'])}; {card}")
         torch.cuda.empty_cache()
     log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 

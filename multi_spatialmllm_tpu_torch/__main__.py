@@ -2,16 +2,17 @@
 
 Commands:
 
-  demo      synthesize scenes and run the data engine's ported path end to
-            end: visibility, frame relations, camera-movement QA
-  pipeline  the same stages and engine over an existing scene store
+  demo      synthesize scenes and TAPVid records and run the data engine
+            end to end: the ScanNet stages and engines, then object movement
+  pipeline  the ScanNet stages and engines over an existing scene store
+  tapvid    the object-movement engines over TAPVid-3D npz records
   serve     JSONL serving loop (stdin -> stdout) over the paged batcher
   train     SFT on a data-mixture meta JSON (one device) -> rolling torch
             checkpoints
 
-The data-engine commands run the camera-movement engine at the JAX
-pipeline's demo counts; the depth, correspondence, object-perception and
-object-movement engines (and the TAPVid records) are still to come.
+The data-engine commands write the trees of the JAX package's commands of
+the same names, on `--device` (the card unless the caller asks for the
+CPU), with no cv2 on their path.
 """
 
 from __future__ import annotations
@@ -429,16 +430,11 @@ def cmd_train(args) -> None:
     print(json.dumps({**summary, "devices": 1, "device": str(device)}))
 
 
-# the engines of the JAX `run_all` that the port does not run yet
-STILL_TO_COME = ("object_movement",)
-
-
 def cmd_demo(args) -> None:
-    """Synthetic scenes -> scene store -> `run_all` on `--device` (no
-    TAPVid records: object movement is not ported yet); prints each
-    engine's sample counts (train + val)."""
+    """Synthetic scenes and two synthetic TAPVid records -> `run_all` on
+    `--device`; prints each engine's sample counts (train + val)."""
     from .core.scene import SceneStore
-    from .core.synthetic import make_scene
+    from .core.synthetic import make_scene, make_tapvid_npz
     from .pipeline import PipelineConfig, SpatialEnginePipeline
 
     scenes = [
@@ -452,10 +448,9 @@ def cmd_demo(args) -> None:
         store, args.output,
         PipelineConfig(overlap_min=0.1, overlap_max=100.0, interval=5.0),
         device=args.device)
-    print(f"demo: skipping {', '.join(STILL_TO_COME)}: its TAPVid engines "
-          "are not ported yet (ROADMAP.md, queue 1 item 10)",
-          file=sys.stderr)
-    results = pipe.run_all()
+    tapvid = {f"demo_seq{i}": make_tapvid_npz(seed=args.seed + 50 + i)
+              for i in range(2)}
+    results = pipe.run_all(tapvid_records=tapvid)
 
     def count(v):
         if isinstance(v, dict):
@@ -485,6 +480,27 @@ def cmd_pipeline(args) -> None:
     print(json.dumps({k: str(v) for k, v in results.items()}, indent=2))
 
 
+def cmd_tapvid(args) -> None:
+    """Both object-movement question types over one TAPVid-3D split
+    (`<data>/<sub-dataset>/<scene_id>.npz`), frames under `<output>/images`,
+    M5 on `--device`."""
+    from .engines import object_movement as OM
+    from .ingest.tapvid import load_split_records
+
+    records = load_split_records(args.data, args.meta, args.sub_dataset,
+                                 args.split)
+    for qtype in OM.QUESTION_TYPES:
+        cfg = OM.ObjectMovementConfig(question_type=qtype,
+                                      dot_variant=args.dot)
+        out = OM.generate(
+            records,
+            os.path.join(args.output,
+                         f"{args.sub_dataset}_{qtype}_{args.split}.jsonl"),
+            cfg, img_output_dir=os.path.join(args.output, "images"),
+            eval_mode=args.split == "val", device=args.device)
+        print(f"{qtype}: {out.n_train + out.n_val} samples")
+
+
 def _add_moe_flags(p, group: bool) -> None:
     """The routed-MoE flags of the JAX CLI (`--moe-group`, GShard groups,
     matters to training only)."""
@@ -503,11 +519,10 @@ def _add_moe_flags(p, group: bool) -> None:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(prog="multi_spatialmllm_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
-    later = ", ".join(STILL_TO_COME)
 
     p = sub.add_parser("demo",
-                       help="synthetic scenes through the data engine's "
-                            f"ScanNet engines (still to come: {later})")
+                       help="synthetic scenes and TAPVid records through "
+                            "the data engine")
     p.add_argument("--output", default="./msm_demo")
     p.add_argument("--scenes", type=int, default=3)
     p.add_argument("--images-per-scene", type=int, default=16)
@@ -518,13 +533,25 @@ def main(argv=None) -> None:
 
     p = sub.add_parser("pipeline",
                        help="the data engine's ScanNet engines over a "
-                            f"scene store (still to come: {later})")
+                            "scene store")
     p.add_argument("--scenes", required=True)
     p.add_argument("--output", required=True)
     p.add_argument("--trace-dir", default=None,
                    help="not ported yet: raises NotImplementedError")
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_pipeline)
+
+    p = sub.add_parser("tapvid", help="object-movement engines over npz")
+    p.add_argument("--data", required=True)
+    p.add_argument("--meta", default=None,
+                   help="TAPVid-3D meta_data dir (default: the vendored "
+                        "split lists in data/tapvid3d_meta)")
+    p.add_argument("--sub-dataset", default="adt")
+    p.add_argument("--split", default="train")
+    p.add_argument("--dot", action="store_true")
+    p.add_argument("--output", required=True)
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_tapvid)
 
     p = sub.add_parser("serve",
                        help="JSONL serving loop (stdin -> stdout) over "

@@ -233,7 +233,7 @@ def make_tapvid_npz(
     `fx_fy_cx_cy`, `tracks_XYZ` (camera coords), `visibility`,
     `extrinsics_w2c`. If `path` is given the dict is also saved as npz.
     """
-    import cv2
+    from ..ingest import jpeg   # cv2.imencode's bytes, without cv2
 
     rng = np.random.default_rng(seed)
     h, w = image_hw
@@ -281,9 +281,7 @@ def make_tapvid_npz(
     frames = []
     for t in range(n_frames):
         img = rng.integers(0, 255, size=(h, w, 3), dtype=np.uint8)
-        ok, buf = cv2.imencode(".jpg", img)
-        assert ok
-        frames.append(buf.tobytes())
+        frames.append(jpeg.imencode(img))
 
     record = {
         "images_jpeg_bytes": np.array(frames, dtype=object),

@@ -21,7 +21,7 @@ import numpy as np
 _DIR = os.path.dirname(__file__)
 _BUILD_DIR = os.path.join(_DIR, "_build")
 _SOURCES = ("build.sh", "src/msm_native.cpp", "src/jsonl_emit.cpp",
-            "src/jpeg_encode.cpp", "src/ryu_tables.h")
+            "src/jpeg_encode.cpp", "src/jpeg_codec.cpp", "src/ryu_tables.h")
 _lib = None
 build_error: str | None = None   # why the library could not be built
 

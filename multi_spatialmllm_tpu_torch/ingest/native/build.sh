@@ -8,5 +8,6 @@ cd "$(dirname "$0")"
 # it (ingest.native.build()), so host-specific SIMD is safe.
 g++ -O3 -march=native -fPIC -shared -std=c++17 -o "$OUT" \
     src/msm_native.cpp src/jsonl_emit.cpp src/jpeg_encode.cpp \
+    src/jpeg_codec.cpp \
     -lz -lpthread
 echo "built $OUT"

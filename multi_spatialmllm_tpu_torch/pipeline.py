@@ -1,9 +1,9 @@
 """The MultiSPA data-engine pipeline on the card: the port of
-multi_spatialmllm_tpu/pipeline.py for the ScanNet engines, L2 -> L3 -> L4
-(a scene store; the visibility index, the pairwise frame relations, object
-visibility and coverage; the camera-movement, depth, correspondence and
-object-perception QA engines), with manifest-based resume and structured
-logging. Artifact layout under `output_root`, as the JAX pipeline's:
+multi_spatialmllm_tpu/pipeline.py, L2 -> L3 -> L4 (a scene store; the
+visibility index, the pairwise frame relations, object visibility and
+coverage; the camera-movement, depth, correspondence and object-perception
+QA engines, and the TAPVid object-movement engines over npz records), with
+manifest-based resume and structured logging. Artifact layout under `output_root`, as the JAX pipeline's:
 
     indices/visibility.npz            packed visibility index
     indices/visibility.parquet        reference-dialect export (optional)
@@ -19,8 +19,7 @@ Where pandas or pyarrow is missing, the relations parquet is not written:
 the manifest unit records `"parquet": null` and events.jsonl says why;
 the QA output does not depend on it.
 
-Still to come (ROADMAP.md): the TAPVid object-movement engines (so
-`run_all` refuses TAPVid records) and the hybrid visibility dtype.
+Still to come (ROADMAP.md): the hybrid visibility dtype.
 """
 
 from __future__ import annotations
@@ -38,6 +37,32 @@ from .stages.manifest import Manifest, config_hash
 from .stages.object_visibility import build_object_visibility
 from .stages.visibility import VisibilityIndex, compute_scene_visibility
 from .utils.logging import StageLogger
+
+
+def _records_fingerprint(scene_records: dict) -> str:
+    """Content digest of a {scene_id: npz-record} mapping, so an
+    object-movement manifest unit is invalidated when its INPUT changes,
+    not only its config (r5 review: a later run with different TAPVid
+    data on the same root silently revived the previous run's counts)."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=8)
+    for sid in sorted(scene_records):
+        h.update(str(sid).encode())
+        rec = scene_records[sid]
+        for k in sorted(rec):
+            v = np.asarray(rec[k])
+            h.update(k.encode())
+            h.update(f"{v.shape}{v.dtype}".encode())
+            if v.dtype == object:  # e.g. images_jpeg_bytes
+                for item in v.ravel():
+                    b = (bytes(item) if isinstance(item, (bytes, bytearray))
+                         else repr(item).encode())
+                    h.update(len(b).to_bytes(8, "little"))
+                    h.update(b)
+            else:
+                h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
 
 
 @dataclasses.dataclass
@@ -405,6 +430,48 @@ class SpatialEnginePipeline:
                 eval_mode=True))
         return out
 
+    def run_object_movement(self, scene_records: dict,
+                            max_eval_samples: int = 300):
+        """TAPVid object-movement engines, coord + dot, train + eval (the
+        eval run writes the full `*_orig.jsonl` dump before subsampling,
+        single_object_movement_engine_dot.py:676-686); M5 runs on the
+        pipeline's device."""
+        from .engines import object_movement as OM
+
+        inputs = _records_fingerprint(scene_records)
+        out = {}
+        for qtype, dot in (("tapvid3d_total_distance", False),
+                           ("tapvid3d_displacement_vector", True)):
+            tag = "dot" if dot else "coord"
+            engine = f"object_movement_{tag}"
+            cfg = OM.ObjectMovementConfig(question_type=qtype,
+                                          dot_variant=dot)
+            img_dir = (os.path.join(self._train_dir(engine), "images")
+                       if dot else None)
+            out[f"{tag}_train"] = self._unit(
+                f"engine.{engine}", "train",
+                {"cfg": cfg, "inputs": inputs},
+                lambda engine=engine, cfg=cfg, img_dir=img_dir:
+                OM.generate_to_jsonl(
+                    scene_records,
+                    os.path.join(self._train_dir(engine),
+                                 f"{engine}.jsonl"),
+                    cfg, img_output_dir=img_dir, device=self.device))
+            img_dir_val = (os.path.join(self._eval_dir(engine), "images")
+                           if dot else None)
+            out[f"{tag}_eval"] = self._unit(
+                f"engine.{engine}", "eval",
+                {"cfg": cfg, "max": max_eval_samples, "inputs": inputs},
+                lambda engine=engine, cfg=cfg, img_dir_val=img_dir_val:
+                OM.generate_to_jsonl(
+                    scene_records,
+                    os.path.join(self._eval_dir(engine),
+                                 f"{engine}.jsonl"),
+                    cfg, img_output_dir=img_dir_val,
+                    max_samples=max_eval_samples, eval_mode=True,
+                    device=self.device))
+        return out
+
     def run_all(
         self,
         tapvid_records: dict | None = None,
@@ -423,12 +490,8 @@ class SpatialEnginePipeline:
         stopped — scripts/volume_drill.py). The `*_dot_*` knobs bound
         the annotated-JPEG engines separately, as a real campaign
         would (the reference's dot engines run two orders slower than
-        its coor engines). The TAPVid object-movement engines are not
-        ported yet: TAPVid records raise."""
-        if tapvid_records:
-            raise NotImplementedError(
-                "the TAPVid object-movement engines are not ported yet "
-                "(ROADMAP.md, queue 1 item 10: object movement)")
+        its coor engines). TAPVid records, where given, run the
+        object-movement engines last."""
         results = {}
         results["camera_movement"] = self.run_camera_movement(
             train_counts=camera_train_counts or {"total_distance": 500},
@@ -439,4 +502,7 @@ class SpatialEnginePipeline:
         results["visual_correspondence"] = self.run_visual_correspondence(
             correspondence_count, dot_count=correspondence_dot_count)
         results["object_perception"] = self.run_object_perception()
+        if tapvid_records:
+            results["object_movement"] = self.run_object_movement(
+                tapvid_records)
         return results

@@ -13,7 +13,6 @@ JAX, PORT = "multi_spatialmllm_tpu", "multi_spatialmllm_tpu_torch"
 IDENTICAL = [
     "core/io.py",
     "core/scene.py",
-    "core/synthetic.py",
     "stages/manifest.py",
     "utils/logging.py",
     "engines/__init__.py",
@@ -24,11 +23,13 @@ IDENTICAL = [
     "engines/templates/depth.py",
     "engines/templates/correspondence.py",
     "engines/templates/object_perception.py",
+    "engines/templates/object_movement.py",
     "engines/depth_perception.py",
     "engines/visual_correspondence.py",
     "engines/object_perception.py",
     "engines/fast_jsonl.py",
     "ingest/__init__.py",
+    "ingest/tapvid.py",
     "ingest/native/src/jsonl_emit.cpp",
     "ingest/native/src/msm_native.cpp",
     "ingest/native/src/jpeg_encode.cpp",
@@ -47,7 +48,27 @@ EDITED = {
         (170, 183),  # jpeg_encode retries a short cap at the size asked
     ],
     "ingest/native/build.sh": [
-        (2, 10),     # an optional output path; the g++ flags are kept
+        (2, 10),     # an optional output path and the codec's source; the
+                     # g++ flags are kept
+    ],
+    "core/synthetic.py": [
+        (236, 236),  # the native codec is imported instead of cv2
+        (284, 286),  # make_tapvid_npz encodes with ingest/jpeg.py
+    ],
+    "engines/object_movement.py": [
+        (3, 9),      # the module docstring names the port, without cv2
+        (35, 43),    # torch, the codec and the circle instead of jax, cv2
+        (71, 102),   # M5 as torch ops on a device (cumulative_loss)
+        (133, 139),  # select_sample_pairs passes the device to M5
+        (276, 300),  # process_sequence: the device; the frame size from
+                     # the frame header
+        (315, 319),  # frames decoded and re-encoded by the native codec
+        (342, 348),  # the dot annotation: native codec and draw.circle
+        (362, 376),  # generate takes and passes the device
+        (414, 439),  # _sequence_columns: as process_sequence
+        (494, 497),  # frames as above
+        (515, 521),  # the dot annotation as above
+        (533, 553),  # generate_to_jsonl takes and passes the device
     ],
     "engines/annotate.py": [
         (1, 10),     # the module docstring names the port, without cv2

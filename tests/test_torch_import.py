@@ -1,9 +1,10 @@
 """Import boundary and build rules of the port: importing every module of
 multi_spatialmllm_tpu_torch loads neither jax nor the JAX package, its
 `train` and `serve` commands run end to end with that package made
-unimportable, and its `demo` command runs the data engine's ScanNet
-engines with the card's installation simulated (no jax, flax, optax,
-orbax, cv2, pandas, pyarrow or JAX package) and writes the files of a run
+unimportable, and its `demo` command runs the whole data engine (the
+ScanNet engines and the TAPVid object-movement engines) and its `tapvid`
+command runs with the card's installation simulated (no jax, flax, optax,
+orbax, cv2, pandas, pyarrow or JAX package) and write the files of a run
 with cv2 importable; a kernel build on a host without CUDA raises instead of
 falling back; a library's name changes with its shared headers; a
 misaligned operand raises before any launch; and chip_smoke.py refuses to
@@ -42,16 +43,21 @@ PORT_MODULES = [
     "multi_spatialmllm_tpu_torch.engines.base",
     "multi_spatialmllm_tpu_torch.engines.camera_movement",
     "multi_spatialmllm_tpu_torch.engines.depth_perception",
+    "multi_spatialmllm_tpu_torch.engines.draw",
     "multi_spatialmllm_tpu_torch.engines.fast_jsonl",
+    "multi_spatialmllm_tpu_torch.engines.object_movement",
     "multi_spatialmllm_tpu_torch.engines.object_perception",
     "multi_spatialmllm_tpu_torch.engines.sampling",
     "multi_spatialmllm_tpu_torch.engines.templates",
     "multi_spatialmllm_tpu_torch.engines.templates.camera_movement",
     "multi_spatialmllm_tpu_torch.engines.templates.correspondence",
     "multi_spatialmllm_tpu_torch.engines.templates.depth",
+    "multi_spatialmllm_tpu_torch.engines.templates.object_movement",
     "multi_spatialmllm_tpu_torch.engines.templates.object_perception",
     "multi_spatialmllm_tpu_torch.engines.visual_correspondence",
+    "multi_spatialmllm_tpu_torch.ingest.jpeg",
     "multi_spatialmllm_tpu_torch.ingest.native",
+    "multi_spatialmllm_tpu_torch.ingest.tapvid",
     "multi_spatialmllm_tpu_torch.pipeline",
     "multi_spatialmllm_tpu_torch.stages.coverage",
     "multi_spatialmllm_tpu_torch.stages.frame_relations",
@@ -256,29 +262,47 @@ def _blocking(blocked):
 
 
 
-def _demo(tmp_path, name, blocked):
-    """`demo --device cpu` at a tiny size in a subprocess with `blocked`
-    unimportable; the string hash that seeds the synthetic frames is
-    pinned, so two runs draw the same frames."""
-    out = tmp_path / name
+def _run_data_command(tmp_path, out, blocked, *args):
+    """A port command in a subprocess with `blocked` unimportable; the
+    string hash that seeds the synthetic frames is pinned, so two runs
+    draw the same frames."""
     env = _env()
     env["PYTHONHASHSEED"] = "0"
     proc = subprocess.run(
-        [sys.executable, "-c", _blocking(blocked), "demo", "--device", "cpu",
-         "--output", str(out), "--scenes", "2", "--images-per-scene", "8",
-         "--points-per-scene", "1500"],
+        [sys.executable, "-c", _blocking(blocked), *args, "--output",
+         str(out)],
         env=env, cwd=tmp_path, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    return out, json.loads(proc.stdout.splitlines()[-1])
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
+def _demo(tmp_path, name, blocked):
+    """`demo --device cpu` at a tiny size."""
+    out = tmp_path / name
+    return out, _run_data_command(
+        tmp_path, out, blocked, "demo", "--device", "cpu", "--scenes", "2",
+        "--images-per-scene", "8", "--points-per-scene", "1500")
+
+
+def _same_files(got_root, want_root):
+    got = {p.relative_to(got_root): p.read_bytes()
+           for p in got_root.rglob("*") if p.is_file()}
+    want = {p.relative_to(want_root): p.read_bytes()
+            for p in want_root.rglob("*") if p.is_file()}
+    assert sorted(got) == sorted(want) and got
+    for k, data in want.items():
+        assert got[k] == data, k
+    return got
 
 
 def test_demo_runs_with_the_cards_installation(tmp_path):
     """`demo --device cpu` at a tiny size with jax, flax, optax, orbax,
     cv2, pandas, pyarrow and the JAX package unimportable: it finishes,
-    writes the JSONL of every ScanNet engine and the annotated JPEGs,
-    records that no relations parquet was written, never reaches for jax,
-    the JAX package or cv2, and writes the JPEGs (and JSONL) of a run with
-    cv2, pandas and pyarrow importable."""
+    writes the JSONL of every engine (the object-movement engines' on
+    their TAPVid records too) and the annotated JPEGs, records that no
+    relations parquet was written, never reaches for jax, the JAX package
+    or cv2, and writes the JPEGs (and JSONL) of a run with cv2, pandas and
+    pyarrow importable."""
     out, report = _demo(tmp_path, "card", _CARD_BLOCKED)
     bad = {"jax", "jaxlib", "flax", "optax", "orbax", "multi_spatialmllm_tpu",
            "cv2"}
@@ -294,16 +318,37 @@ def test_demo_runs_with_the_cards_installation(tmp_path):
            .splitlines() if '"frame_relations"' in ln]
     assert rel and rel[0]["outputs"]["parquet"] is None
     engines = {p.relative_to(qa).parts[1] for p in qa.rglob("*.jsonl")}
-    assert len(engines) == 8, engines
+    assert len(engines) == 10 and {"object_movement_coord",
+                                   "object_movement_dot"} <= engines, engines
     with_cv2, _ = _demo(tmp_path, "host", BLOCKED)
-    got = {p.relative_to(qa): p.read_bytes() for p in qa.rglob("*")
-           if p.is_file()}
-    want = {p.relative_to(with_cv2 / "qa"): p.read_bytes()
-            for p in (with_cv2 / "qa").rglob("*") if p.is_file()}
+    got = _same_files(qa, with_cv2 / "qa")
     assert sum(str(k).endswith(".jpg") for k in got) > 50
-    assert sorted(got) == sorted(want)
-    for k, data in want.items():
-        assert got[k] == data, k
+    assert any("object_movement_dot" in str(k) and str(k).endswith(".jpg")
+               for k in got)
+
+
+def test_tapvid_runs_with_the_cards_installation(tmp_path):
+    """`tapvid --device cpu --dot` over npz files made here, with the card's
+    installation simulated: it never reaches for jax, the JAX package or
+    cv2, and writes the files of a run with cv2 importable."""
+    from multi_spatialmllm_tpu_torch.core.synthetic import make_tapvid_npz
+
+    (tmp_path / "data" / "adt").mkdir(parents=True)
+    (tmp_path / "meta" / "adt").mkdir(parents=True)
+    for i in range(2):
+        make_tapvid_npz(str(tmp_path / "data" / "adt" / f"c{i}.npz"),
+                        seed=90 + i)
+    (tmp_path / "meta" / "adt" / "train.txt").write_text("c0\nc1\n")
+    args = ("tapvid", "--device", "cpu", "--dot", "--data",
+            str(tmp_path / "data"), "--meta", str(tmp_path / "meta"))
+    report = _run_data_command(tmp_path, tmp_path / "card", _CARD_BLOCKED,
+                               *args)
+    bad = {"jax", "jaxlib", "multi_spatialmllm_tpu", "cv2"}
+    assert not bad & set(report["tried"]) and not report["loaded"], report
+    _run_data_command(tmp_path, tmp_path / "host", BLOCKED, *args)
+    got = _same_files(tmp_path / "card", tmp_path / "host")
+    assert sum(str(k).endswith(".jsonl") for k in got) == 2
+    assert any(str(k).endswith("_annotated.jpg") for k in got)
 
 
 def _result_lines(stdout: str):

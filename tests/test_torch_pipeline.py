@@ -1,15 +1,18 @@
 """The port's data-engine pipeline (multi_spatialmllm_tpu_torch/pipeline.py)
 against the JAX pipeline on the CPU at demo scale: the same scene store
-through `run_all()` without TAPVid records. `indices/visibility.npz`, the
-object-visibility and coverage pickles and the whole `qa/` tree (JSONL and
-annotated JPEGs) are byte-equal, the relations parquet holds equal columns
-(pitch within its ulp limit), the manifests' lines are equal but for the
-output root, a second run resumes without rerunning a unit, and TAPVid
-records are refused. Both pipelines run in one process: the synthetic
-frames are seeded from Python's string hash."""
+through `run_all()`. `indices/visibility.npz`, the object-visibility and
+coverage pickles and the whole `qa/` tree (JSONL and annotated JPEGs) are
+byte-equal, the relations parquet holds equal columns (pitch within its
+ulp limit), the manifests' lines are equal but for the output root, a
+second run resumes without rerunning a unit; with TAPVid records the
+object-movement units add the JAX pipeline's files and manifest lines, and
+the `demo` and `tapvid` commands write the JAX commands' trees. Both
+pipelines run in one process: the synthetic frames are seeded from
+Python's string hash."""
 
 import json
 import os
+import shutil
 import sys
 
 import numpy as np
@@ -17,7 +20,7 @@ import pandas as pd
 import pytest
 
 from multi_spatialmllm_tpu.core.scene import SceneStore as JStore
-from multi_spatialmllm_tpu.core.synthetic import make_scene
+from multi_spatialmllm_tpu.core.synthetic import make_scene, make_tapvid_npz
 from multi_spatialmllm_tpu.ingest import native as JN
 from multi_spatialmllm_tpu.pipeline import PipelineConfig as JConfig
 from multi_spatialmllm_tpu.pipeline import SpatialEnginePipeline as JPipe
@@ -133,9 +136,12 @@ def test_index_pickles_byte_equal(runs, name):
         assert got == g.read() and got
 
 
-def _manifest(root):
+def _manifest(root, *other_roots):
     with open(os.path.join(root, "manifest.jsonl")) as f:
-        return [json.loads(line.replace(root, "<root>")) for line in f]
+        text = f.read()
+    for r in (root, *other_roots):
+        text = text.replace(r, "<root>")
+    return [json.loads(line) for line in text.splitlines()]
 
 
 def test_manifest_lines_equal(runs):
@@ -211,20 +217,55 @@ def test_pipeline_command_against_the_jax_stages(runs, tmp_path):
                   "--device", "cpu", "--trace-dir", str(tmp_path / "t")])
 
 
-def test_run_all_refuses_tapvid_records(runs, tmp_path):
-    pipe = TPipe(TStore(runs["store"]), str(tmp_path), TConfig(**DEMO),
-                 device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, queue 1 item 10: object movement"):
-        pipe.run_all(tapvid_records={"seq0": {}})
-    assert not os.path.exists(os.path.join(str(tmp_path), "qa",
-                                           "training_data"))
+def test_run_all_with_tapvid_records_against_jax(runs, tmp_path):
+    """`run_all(tapvid_records=...)` over copies of both finished roots
+    runs the object-movement units (coord and dot, train and eval):
+    their qa trees, `_orig` dumps and frames included, are byte-equal and
+    the manifest lines they add equal; a second run rewrites nothing, and
+    new records rerun those units alone."""
+    records = {f"seq{i}": make_tapvid_npz(seed=60 + i) for i in range(2)}
+    jroot, troot = str(tmp_path / "jax"), str(tmp_path / "port")
+    shutil.copytree(runs["jroot"], jroot)
+    shutil.copytree(runs["troot"], troot)
+    before = {r: len(_manifest(r)) for r in (jroot, troot)}
+    jres = JPipe(JStore(runs["store"]), jroot,
+                 JConfig(**DEMO)).run_all(tapvid_records=records)
+    t = TPipe(TStore(runs["store"]), troot, TConfig(**DEMO), device="cpu")
+    tres = t.run_all(tapvid_records=records)
+    assert _counts(tres["object_movement"]) == _counts(jres["object_movement"])
+    assert sorted(tres["object_movement"]) == [
+        "coord_eval", "coord_train", "dot_eval", "dot_train"]
+    om = []
+    for split in ("training_data", "evaluation_data"):
+        for engine in ("object_movement_coord", "object_movement_dot"):
+            rel = os.path.join("qa", split, engine)
+            om += _assert_trees_equal(os.path.join(troot, rel),
+                                      os.path.join(jroot, rel))
+    assert any(rel.endswith("_orig.jsonl") for rel in om)
+    assert sum(rel.endswith("_annotated.jpg") for rel in om) > 10
+    added = {r: [ln for ln in _manifest(r, o)[before[r]:]
+                 if ln["stage"].startswith("engine.object_movement")]
+             for r, o in ((troot, runs["troot"]), (jroot, runs["jroot"]))}
+    assert added[troot] == added[jroot] and len(added[troot]) == 4
+    lines = _manifest(troot, runs["troot"])
+    files = {p: os.path.getmtime(p) for p in _tree(troot).values()
+             if not p.endswith("events.jsonl")}
+    again = TPipe(TStore(runs["store"]), troot, TConfig(**DEMO), device="cpu")
+    assert _counts(again.run_all(tapvid_records=records)) == _counts(tres)
+    assert _manifest(troot, runs["troot"]) == lines
+    for p, mtime in files.items():
+        assert os.path.getmtime(p) == mtime, p
+    changed = dict(records, seq1=make_tapvid_npz(seed=70))
+    again.run_all(tapvid_records=changed)
+    new = _manifest(troot, runs["troot"])[len(lines):]
+    assert sorted(r["stage"] for r in new) == sorted(
+        2 * ["engine.object_movement_coord", "engine.object_movement_dot"])
 
 
 def test_demo_command_against_the_jax_demo(tmp_path, capsys, monkeypatch):
-    """`demo --device cpu` writes the JAX `demo`'s tree (its object-
-    movement engines, run on TAPVid records, aside) and prints its summary
-    without the `object_movement` key; stderr says that TAPVid waits."""
+    """`demo --device cpu` writes the JAX `demo`'s whole tree, the
+    object-movement engines' JSONL and frames included, and prints its
+    summary."""
     from multi_spatialmllm_tpu import __main__ as jcli
 
     JN.build()
@@ -237,12 +278,44 @@ def test_demo_command_against_the_jax_demo(tmp_path, capsys, monkeypatch):
     jsum = json.loads(capsys.readouterr().out)
     cli.main(["demo", "--output", str(tmp_path / "port"), "--device", "cpu",
               *args])
-    cap = capsys.readouterr()
-    tsum = json.loads(cap.out)
-    assert "object_movement" in jsum and "object_movement" in cap.err
-    del jsum["object_movement"]
-    assert tsum == jsum
-    _assert_trees_equal(
-        str(tmp_path / "port" / "qa"), str(tmp_path / "jax" / "qa"),
-        skip=tuple(os.path.join(split, "object_movement")
-                   for split in ("training_data", "evaluation_data")))
+    tsum = json.loads(capsys.readouterr().out)
+    assert tsum == jsum and jsum["object_movement"]
+    tree = _assert_trees_equal(str(tmp_path / "port" / "qa"),
+                               str(tmp_path / "jax" / "qa"))
+    assert {rel.split(os.sep)[1] for rel in tree} >= {
+        "object_movement_coord", "object_movement_dot"}
+
+
+def _tapvid_split(root, split, ids, seed):
+    """TAPVid-3D npz files as `<root>/adt/<id>.npz` and a `--meta` dir
+    listing them."""
+    os.makedirs(os.path.join(root, "data", "adt"), exist_ok=True)
+    os.makedirs(os.path.join(root, "meta", "adt"), exist_ok=True)
+    for i, sid in enumerate(ids):
+        make_tapvid_npz(os.path.join(root, "data", "adt", f"{sid}.npz"),
+                        seed=seed + i)
+    with open(os.path.join(root, "meta", "adt", f"{split}.txt"), "w") as f:
+        f.write("".join(f"{sid}\n" for sid in ids))
+
+
+@pytest.mark.parametrize("dot", [False, True], ids=["coord", "dot"])
+@pytest.mark.parametrize("split", ["train", "val"])
+def test_tapvid_command_against_the_jax_command(tmp_path, capsys,
+                                                monkeypatch, split, dot):
+    from multi_spatialmllm_tpu import __main__ as jcli
+
+    _tapvid_split(str(tmp_path), split, ["clip_a", "clip_b"], seed=80)
+    args = ["--data", str(tmp_path / "data"), "--meta",
+            str(tmp_path / "meta"), "--split", split] + (["--dot"] * dot)
+    monkeypatch.setattr(sys, "argv", ["multi_spatialmllm_tpu", "tapvid",
+                                      "--output", str(tmp_path / "jax"),
+                                      *args])
+    jcli.main()
+    jout = capsys.readouterr().out
+    cli.main(["tapvid", "--output", str(tmp_path / "port"), "--device",
+              "cpu", *args])
+    assert capsys.readouterr().out == jout and "samples" in jout
+    tree = _assert_trees_equal(str(tmp_path / "port"), str(tmp_path / "jax"))
+    assert sum(rel.endswith(".jsonl") for rel in tree) == (
+        4 if split == "val" else 2)
+    assert any(rel.endswith("_annotated.jpg") for rel in tree) == dot
