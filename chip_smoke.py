@@ -151,6 +151,30 @@ result line):
    `<data>/adt/`, train and val, with and without `--dot`, on the card
    and on the CPU: every file byte-equal. Each number beside the card's
    name and power limit.
+18. Real inputs on the card without cv2 (no kernel of its own but K1 and
+   K7 on the serve path; the native inflate and codec, the PNG codec and
+   the INTER_AREA resize on the host): (a) bench.py's ingest_l1
+   configuration (make_synthetic_sens, 300 frames of 480 x 640, seed 5):
+   export_posed_images and build_images_info at frame_skip 1, their rates
+   under `ingest_sens_export` and `ingest_info_update` (frames/s, median
+   of STAGE_PASSES), the written JPEGs, PNGs, pose texts and images_info
+   against the JAX package's digests (scripts/gen_ingest_golden.py, made
+   with cv2; PNG bytes depend on the zlib, so under another zlib version
+   the PNGs' pixels); (b) the real-scale scene (bench.py's 296 images of
+   968 x 1296, depth 480 x 640, 202,400 points, 8 objects) written as a
+   ScanNet scan (a 1,480-frame .sens, ply, segments, aggregation, meta),
+   `ingest-scannet`, `ingest-sens --frame-skip 5` and `pipeline` on the
+   card, each timed, the L3 stages by their events too, and the ingested
+   pack equal to its source; (c) two small scans (240 x 320, 40 frames,
+   4,000 points) through ingest-scannet, ingest-sens, coverage over 2
+   shards then --merge, unsharded coverage and pipeline, on the card and
+   on the CPU: every pickle, npz, npy, JSONL and JPEG byte-equal, the
+   merged coverage equal to the unsharded run, packs, scenes_info and
+   merged coverage equal to the JAX digests; (d) 968 x 1296 and 640 x 480
+   frames written as JPEG and PNG: tile_image's tiles equal cv2's by
+   digest, and `serve` (tiny, float32) on request lines naming those files
+   gives the same greedy tokens on the card and the CPU, K1 and K7
+   launched. Each number beside the card's name and power limit.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -182,7 +206,7 @@ N_SERVE = 16
 TRAIN_LAYERS = 8         # phase 9: LLM depth cut from 32 (see PERF.md)
 # phase 13: the train CLI's --max-tiles and --tiles-per-image defaults
 MOE_MAX_TILES, MOE_TILES_PER_IMAGE = 14, 6
-N_PHASES = 17
+N_PHASES = 18
 # phase 9's steps on one repeated batch run a fresh optimizer on the train
 # CLI's default schedule (--lr 1e-5, --warmup 100, --steps 1000)
 REPEAT_LR, REPEAT_WARMUP, REPEAT_TOTAL = 1e-5, 100, 1000
@@ -2045,7 +2069,10 @@ CORR_COOR_SAMPLES = 50_000
 
 
 def median(xs):
-    return sorted(xs)[len(xs) // 2]
+    """bench.py's `_stats` median: the middle pass, or the mean of the two
+    middle passes."""
+    v, n = sorted(xs), len(xs)
+    return v[n // 2] if n % 2 else 0.5 * (v[n // 2 - 1] + v[n // 2])
 
 
 def device_peak(torch, fn):
@@ -2509,6 +2536,407 @@ def phase_object_movement(torch, cli, card):
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 18: real inputs on the card without cv2 (the ingest commands, the
+# sharded coverage command, frames read from disk for `serve`)
+# --------------------------------------------------------------------------
+
+REAL_SKIP = 5            # ScanNet's D5: 1,480 .sens frames for 296 images
+EXPORT_PASSES = 2        # bench.py's ingest_l1: two timed export passes
+PIPELINE_STAGES = ("visibility", "frame_relations", "object_visibility",
+                   "coverage", "run_camera_movement", "run_depth_perception",
+                   "run_visual_correspondence", "run_object_perception")
+SERVE_FLAGS = ["--config", "tiny", "--vocab-size", "800",
+               "--max-new-tokens", "8", "--slots", "2", "--page-size", "16",
+               "--num-pages", "96", "--max-prompt-len", "512"]
+
+
+def ingest_golden():
+    """scripts/gen_ingest_golden.py: the phase's inputs, digest functions
+    and the stored file (made with the JAX package and cv2)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "gen_ingest_golden.py")
+    spec = importlib.util.spec_from_file_location("gen_ingest_golden", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def png_gate(what, bytes_equal, pixels_equal, stored_zlib):
+    """PNG bytes equal the JAX digest, or, where this machine's zlib is
+    another version than the one that made the digests (the deflate
+    stream may differ), the pixels do. Returns how the gate held."""
+    import zlib
+
+    if bytes_equal:
+        return "bytes"
+    if zlib.ZLIB_RUNTIME_VERSION != stored_zlib and pixels_equal:
+        log(f"  {what}: PNG bytes differ from cv2's under zlib "
+            f"{zlib.ZLIB_RUNTIME_VERSION} (digests made with {stored_zlib}); "
+            f"pixels equal")
+        return "pixels"
+    fail(f"{what}: PNG files differ from the JAX digests")
+
+
+def export_check(G, stored, tmp, card):
+    """(a) bench.py's ingest_l1: export_posed_images and build_images_info
+    at frame_skip 1 over 300 frames of 480 x 640, their rates, and the
+    written files and images_info against the JAX digests."""
+    from multi_spatialmllm_tpu_torch.ingest.posed_images import (
+        build_images_info,
+    )
+    from multi_spatialmllm_tpu_torch.ingest.sens import export_posed_images
+
+    os.makedirs(tmp)
+    t0 = time.perf_counter()
+    sens = G.port_export_sens(tmp)
+    log(f"  make_synthetic_sens ({G.EXPORT}): {time.perf_counter() - t0:.1f}"
+        f" s, {os.path.getsize(sens) / 1e6:.1f} MB")
+    export_posed_images(sens, os.path.join(tmp, "warm"), frame_skip=10)
+    rates, dirs = [], []
+    for p in range(EXPORT_PASSES):
+        dirs.append(os.path.join(tmp, f"posed{p}", G.EXPORT_DIR))
+        t0 = time.perf_counter()
+        n = export_posed_images(sens, dirs[-1], frame_skip=1)
+        rates.append(n / (time.perf_counter() - t0))
+    out = {"ingest_sens_export": median(rates)}
+    log(f"  ingest_sens_export: {n} frames a pass (jpeg copy, 16-bit PNG, "
+        f"pose), median {out['ingest_sens_export']:,.1f} frames/s "
+        f"({[round(r, 1) for r in rates]}); {card}")
+    build_images_info(dirs[0], frame_skip=1)
+    rates = []
+    for _ in range(STAGE_PASSES):
+        t0 = time.perf_counter()
+        info = build_images_info(dirs[0], frame_skip=1)
+        rates.append(info["num_posed_images"] / (time.perf_counter() - t0))
+    out["ingest_info_update"] = median(rates)
+    log(f"  ingest_info_update: {info['num_posed_images']} frames, median "
+        f"{out['ingest_info_update']:,.1f} frames/s "
+        f"({[round(r, 1) for r in rates]}); {card}")
+    got = G.port_export_digests(dirs[0], n)
+    want = stored["export"]
+    for key in ("frames", "jpg", "txt", "images_info"):
+        if got[key] != want[key]:
+            fail(f"export: {key} differs from the JAX digest")
+    out["png_gate"] = png_gate("export", got["png"] == want["png"],
+                               got["png_pixels"] == want["png_pixels"],
+                               stored["zlib"])
+    log(f"  export: the {n} JPEGs, pose texts and images_info equal the JAX "
+        f"package's by digest, the PNGs by {out['png_gate']}")
+    return out
+
+
+def check_pack(np, got, scene):
+    """The ingested pack against the scene it was written from: depth bit
+    for bit, poses, intrinsics and unaligned points at float32, instance
+    ids, categories and image size equal, aligned points and boxes within
+    float32 rounding (1e-5 m)."""
+    def f32(a):
+        return np.asarray(a, np.float32).astype(np.float64)
+
+    checks = {
+        "depth": np.array_equal(got.depth_maps, scene.depth_maps),
+        "poses": np.array_equal(got.extrinsics, f32(scene.extrinsics)),
+        "intrinsic": np.array_equal(got.intrinsic, f32(scene.intrinsic)),
+        "unaligned points": np.array_equal(got.points_unaligned[:, :3],
+                                           f32(scene.points_unaligned)),
+        "instance ids": np.array_equal(got.instance_ids, scene.instance_ids),
+        "categories": got.categories == scene.categories,
+        "image size": tuple(got.image_hw) == tuple(scene.image_hw),
+        "aligned points": np.allclose(got.points_aligned[:, :3],
+                                      scene.points_aligned, rtol=0,
+                                      atol=1e-5),
+        "boxes": all(np.allclose(a, b, rtol=0, atol=1e-5) for a, b in (
+            (got.aligned_bboxes, scene.aligned_bboxes),
+            (got.unaligned_bboxes, scene.unaligned_bboxes)))}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"the ingested scene differs from its source in: {bad}")
+    return list(checks)
+
+
+class StageClock:
+    """Host seconds of each outermost call of the pipeline's stage and
+    engine methods while it is entered (where a `run_all` spends its
+    time; a stage reached from inside another is counted in that one)."""
+
+    def __init__(self, cls):
+        self.cls, self.seconds, self._depth, self._saved = cls, {}, 0, {}
+
+    def __enter__(self):
+        for name in PIPELINE_STAGES:
+            self._saved[name] = fn = getattr(self.cls, name)
+            setattr(self.cls, name, self._timed(name, fn))
+        return self
+
+    def _timed(self, name, fn):
+        def run(*args, **kwargs):
+            self._depth += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self._depth -= 1
+                if self._depth == 0:
+                    self.seconds[name] = (self.seconds.get(name, 0.0)
+                                          + time.perf_counter() - t0)
+        return run
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.cls, name, fn)
+
+
+def realscale_ingest(torch, np, cli, tmp, card):
+    """(b) the real-scale scene written as a scan (1,480 .sens frames),
+    `ingest-scannet`, `ingest-sens --frame-skip 5`, then `pipeline` on the
+    card; each timed by the host clock, the L3 stages also by their
+    events."""
+    from multi_spatialmllm_tpu_torch.core.scene import Scene
+    from multi_spatialmllm_tpu_torch.core.synthetic import make_scene
+    from multi_spatialmllm_tpu_torch.ingest.synthetic_scan import write_scan
+    from multi_spatialmllm_tpu_torch.pipeline import SpatialEnginePipeline
+
+    out = {}
+    scene = make_scene(**{**REAL_SCENE, "scene_id": "scene0707_00"})
+    scans = os.path.join(tmp, "scans")
+    t0 = time.perf_counter()
+    write_scan(scans, scene, frame_skip=REAL_SKIP)
+    out["write_s"] = time.perf_counter() - t0
+    sens = os.path.join(scans, scene.scene_id, f"{scene.scene_id}.sens")
+    log(f"  real-scale scan written in {out['write_s']:.1f} s: "
+        f"{len(scene.image_ids) * REAL_SKIP} .sens frames "
+        f"({os.path.getsize(sens) / 1e6:,.1f} MB), "
+        f"{len(scene.points_unaligned):,} vertices, "
+        f"{len(scene.categories)} objects")
+
+    def timed(key, argv):
+        t0 = time.perf_counter()
+        cli.main(argv)
+        out[key] = time.perf_counter() - t0
+        log(f"  {' '.join(os.path.basename(a) for a in argv)}: "
+            f"{out[key]:.2f} s (host clock); {card}")
+
+    timed("ingest_scannet_s", ["ingest-scannet", "--scans", scans,
+                               "--output", os.path.join(tmp, "exp"),
+                               "--device", "cuda"])
+    timed("ingest_sens_s", ["ingest-sens", "--scans", scans, "--frame-skip",
+                            str(REAL_SKIP), "--output",
+                            os.path.join(tmp, "packs"), "--device", "cuda"])
+    got = Scene.load_npz(os.path.join(tmp, "packs",
+                                      f"{scene.scene_id}.npz"))
+    held = check_pack(np, got, scene)
+    log(f"  the ingested pack equals its source ({', '.join(held)}; "
+        f"{got.depth_maps.shape[0]} images)")
+    del got
+    run = os.path.join(tmp, "run")
+    with StageClock(SpatialEnginePipeline) as clock:
+        timed("pipeline_s", ["pipeline", "--scenes",
+                             os.path.join(tmp, "packs"), "--output", run,
+                             "--device", "cuda"])
+    out["stages_s"] = clock.seconds
+    log("  where the pipeline's seconds go (host clock, outermost calls): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in clock.seconds.items()))
+    with open(os.path.join(run, "events.jsonl")) as f:
+        events = [json.loads(ln) for ln in f]
+    for e in events:
+        if e.get("kind") == "summary":
+            out[f"{e['stage']}_s"] = e["elapsed_s"]
+    log(f"  L3 stages by their events: visibility "
+        f"{out.get('visibility_s')} s, frame relations "
+        f"{out.get('frame_relations_s')} s")
+    n_jsonl = sum(f.endswith(".jsonl") for _, _, fs in os.walk(
+        os.path.join(run, "qa")) for f in fs)
+    if not n_jsonl:
+        fail("the real-scale pipeline wrote no JSONL")
+    out["jsonl"] = n_jsonl
+    return out
+
+
+def tree_bytes(root, keep):
+    return {os.path.relpath(os.path.join(d, f), root): os.path.join(d, f)
+            for d, _, fs in os.walk(root) for f in fs if keep(f)}
+
+
+def small_card_vs_cpu(G, stored, cli, tmp, card):
+    """(c) two small scans through ingest-scannet, ingest-sens, coverage
+    (2 shards, --merge, and unsharded) and pipeline, on the card and on
+    the CPU: every pickle, npz, npy and JSONL (and annotated JPEG)
+    byte-equal; the merged coverage equal to the unsharded run; the packs,
+    scenes_info and merged coverage equal to the JAX digests."""
+    scans = os.path.join(tmp, "scans")
+    G.small_scans(scans)
+    roots = {}
+    for dev in ("cuda", "cpu"):
+        root = roots[dev] = os.path.join(tmp, f"small_{dev}")
+        t0 = time.perf_counter()
+        for cmd in G.small_commands(scans, root):
+            cli.main([*cmd, "--device", dev])
+        cli.main(["coverage", "--scenes", os.path.join(root, "packs"),
+                  "--output", os.path.join(root, "whole"), "--device", dev])
+        cli.main(["pipeline", "--scenes", os.path.join(root, "packs"),
+                  "--output", os.path.join(root, "run"), "--device", dev])
+        log(f"  small run on {dev}: {time.perf_counter() - t0:.2f} s")
+    keep = (".pkl", ".npz", ".npy", ".jsonl", ".jpg", ".json")
+    files = {}
+    for dev, root in roots.items():
+        files[dev] = {}
+        for sub in ("exp", "packs", "cov", "whole",
+                    os.path.join("run", "qa"), os.path.join("run", "indices")):
+            files[dev].update({os.path.join(sub, k): v for k, v in tree_bytes(
+                os.path.join(root, sub), lambda f: f.endswith(keep)).items()})
+    if sorted(files["cuda"]) != sorted(files["cpu"]) or not files["cpu"]:
+        fail(f"small run: different files card vs CPU: "
+             f"{sorted(set(files['cuda']) ^ set(files['cpu']))[:5]}")
+    for rel, path in files["cpu"].items():
+        with open(files["cuda"][rel], "rb") as f, open(path, "rb") as g:
+            if f.read() != g.read():
+                fail(f"small run: {rel} differs card vs CPU")
+    for dim in ("height", "length", "width"):
+        merged = G.pickle_sha(os.path.join(
+            roots["cuda"], "cov", f"merged_train_object_coverage_{dim}.pkl"))
+        whole = G.pickle_sha(os.path.join(
+            roots["cuda"], "whole",
+            f"train_object_coverage_{dim}_shard000of001.pkl"))
+        if merged != whole:
+            fail(f"coverage {dim}: the merged shards differ from an "
+                 f"unsharded run")
+    got = G.small_digests(roots["cuda"])
+    bad = [k for k, v in stored["small"].items() if got.get(k) != v]
+    if bad:
+        fail(f"small run: {bad} differ from the JAX digests")
+    kinds = {}
+    for rel in files["cpu"]:
+        ext = rel.rsplit(".", 1)[-1]
+        kinds[ext] = kinds.get(ext, 0) + 1
+    log(f"  small run card vs CPU: {len(files['cpu'])} files byte-equal "
+        f"({kinds}); merged coverage == unsharded; packs, scenes_info and "
+        f"merged coverage == the JAX digests; {card}")
+    return len(files["cpu"])
+
+
+def frames_and_serve(torch, np, G, stored, cli, tmp, card, kernels):
+    """(d) 968 x 1296 and 640 x 480 frames written as JPEG and PNG:
+    tile_image's tiles of each equal the digests of cv2's; then `serve`
+    at the tiny config in float32 (as phase 5) with request lines naming
+    those files, on the card and on the CPU: the same greedy tokens, and
+    each of `kernels` launched on the card's run. Returns the launches."""
+    import argparse
+    import contextlib
+    import io
+
+    from multi_spatialmllm_tpu_torch.models import mllm as M
+
+    frames = os.path.join(tmp, "frames")
+    os.makedirs(frames)
+    got = G.port_tiles(frames)
+    for name, want in stored["tiles"].items():
+        for key, v in want.items():
+            if key == "file" and name.endswith(".png"):
+                png_gate(name, got[name][key] == v,
+                         got[name]["pixels"] == want["pixels"],
+                         stored["zlib"])
+            elif got[name][key] != v:
+                fail(f"frames: {name} {key} differs from cv2's digest")
+    log(f"  frames: {len(got)} files read as cv2.imread does and tiled "
+        f"({', '.join(G.TILE_SIZES)} tiles) equal to cv2's by digest")
+    names = sorted(got)
+    lines = [json.dumps({"id": f"img{i}", "image": [n],
+                         "text": "<image>\nHow far is the chair?"})
+             for i, n in enumerate(names)]
+    lines.append(json.dumps({"id": "pair", "image": names[:2],
+                             "text": "<image>\n<image>\nHow did the "
+                                     "camera move?"}))
+    tiny = M.CONFIGS["tiny"]
+    M.CONFIGS["tiny"] = lambda: M.with_dtype(tiny(), "float32")
+    try:
+        cfg = cli._config(argparse.Namespace(config="tiny", vocab_size=800))
+        model = M.MultiFrameMLLM(cfg)
+        M.init_random_weights(model, SEED)
+        ckpt = os.path.join(tmp, "tiny.pt")
+        torch.save(model.state_dict(), ckpt)
+        tokens = {}
+        for dev in ("cuda", "cpu"):
+            if dev == "cuda":
+                for k in kernels:
+                    k.launches = 0
+            stdin, buf = sys.stdin, io.StringIO()
+            sys.stdin = io.StringIO("".join(ln + "\n" for ln in lines))
+            try:
+                with contextlib.redirect_stdout(buf):
+                    cli.main(["serve", "--checkpoint", ckpt, "--device", dev,
+                              "--images-root", frames, *SERVE_FLAGS])
+            finally:
+                sys.stdin = stdin
+            if dev == "cuda":
+                launches = {k.name: k.launches for k in kernels}
+            res = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+            errors = [r for r in res if "error" in r]
+            if errors or len(res) != len(lines):
+                fail(f"serve on {dev}: {errors[:2] or len(res)}")
+            tokens[dev] = {r["id"]: r["token_ids"] for r in res}
+    finally:
+        M.CONFIGS["tiny"] = tiny
+    if tokens["cuda"] != tokens["cpu"]:
+        diff = [k for k in tokens["cpu"] if tokens["cuda"][k] != tokens["cpu"][k]]
+        fail(f"serve on frames from disk: greedy tokens differ card vs CPU "
+             f"for {diff}")
+    if min(launches.values()) <= 0:
+        fail(f"a kernel never launched on the frames' serve path: {launches}")
+    n_tok = sum(len(t) for t in tokens["cpu"].values())
+    log(f"  serve (tiny f32) on {len(lines)} requests naming those files: "
+        f"{n_tok} greedy tokens equal card vs CPU; launches {launches}; "
+        f"{card}")
+    return launches
+
+
+def phase_real_inputs(torch, cli, card, kernels):
+    """Phase 18: the ingest export and info update at bench.py's
+    configuration, the real-scale scan through ingest-scannet, ingest-sens
+    and pipeline on the card, the small runs card vs CPU and against the
+    JAX digests, and serve on frames read from disk."""
+    import tempfile
+    import zlib
+
+    import numpy as np
+
+    from multi_spatialmllm_tpu_torch.ingest import native
+
+    if not native.native_available():
+        fail(f"the native library did not build: {native.build_error}")
+    G = ingest_golden()
+    with open(G.OUT) as f:
+        stored = json.load(f)
+    log(f"  zlib {zlib.ZLIB_RUNTIME_VERSION} (the JAX digests were made with "
+        f"{stored['zlib']}, cv2 {stored['cv2']}); numpy {np.__version__}")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out["export"] = export_check(G, stored, os.path.join(tmp, "a"), card)
+        out["export_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["real"] = realscale_ingest(torch, np, cli, os.path.join(tmp, "b"),
+                                       card)
+        out["real_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["small_files"] = small_card_vs_cpu(G, stored, cli,
+                                               os.path.join(tmp, "c"), card)
+        out["small_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["serve"] = frames_and_serve(torch, np, G, stored, cli,
+                                        os.path.join(tmp, "d"), card, kernels)
+        out["frames_s"] = time.perf_counter() - t0
+    log(f"  phase 18 parts: export {out['export_s']:.1f} s, real-scale "
+        f"{out['real_s']:.1f} s, small {out['small_s']:.1f} s, frames and "
+        f"serve {out['frames_s']:.1f} s")
+    out["rates"] = {k: out["export"][k] for k in ("ingest_sens_export",
+                                                  "ingest_info_update")}
+    return out
+
+
 def kernel_entry(name, source, replaces, launches_by_path, err, timing,
                  library_ms):
     """One entry of the `kernels` line: `timing` is (ms, plain ms,
@@ -2682,6 +3110,18 @@ def main(argv=None):
         log(f"  rates under bench.py's keys: "
             f"{json.dumps(res['tapvid']['rates'])}; {card}")
         torch.cuda.empty_cache()
+    if 18 in phases:
+        head(18, "real inputs without cv2: the ingest export at bench.py's "
+                 "configuration, the real-scale scan through ingest and "
+                 "pipeline on the card, the small runs card vs CPU and "
+                 "against the JAX digests, serve on frames from disk")
+        t0 = time.perf_counter()
+        res["real_inputs"] = phase_real_inputs(
+            torch, cli, card, [A.FLASH_FWD, P.PAGED_DECODE])
+        log(f"  rates under bench.py's keys: "
+            f"{json.dumps(res['real_inputs']['rates'])}; phase 18 took "
+            f"{time.perf_counter() - t0:.1f} s; {card}")
+        torch.cuda.empty_cache()
     log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     if phases != set(range(3, N_PHASES + 1)):
@@ -2700,8 +3140,9 @@ def main(argv=None):
     def by_path(name, **paths):
         return {p: launches[name] for p, launches in paths.items()}
 
+    frames = res["real_inputs"]["serve"]
     flash = dict(serve=res["serve"], train=train, moe_serve=moe_serve,
-                 moe_train=moe_train)
+                 moe_train=moe_train, frames_serve=frames)
     kernels = [
         kernel_entry("flash_fwd", "flash_fwd.cu",
                      f"{jax_attn}:92 (K1); :483 (K4, streaming)",
@@ -2721,7 +3162,8 @@ def main(argv=None):
                      tr["lib_bwd"]),
         kernel_entry("paged_decode", "paged_decode.cu",
                      "multi_spatialmllm_tpu/ops/paged_attention.py:95",
-                     by_path("paged_decode", serve=res["serve"]), k7_err,
+                     by_path("paged_decode", serve=res["serve"],
+                             frames_serve=frames), k7_err,
                      k7_timing(k7), None),
         kernel_entry("paged_decode_int8", "paged_decode.cu",
                      "multi_spatialmllm_tpu/ops/paged_attention.py:95 "

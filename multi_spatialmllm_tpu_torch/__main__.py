@@ -4,7 +4,11 @@ Commands:
 
   demo      synthesize scenes and TAPVid records and run the data engine
             end to end: the ScanNet stages and engines, then object movement
+  ingest-scannet  export raw ScanNet scans (mesh, segments, aggregation,
+            meta) to the reference's instance-data layout + scenes_info.pkl
+  ingest-sens  ScanNet `.sens` streams + scans -> scene packs
   pipeline  the ScanNet stages and engines over an existing scene store
+  coverage  sharded, resumable object-coverage runs, and --merge
   tapvid    the object-movement engines over TAPVid-3D npz records
   serve     JSONL serving loop (stdin -> stdout) over the paged batcher
   train     SFT on a data-mixture meta JSON (one device) -> rolling torch
@@ -12,12 +16,14 @@ Commands:
 
 The data-engine commands write the trees of the JAX package's commands of
 the same names, on `--device` (the card unless the caller asks for the
-CPU), with no cv2 on their path.
+CPU), with no cv2 on their path; `serve` and `train` read JPEG and PNG
+frames without cv2 too (ingest/image.py, models/resize.py).
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import itertools
 import json
 import os
@@ -35,12 +41,12 @@ def log_event(kind: str, **fields) -> None:
 
 
 def _read_image(path: str) -> np.ndarray:
-    import cv2
+    """RGB uint8 `[H, W, 3]` of a JPEG or PNG file, chosen by its magic
+    bytes: `cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)` without
+    cv2. Any other format raises."""
+    from .ingest.image import COLOR, imread
 
-    img = cv2.imread(path)
-    if img is None:
-        raise ValueError(f"unreadable image: {path}")
-    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    return np.ascontiguousarray(imread(path, COLOR)[..., ::-1])
 
 
 def make_request_builder(cfg, tokenizer, batcher, tiles_for: Callable):
@@ -314,8 +320,7 @@ def _refuse_unported_train_flags(args) -> None:
         "--eval-images-root": args.eval_images_root is not None,
         "--eval-limit": args.eval_limit,
         "--eval-max-new-tokens": args.eval_max_new_tokens is not None,
-        "--mc-logprob": args.mc_logprob, "--async-save": args.async_save,
-        "--trace-dir": args.trace_dir}
+        "--mc-logprob": args.mc_logprob, "--async-save": args.async_save}
     asked = [flag for flag, val in unported.items() if val]
     if asked:
         raise NotImplementedError(
@@ -421,10 +426,13 @@ def cmd_train(args) -> None:
         # the mixture replays deterministically: skip the trained batches
         for _ in itertools.islice(batches, start_step):
             pass
-    summary, history = train_steps(step_fn, batches, args.steps, device,
-                                   start_step=start_step,
-                                   log_every=args.log_every,
-                                   after_step=after_step)
+    from .utils.profiling import device_trace
+
+    with device_trace(args.trace_dir):
+        summary, history = train_steps(step_fn, batches, args.steps, device,
+                                       start_step=start_step,
+                                       log_every=args.log_every,
+                                       after_step=after_step)
     if args.output:
         save(start_step + len(history))
     print(json.dumps({**summary, "devices": 1, "device": str(device)}))
@@ -465,17 +473,111 @@ def cmd_demo(args) -> None:
     print(json.dumps(summary, indent=2, default=str))
 
 
+def cmd_ingest_scannet(args) -> None:
+    """Raw ScanNet scans (`<scans>/scene*/`) -> the reference's
+    instance-data layout under `--output` and its `scenes_info.pkl`."""
+    from .ingest.scannet_export import batch_export
+
+    scan_dirs = sorted(glob.glob(os.path.join(args.scans, "scene*")))
+    if args.limit:
+        scan_dirs = scan_dirs[: args.limit]
+    info = batch_export(scan_dirs, args.output,
+                        label_map_path=args.label_map,
+                        info_pkl_path=os.path.join(
+                            args.output, "scenes_info.pkl"))
+    print(f"exported {len(info)} scans to {args.output}")
+
+
+def cmd_ingest_sens(args) -> None:
+    """`<scans>/<scan>/<scan>.sens` plus the scan's mesh and annotations ->
+    one scene pack `<output>/<scan>.npz` each, every `--frame-skip`-th
+    frame kept (depth inflated by the native library)."""
+    from .ingest.posed_images import scene_from_sens
+    from .ingest.scannet_export import export_scene_arrays
+
+    os.makedirs(args.output, exist_ok=True)
+    sens_files = sorted(glob.glob(os.path.join(args.scans, "*", "*.sens")))
+    if args.limit:
+        sens_files = sens_files[: args.limit]
+    count = 0
+    for sens_path in sens_files:
+        scan = os.path.basename(os.path.dirname(sens_path))
+        scan_dir = os.path.dirname(sens_path)
+        arrays = export_scene_arrays(
+            os.path.join(scan_dir, f"{scan}_vh_clean_2.ply"),
+            os.path.join(scan_dir, f"{scan}.aggregation.json"),
+            os.path.join(scan_dir, f"{scan}_vh_clean_2.0.010000.segs.json"),
+            os.path.join(scan_dir, f"{scan}.txt"))
+        scene = scene_from_sens(sens_path, scan, arrays,
+                                frame_skip=args.frame_skip)
+        scene.save_npz(os.path.join(args.output, f"{scan}.npz"))
+        count += 1
+    print(f"built {count} scene packs in {args.output}")
+
+
+def cmd_coverage(args) -> None:
+    """Resumable sharded coverage runs (find_object_coverage.sh:24-48
+    parity): each invocation takes its round-robin slice of the store's
+    scenes, runs object visibility (M3) and coverage (M4) on `--device`
+    and writes per-dimension shard pickles; `--merge` combines the shards
+    into the reference's merged_{split}_object_coverage_{dim}.pkl files."""
+    from .core.io import dump_pickle, load_pickle
+    from .core.scene import SceneStore
+    from .parallel.distributed import host_shard
+    from .stages.coverage import build_object_coverage, merge_coverage_shards
+    from .stages.object_visibility import build_object_visibility
+    from .utils.profiling import device_trace
+
+    os.makedirs(args.output, exist_ok=True)
+    dims = ("height", "length", "width")
+    if args.merge:
+        for dim in dims:
+            shards = sorted(glob.glob(os.path.join(
+                args.output, f"{args.split}_object_coverage_{dim}_shard*.pkl")))
+            merged = merge_coverage_shards(load_pickle(p) for p in shards)
+            out = os.path.join(
+                args.output,
+                f"merged_{args.split}_object_coverage_{dim}.pkl")
+            dump_pickle(merged, out)
+            print(json.dumps({"dim": dim, "shards": len(shards),
+                              "scenes": len(merged), "output": out}))
+        return
+
+    store = SceneStore(args.scenes)
+    scene_ids = host_shard(store.scene_ids(), args.shard_index,
+                           args.num_shards)
+    shard_tag = f"shard{args.shard_index:03d}of{args.num_shards:03d}"
+    paths = {dim: os.path.join(
+        args.output, f"{args.split}_object_coverage_{dim}_{shard_tag}.pkl")
+        for dim in dims}
+    if all(os.path.exists(p) for p in paths.values()) and not args.force:
+        print(json.dumps({"shard": shard_tag, "status": "already done"}))
+        return
+    scenes = [store.get(sid) for sid in scene_ids]
+    with device_trace(args.trace_dir):
+        ov = build_object_visibility(scenes, device=args.device)
+        h, l, w = build_object_coverage(scenes, ov, seed=args.seed,
+                                        device=args.device)
+    for dim, result in zip(dims, (h, l, w)):
+        dump_pickle(result, paths[dim])
+    print(json.dumps({"shard": shard_tag, "scenes": len(scenes),
+                      "outputs": list(paths.values())}))
+
+
 def cmd_pipeline(args) -> None:
-    """`run_all` over an existing scene store on `--device`."""
+    """`run_all` over an existing scene store on `--device`; `--trace-dir`
+    wraps the L3 stages (visibility, frame relations) in a torch.profiler
+    trace, as the JAX command wraps them in a jax.profiler trace."""
     from .core.scene import SceneStore
     from .pipeline import PipelineConfig, SpatialEnginePipeline
+    from .utils.profiling import device_trace
 
-    if args.trace_dir:
-        raise NotImplementedError(
-            "--trace-dir is not ported yet (ROADMAP.md, queue 1 item 18)")
     store = SceneStore(args.scenes)
     pipe = SpatialEnginePipeline(store, args.output, PipelineConfig(),
                                  device=args.device)
+    with device_trace(args.trace_dir):
+        pipe.visibility()
+        pipe.frame_relations()
     results = pipe.run_all()
     print(json.dumps({k: str(v) for k, v in results.items()}, indent=2))
 
@@ -531,15 +633,49 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_demo)
 
+    p = sub.add_parser("ingest-scannet", help="export raw ScanNet scans")
+    p.add_argument("--scans", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--label-map", default=None)
+    p.add_argument("--limit", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="accepted for symmetry: the export is host work")
+    p.set_defaults(fn=cmd_ingest_scannet)
+
+    p = sub.add_parser("ingest-sens", help=".sens -> scene packs")
+    p.add_argument("--scans", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--frame-skip", type=int, default=5)
+    p.add_argument("--limit", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="accepted for symmetry: the ingest is host work")
+    p.set_defaults(fn=cmd_ingest_sens)
+
     p = sub.add_parser("pipeline",
                        help="the data engine's ScanNet engines over a "
                             "scene store")
     p.add_argument("--scenes", required=True)
     p.add_argument("--output", required=True)
     p.add_argument("--trace-dir", default=None,
-                   help="not ported yet: raises NotImplementedError")
+                   help="torch.profiler trace dir for the L3 stages")
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_pipeline)
+
+    p = sub.add_parser("coverage",
+                       help="sharded object-coverage runs + merge")
+    p.add_argument("--scenes", help="scene store (shard mode)")
+    p.add_argument("--output", required=True)
+    p.add_argument("--split", default="train")
+    p.add_argument("--shard-index", type=int, default=0)
+    p.add_argument("--num-shards", type=int, default=1)
+    p.add_argument("--merge", action="store_true",
+                   help="merge existing shard pkls instead of computing")
+    p.add_argument("--force", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--trace-dir", default=None,
+                   help="torch.profiler trace dir for M3/M4")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_coverage)
 
     p = sub.add_parser("tapvid", help="object-movement engines over npz")
     p.add_argument("--data", required=True)
@@ -651,7 +787,8 @@ def main(argv=None) -> None:
     p.add_argument("--expert-parallel", type=int, default=1)
     p.add_argument("--fsdp", action="store_true")
     p.add_argument("--async-save", action="store_true")
-    p.add_argument("--trace-dir", default=None)
+    p.add_argument("--trace-dir", default=None,
+                   help="torch.profiler trace dir for the training steps")
     p.add_argument("--eval-jsonl", default=None)
     p.add_argument("--eval-every", type=int, default=0)
     # (no defaults here: any value given is refused)

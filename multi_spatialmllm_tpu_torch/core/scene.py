@@ -215,7 +215,7 @@ class Scene:
         so reference-compatible consumers (or the reference code itself,
         for parity tests) can read it.
         """
-        import cv2
+        from ..ingest import jpeg, png   # cv2.imwrite's bytes, without cv2
 
         inst_dir = os.path.join(root, "scannet_instance_data", self.scene_id)
         img_dir = os.path.join(root, "posed_images", self.scene_id)
@@ -234,9 +234,9 @@ class Scene:
                    fmt="%f")
         for i, iid in enumerate(self.image_ids):
             img = rng.integers(0, 255, size=(h, w, 3), dtype=np.uint8)
-            cv2.imwrite(os.path.join(img_dir, f"{iid}.jpg"), img)
-            cv2.imwrite(os.path.join(img_dir, f"{iid}.png"),
-                        self.depth_maps[i].astype(np.uint16))
+            jpeg.imwrite(os.path.join(img_dir, f"{iid}.jpg"), img, 95)
+            png.imwrite_png(os.path.join(img_dir, f"{iid}.png"),
+                            self.depth_maps[i].astype(np.uint16))
             np.savetxt(os.path.join(img_dir, f"{iid}.txt"),
                        self.extrinsics[i], fmt="%f")
             images_info[iid] = {
@@ -333,7 +333,7 @@ def load_reference_scene(
     info_handler.py:7-30); image/depth files follow extract_posed_images.py
     (`{image_id}.jpg`, 16-bit `{image_id}.png`, pose txt).
     """
-    import cv2
+    from ..ingest import image, png   # cv2.imread's pixels, without cv2
 
     images_info = info["images_info"]
     image_ids = sorted(images_info.keys())
@@ -345,11 +345,11 @@ def load_reference_scene(
     image_hw = None
     for iid in image_ids:
         dpath = os.path.join(posed_images_root, scene_id, f"{iid}.png")
-        depth_maps.append(cv2.imread(dpath, -1))
+        depth_maps.append(png.imread_png(dpath, png.UNCHANGED))
         if image_hw is None:
             cpath = os.path.join(posed_images_root, scene_id, f"{iid}.jpg")
-            img = cv2.imread(cpath)
-            image_hw = (img.shape[0], img.shape[1])
+            with open(cpath, "rb") as f:
+                image_hw = image.color_size(f.read())
     inst_dir = os.path.join(instance_data_root, scene_id)
     aligned = np.load(os.path.join(inst_dir, "aligned_points.npy"))
     unaligned = np.load(os.path.join(inst_dir, "unaligned_points.npy"))

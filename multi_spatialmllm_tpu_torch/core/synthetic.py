@@ -317,8 +317,7 @@ def make_synthetic_sens(
     """
     import zlib
 
-    import cv2
-
+    from ..ingest import jpeg   # cv2.imencode's bytes, without cv2
     from ..ingest.sens import SensFrame, SensHeader, write_sens
 
     rng = np.random.default_rng(seed)
@@ -337,16 +336,14 @@ def make_synthetic_sens(
             img = img + 50 * np.exp(-r2 / rng.uniform(500, 5000))
         img = np.clip(img, 0, 255).astype(np.uint8)
         img3 = np.stack([img, np.roll(img, 7, 0), np.roll(img, 13, 1)], -1)
-        ok, jpeg = cv2.imencode(".jpg", img3,
-                                [cv2.IMWRITE_JPEG_QUALITY, 90])
-        assert ok
+        color = jpeg.imencode(img3, 90)
         depth = (2000 + 1500 * np.sin(xxd / 131.0 + i * 0.07)
                  + 900 * np.cos(yyd / 89.0)).astype(np.uint16)
         pose = look_at_c2w(np.array([i * 0.05, 0.0, 1.5]),
                            np.array([2.0, 1.0, 1.0]))
         frames.append(SensFrame(
             index=i, camera_to_world=pose, timestamp_color=i,
-            timestamp_depth=i, color_jpeg=jpeg.tobytes(),
+            timestamp_depth=i, color_jpeg=color,
             depth_zlib=zlib.compress(depth.tobytes())))
     K = np.eye(4)
     K[0, 0] = K[1, 1] = 1.2 * w

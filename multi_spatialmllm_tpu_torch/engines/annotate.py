@@ -209,13 +209,10 @@ class DirImageProvider:
 
     def __call__(self, scene_id: str, image_id: str) -> np.ndarray:
         def load():
-            import cv2
+            from ..ingest.image import imread   # cv2.imread, without cv2
 
             path = os.path.join(self.root, scene_id, f"{image_id}.jpg")
-            img = cv2.imread(path)
-            if img is None:
-                raise FileNotFoundError(path)
-            return img
+            return imread(path)
 
         return self._cache.get_or_load((scene_id, image_id), load)
 
@@ -260,11 +257,11 @@ def save_annotated(image: np.ndarray, image_output_dir: str,
                    relative_path: str) -> str:
     """Write an annotated jpg under the engine's image output dir; returns
     the relative path recorded in the sample's `image` list."""
-    import cv2
+    from ..ingest import jpeg   # cv2.imwrite's bytes, without cv2
 
     full = os.path.join(image_output_dir, relative_path)
     mkdir_or_exist(os.path.dirname(full))
-    cv2.imwrite(full, image)
+    jpeg.imwrite(full, image, 95)
     return relative_path
 
 

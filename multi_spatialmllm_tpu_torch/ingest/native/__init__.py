@@ -1,10 +1,9 @@
 """ctypes bindings for the native ingestion helpers (libmsm_native.so).
 
 The C++ library (src/msm_native.cpp, built by build.sh) provides single and
-multithreaded-batch zlib inflate for .sens depth streams. Everything here
-degrades gracefully to the Python zlib module when the library has not
-been built — the native path is a throughput optimization, not a
-correctness dependency.
+multithreaded-batch zlib inflate for .sens depth streams. The inflate has
+no fallback: where the library cannot be built, or a stream is rejected,
+it raises, so an ingest run never times Python's inflate in its place.
 """
 
 from __future__ import annotations
@@ -14,7 +13,6 @@ import hashlib
 import os
 import subprocess
 import tempfile
-import zlib
 
 import numpy as np
 
@@ -122,10 +120,12 @@ def native_available() -> bool:
 
 
 def zlib_inflate(data: bytes, expected_size: int | None = None) -> bytes:
-    """Inflate one stream; native when built, Python zlib otherwise."""
+    """Inflate one stream with the native library (raises where it
+    cannot be built or rejects the stream)."""
     lib = _load()
     if lib is None:
-        return zlib.decompress(data)
+        raise RuntimeError(f"the native inflate is unavailable "
+                           f"({build_error})")
     cap = expected_size if expected_size else max(16, len(data) * 20)
     while True:
         dst = ctypes.create_string_buffer(cap)
@@ -137,7 +137,8 @@ def zlib_inflate(data: bytes, expected_size: int | None = None) -> bytes:
         if rc == -5 and expected_size is None:  # Z_BUF_ERROR: grow
             cap *= 4
             continue
-        return zlib.decompress(data)  # fall back on any other error
+        raise ValueError(f"the native inflate rejected the stream "
+                         f"(error {rc})")
 
 
 def zlib_inflate_batch(
@@ -146,10 +147,12 @@ def zlib_inflate_batch(
     n_threads: int | None = None,
 ) -> list[bytes]:
     """Inflate many same-capacity streams concurrently (depth frames all
-    decompress to depth_h*depth_w*2 bytes)."""
+    decompress to depth_h*depth_w*2 bytes); raises where the library
+    cannot be built or rejects a stream."""
     lib = _load()
     if lib is None:
-        return [zlib.decompress(s) for s in streams]
+        raise RuntimeError(f"the native inflate is unavailable "
+                           f"({build_error})")
     if n_threads is None:
         n_threads = min(os.cpu_count() or 4, 16)
     n = len(streams)
@@ -175,10 +178,10 @@ def zlib_inflate_batch(
     out = []
     for i in range(n):
         if out_lens[i] == sentinel:
-            out.append(zlib.decompress(streams[i]))  # per-stream fallback
-        else:
-            start = i * expected_size
-            out.append(bytes(view[start: start + out_lens[i]]))
+            raise ValueError(f"the native inflate rejected stream {i} of "
+                             f"{n}")
+        start = i * expected_size
+        out.append(bytes(view[start: start + out_lens[i]]))
     return out
 
 

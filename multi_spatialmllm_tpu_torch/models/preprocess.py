@@ -3,10 +3,9 @@ multi_spatialmllm_tpu/models/preprocess.py): InternVL-2 dynamic
 aspect-ratio tiling into 448x448 tiles plus a thumbnail, normalised with
 the ImageNet mean and std, on the host in numpy.
 
-Resizing uses OpenCV's INTER_AREA as the JAX package does, imported only
-when a resize changes the size: an image already at the target size is
-returned as it is (INTER_AREA at scale 1 is the identity), so tiling
-frames that are already tile-sized needs no OpenCV.
+Resizing is OpenCV's INTER_AREA, as the JAX package's, done in numpy by
+models/resize.py (pixel-equal to `cv2.resize`), so no OpenCV is needed; an
+image already at the target size is returned as it is.
 """
 
 from __future__ import annotations
@@ -14,6 +13,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from .resize import resize_area
 
 # ImageNet normalization used by InternViT-style encoders.
 MEAN = np.asarray([0.485, 0.456, 0.406], dtype=np.float32)
@@ -60,9 +61,7 @@ def select_grid(width: int, height: int, max_tiles: int,
 def _resize(image: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
     if tuple(image.shape[:2]) == tuple(hw):
         return image
-    import cv2
-
-    return cv2.resize(image, (hw[1], hw[0]), interpolation=cv2.INTER_AREA)
+    return resize_area(image, hw)
 
 
 def tile_image(image: np.ndarray, config: PreprocessConfig | None = None

@@ -12,7 +12,6 @@ JAX, PORT = "multi_spatialmllm_tpu", "multi_spatialmllm_tpu_torch"
 
 IDENTICAL = [
     "core/io.py",
-    "core/scene.py",
     "stages/manifest.py",
     "utils/logging.py",
     "engines/__init__.py",
@@ -30,6 +29,8 @@ IDENTICAL = [
     "engines/fast_jsonl.py",
     "ingest/__init__.py",
     "ingest/tapvid.py",
+    "ingest/ply.py",
+    "ingest/scannet_export.py",
     "ingest/native/src/jsonl_emit.cpp",
     "ingest/native/src/msm_native.cpp",
     "ingest/native/src/jpeg_encode.cpp",
@@ -43,9 +44,38 @@ EDITED = {
         (35, 43),    # jax_key, which imports jax, is left out
     ],
     "ingest/native/__init__.py": [
-        (12, 16),    # imports for the digest and the temporary file
+        (1, 7),      # the module docstring: the inflate has no fallback
+        (12, 16),    # imports for the digest and the temporary file (zlib
+                     # is no longer needed: nothing falls back to it)
         (19, 38),    # the library builds at first use under a hashed name
+        (88, 91),    # zlib_inflate raises where the library cannot be
+                     # built (with build_error), instead of Python's zlib
+        (103, 103),  # ... and where the native inflate rejects the stream
+        (111, 115),  # zlib_inflate_batch raises where the library cannot
+                     # be built
+        (141, 144),  # ... and names the stream the native inflate
+                     # rejected, instead of a per-stream fallback
         (170, 183),  # jpeg_encode retries a short cap at the size asked
+    ],
+    "core/scene.py": [
+        (218, 218),  # save_reference_layout: the port's JPEG and PNG
+        (237, 239),  # writers (cv2.imwrite's bytes) instead of cv2
+        (336, 336),  # load_reference_scene: the PNG reader and the frame
+        (348, 352),  # size from the JPEG's headers instead of cv2.imread
+    ],
+    "ingest/sens.py": [
+        (66, 71),    # color_bgr: ingest/image.py's IMREAD_COLOR decode
+        (142, 142),  # export_posed_images writes depth with the port's
+        (159, 159),  # PNG writer (cv2.imwrite's bytes)
+    ],
+    "ingest/posed_images.py": [
+        (79, 79),    # scene_from_sens: the frame size from the first
+        (87, 89),    # JPEG's headers (IMREAD_COLOR's size), no decode
+    ],
+    "utils/profiling.py": [
+        (4, 5),      # the module docstring names torch.profiler
+        (45, 55),    # device_trace: a torch.profiler trace (CPU and CUDA
+                     # activities) exported as a Chrome trace
     ],
     "ingest/native/build.sh": [
         (2, 10),     # an optional output path and the codec's source; the
@@ -54,6 +84,9 @@ EDITED = {
     "core/synthetic.py": [
         (236, 236),  # the native codec is imported instead of cv2
         (284, 286),  # make_tapvid_npz encodes with ingest/jpeg.py
+        (322, 323),  # make_synthetic_sens imports the native codec
+        (342, 344),  # ... and encodes its q90 frames with it
+        (351, 351),  # (the frame's bytes, named `color`)
     ],
     "engines/object_movement.py": [
         (3, 9),      # the module docstring names the port, without cv2
@@ -75,6 +108,10 @@ EDITED = {
         (20, 23),    # the stored glyphs (engines/_glyphs.py) are imported
         (54, 65),    # glyph lookup; _letter_metrics reads the stored size
         (82, 110),   # _circle_mask and _letter_glyph read stored renders
+        (207, 213),  # DirImageProvider reads with ingest/image.py
+                     # (cv2.imread's pixels; a missing file raises)
+        (258, 262),  # save_annotated writes with the native codec at q95
+                     # (cv2.imwrite's bytes)
         (276, 306),  # the writer raises without the native encoder
         (397, 407),  # a failed multi-dot splice: whole-frame native encode
         (416, 436),  # _draw_and_save: no branch for a missing encoder

@@ -1,11 +1,14 @@
 """Import boundary and build rules of the port: importing every module of
 multi_spatialmllm_tpu_torch loads neither jax nor the JAX package, its
 `train` and `serve` commands run end to end with that package made
-unimportable, and its `demo` command runs the whole data engine (the
-ScanNet engines and the TAPVid object-movement engines) and its `tapvid`
-command runs with the card's installation simulated (no jax, flax, optax,
-orbax, cv2, pandas, pyarrow or JAX package) and write the files of a run
-with cv2 importable; a kernel build on a host without CUDA raises instead of
+unimportable (and with cv2 unimportable too, on JPEG and PNG frames, with
+a torch.profiler trace of the training steps), and its `demo` command
+runs the whole data engine (the ScanNet engines and the TAPVid
+object-movement engines), its `tapvid` command, and its `ingest-scannet`,
+`ingest-sens`, `coverage` and `pipeline --trace-dir` commands run with the
+card's installation simulated (no jax, flax, optax, orbax, cv2, pandas,
+pyarrow or JAX package) and write the files of a run with cv2 importable;
+a kernel build on a host without CUDA raises instead of
 falling back; a library's name changes with its shared headers; a
 misaligned operand raises before any launch; and chip_smoke.py refuses to
 run (non-zero exit, no result line) without a CUDA device or outside the
@@ -55,8 +58,15 @@ PORT_MODULES = [
     "multi_spatialmllm_tpu_torch.engines.templates.object_movement",
     "multi_spatialmllm_tpu_torch.engines.templates.object_perception",
     "multi_spatialmllm_tpu_torch.engines.visual_correspondence",
+    "multi_spatialmllm_tpu_torch.ingest.image",
     "multi_spatialmllm_tpu_torch.ingest.jpeg",
     "multi_spatialmllm_tpu_torch.ingest.native",
+    "multi_spatialmllm_tpu_torch.ingest.ply",
+    "multi_spatialmllm_tpu_torch.ingest.png",
+    "multi_spatialmllm_tpu_torch.ingest.posed_images",
+    "multi_spatialmllm_tpu_torch.ingest.scannet_export",
+    "multi_spatialmllm_tpu_torch.ingest.sens",
+    "multi_spatialmllm_tpu_torch.ingest.synthetic_scan",
     "multi_spatialmllm_tpu_torch.ingest.tapvid",
     "multi_spatialmllm_tpu_torch.pipeline",
     "multi_spatialmllm_tpu_torch.stages.coverage",
@@ -65,6 +75,7 @@ PORT_MODULES = [
     "multi_spatialmllm_tpu_torch.stages.object_visibility",
     "multi_spatialmllm_tpu_torch.stages.visibility",
     "multi_spatialmllm_tpu_torch.utils.logging",
+    "multi_spatialmllm_tpu_torch.utils.profiling",
     "multi_spatialmllm_tpu_torch.ops._build",
     "multi_spatialmllm_tpu_torch.ops.attention",
     "multi_spatialmllm_tpu_torch.ops.grouped_matmul",
@@ -79,11 +90,13 @@ PORT_MODULES = [
     "multi_spatialmllm_tpu_torch.models.moe",
     "multi_spatialmllm_tpu_torch.models.paged_kv",
     "multi_spatialmllm_tpu_torch.models.preprocess",
+    "multi_spatialmllm_tpu_torch.models.resize",
     "multi_spatialmllm_tpu_torch.models.runner",
     "multi_spatialmllm_tpu_torch.models.serving",
     "multi_spatialmllm_tpu_torch.models.tokenizer",
     "multi_spatialmllm_tpu_torch.models.vit",
     "multi_spatialmllm_tpu_torch.parallel",
+    "multi_spatialmllm_tpu_torch.parallel.distributed",
     "multi_spatialmllm_tpu_torch.parallel.train",
 ]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "multi_spatialmllm_tpu")
@@ -117,16 +130,26 @@ def test_prompt_markers_match_the_jax_tokenizer():
         assert getattr(TR, name) == getattr(JT, name), name
 
 
-# a finder that refuses the JAX package and JAX itself: any import of them
-# (lazy ones included) fails the run
-_BLOCKER = textwrap.dedent(f"""
-    import importlib.abc, sys
+# a finder that refuses the JAX package and JAX itself (or `blocked`): any
+# import of them (lazy ones included) fails the run
+def _blocker(blocked=None):
+    return textwrap.dedent(f"""
+    import importlib.abc, importlib.machinery, sys
 
-    class Refuse(importlib.abc.MetaPathFinder):
+    class Refuse(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+        # a blocked module's spec has no origin and a loader that raises:
+        # importing it fails, and a probe by importlib.util.find_spec (as
+        # torch.profiler's imports make) passes it over
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in {BLOCKED!r}:
-                raise ImportError("blocked: " + name)
+            if name.split(".")[0] in {blocked or BLOCKED!r}:
+                return importlib.machinery.ModuleSpec(name, self)
             return None
+
+        def create_module(self, spec):
+            raise ImportError("blocked: " + spec.name)
+
+        def exec_module(self, module):
+            pass
 
     sys.meta_path.insert(0, Refuse())
     from multi_spatialmllm_tpu_torch.__main__ import main
@@ -134,8 +157,8 @@ _BLOCKER = textwrap.dedent(f"""
 """)
 
 
-def _run_blocked(args, tmp_path, stdin=""):
-    proc = subprocess.run([sys.executable, "-c", _BLOCKER, *args],
+def _run_blocked(args, tmp_path, stdin="", blocked=None):
+    proc = subprocess.run([sys.executable, "-c", _blocker(blocked), *args],
                           env=_env(), cwd=tmp_path, input=stdin,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -143,8 +166,9 @@ def _run_blocked(args, tmp_path, stdin=""):
             if ln.startswith("{")]
 
 
-def _write_mixture(tmp_path):
-    """Six one-image records and their PNGs under `tmp_path`."""
+def _write_mixture(tmp_path, ext=("png",)):
+    """Six one-image records and their frames under `tmp_path` (written by
+    cv2; record i's frame in the format ext[i % len(ext)])."""
     import cv2
     import numpy as np
 
@@ -152,9 +176,10 @@ def _write_mixture(tmp_path):
     (tmp_path / "imgs").mkdir()
     recs = []
     for i in range(6):
-        cv2.imwrite(str(tmp_path / "imgs" / f"im{i}.png"),
+        name = f"im{i}.{ext[i % len(ext)]}"
+        cv2.imwrite(str(tmp_path / "imgs" / name),
                     rng.integers(0, 255, (56, 56, 3), dtype=np.uint8))
-        recs.append({"id": f"s{i}", "image": [f"im{i}.png"],
+        recs.append({"id": f"s{i}", "image": [name],
                      "conversations": [
                          {"from": "human",
                           "value": "<image>\nhow far is the point?"},
@@ -166,38 +191,51 @@ def _write_mixture(tmp_path):
                  "repeat_time": 1}}))
 
 
-def _train_then_serve(tmp_path, model_flags=(), serve_flags=()):
+def _train_then_serve(tmp_path, model_flags=(), serve_flags=(),
+                      train_flags=(), ext=("png",), blocked=None):
     """`train` (packed rows, accumulation, a rolling checkpoint) then
     `serve` from that checkpoint, on the tiny config on the CPU, with the
-    JAX package unimportable."""
-    _write_mixture(tmp_path)
+    JAX package (or `blocked`) unimportable."""
+    _write_mixture(tmp_path, ext)
     out = tmp_path / "ckpt"
     [report] = _run_blocked(
         ["train", "--meta", "mix.json", "--config", "tiny", "--device",
          "cpu", "--steps", "2", "--batch-size", "2", "--accum", "2",
          "--seq-len", "128", "--max-tiles", "2", "--tiles-per-image", "1",
          "--packed", "--warmup", "1", "--lr", "1e-3", "--log-every", "1",
-         "--vocab-size", "800", "--output", str(out), *model_flags],
-        tmp_path)
+         "--vocab-size", "800", "--output", str(out), *model_flags,
+         *train_flags], tmp_path, blocked=blocked)
     assert report["steps"] == 2 and report["device"] == "cpu"
     assert all(v is not None for v in report.values())
     assert (out / "LATEST").read_text().strip() == "step_00000002"
 
-    lines = "".join(json.dumps({"id": f"q{i}", "image": [f"im{i}.png"],
-                                "text": "<image>\nhow far?"}) + "\n"
+    lines = "".join(json.dumps({"id": f"q{i}", "image": [
+        f"im{i}.{ext[i % len(ext)]}"], "text": "<image>\nhow far?"}) + "\n"
                     for i in range(2))
     results = _run_blocked(
         ["serve", "--checkpoint", str(out), "--config", "tiny", "--device",
          "cpu", "--vocab-size", "800", "--images-root", "imgs",
          "--max-new-tokens", "4", "--slots", "2", "--page-size", "16",
          "--num-pages", "32", "--max-prompt-len", "128", *model_flags,
-         *serve_flags], tmp_path, stdin=lines)
+         *serve_flags], tmp_path, stdin=lines, blocked=blocked)
     assert sorted(r["id"] for r in results) == ["q0", "q1"]
     assert all(0 < len(r["token_ids"]) <= 4 for r in results)
 
 
 def test_train_and_serve_run_with_the_jax_package_unimportable(tmp_path):
     _train_then_serve(tmp_path)
+
+
+def test_train_and_serve_read_jpeg_and_png_without_cv2(tmp_path):
+    """`train --trace-dir` and `serve` on JPEG and PNG frames with cv2,
+    jax and the JAX package unimportable: the frames are read by
+    ingest/image.py and resized by models/resize.py, and the training
+    steps leave a torch.profiler trace."""
+    _train_then_serve(tmp_path, train_flags=["--trace-dir", "trace"],
+                      ext=("jpg", "png"), blocked=_CARD_BLOCKED)
+    [trace] = os.listdir(tmp_path / "trace")
+    assert json.loads((tmp_path / "trace" / trace).read_text())[
+        "traceEvents"]
 
 
 def test_moe_train_and_int8_serve_run_with_the_jax_package_unimportable(
@@ -241,17 +279,24 @@ _CARD_BLOCKED = BLOCKED + ("cv2", "pandas", "pyarrow")
 
 def _blocking(blocked):
     return textwrap.dedent(f"""
-    import importlib.abc, json, sys
+    import importlib.abc, importlib.machinery, json, sys
 
     tried = []
 
-    class Refuse(importlib.abc.MetaPathFinder):
+    class Refuse(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+        # as _blocker's, and each attempt is recorded
         def find_spec(self, name, path=None, target=None):
             top = name.split(".")[0]
             if top in {blocked!r}:
                 tried.append(top)
-                raise ImportError("No module named " + repr(name))
+                return importlib.machinery.ModuleSpec(name, self)
             return None
+
+        def create_module(self, spec):
+            raise ImportError("No module named " + repr(spec.name))
+
+        def exec_module(self, module):
+            pass
 
     sys.meta_path.insert(0, Refuse())
     from multi_spatialmllm_tpu_torch.__main__ import main
@@ -349,6 +394,51 @@ def test_tapvid_runs_with_the_cards_installation(tmp_path):
     got = _same_files(tmp_path / "card", tmp_path / "host")
     assert sum(str(k).endswith(".jsonl") for k in got) == 2
     assert any(str(k).endswith("_annotated.jpg") for k in got)
+
+
+def test_ingest_coverage_pipeline_run_with_the_cards_installation(tmp_path):
+    """`ingest-scannet`, `ingest-sens`, `coverage` (2 shards and
+    `--merge`) and `pipeline --trace-dir` on the CPU over two scans written
+    here, with the card's installation simulated: they never reach for
+    jax, the JAX package or cv2, and write the files of the same commands
+    run with cv2, pandas and pyarrow importable (the annotated frames are
+    seeded by the string hash, pinned in both runs)."""
+    from multi_spatialmllm_tpu_torch.core.synthetic import make_scene
+    from multi_spatialmllm_tpu_torch.ingest.synthetic_scan import write_scan
+
+    scans = tmp_path / "scans"
+    for i in range(2):
+        write_scan(str(scans), make_scene(
+            scene_id=f"scene{i:04d}_00", seed=40 + i, n_images=6,
+            n_background=1200, image_hw=(48, 64), depth_hw=(24, 32)),
+            frame_skip=2)
+
+    def commands(root):
+        return [
+            ["ingest-scannet", "--scans", str(scans), "--output",
+             str(root / "exp")],
+            ["ingest-sens", "--scans", str(scans), "--frame-skip", "2",
+             "--output", str(root / "packs")],
+            *[["coverage", "--scenes", str(root / "packs"), "--num-shards",
+               "2", "--shard-index", str(i), "--output", str(root / "cov")]
+              for i in range(2)],
+            ["coverage", "--merge", "--output", str(root / "cov")],
+            ["pipeline", "--scenes", str(root / "packs"), "--trace-dir",
+             str(tmp_path / f"trace_{root.name}"), "--output",
+             str(root / "run")]]
+
+    bad = {"jax", "jaxlib", "multi_spatialmllm_tpu", "cv2"}
+    card, host = tmp_path / "card", tmp_path / "host"
+    for root, blocked in ((card, _CARD_BLOCKED), (host, BLOCKED)):
+        for cmd in commands(root):
+            report = _run_data_command(tmp_path, cmd[-1], blocked,
+                                       *cmd[:-2], "--device", "cpu")
+            assert not bad & set(report["tried"]) and not report["loaded"], \
+                (cmd[0], report)
+    for sub in ("exp", "packs", "cov"):
+        _same_files(card / sub, host / sub)
+    _same_files(card / "run" / "qa", host / "run" / "qa")
+    assert len(os.listdir(tmp_path / "trace_card")) == 1
 
 
 def _result_lines(stdout: str):

@@ -201,7 +201,8 @@ def test_no_parquet_writer_recorded_not_pretended(runs, tmp_path,
 def test_pipeline_command_against_the_jax_stages(runs, tmp_path):
     """`pipeline --device cpu` over the store (the production sampler
     config): its qa tree and index pickles equal the JAX pipeline's
-    `run_all` with the same config; `--trace-dir` is refused."""
+    `run_all` with the same config; with `--trace-dir` it writes a
+    torch.profiler trace of the L3 stages and the same qa tree."""
     out = str(tmp_path / "cli")
     cli.main(["pipeline", "--scenes", runs["store"], "--output", out,
               "--device", "cpu"])
@@ -212,9 +213,13 @@ def test_pipeline_command_against_the_jax_stages(runs, tmp_path):
         with open(os.path.join(out, "indices", name), "rb") as f, \
                 open(os.path.join(j.root, "indices", name), "rb") as g:
             assert f.read() == g.read(), name
-    with pytest.raises(NotImplementedError, match="trace-dir"):
-        cli.main(["pipeline", "--scenes", runs["store"], "--output", out,
-                  "--device", "cpu", "--trace-dir", str(tmp_path / "t")])
+    traced = str(tmp_path / "traced")
+    cli.main(["pipeline", "--scenes", runs["store"], "--output", traced,
+              "--device", "cpu", "--trace-dir", str(tmp_path / "t")])
+    [trace] = os.listdir(tmp_path / "t")
+    with open(tmp_path / "t" / trace) as f:
+        assert json.load(f)["traceEvents"]
+    _assert_trees_equal(os.path.join(traced, "qa"), os.path.join(out, "qa"))
 
 
 def test_run_all_with_tapvid_records_against_jax(runs, tmp_path):

@@ -243,7 +243,7 @@ def test_remat_keeps_loss_and_gradients():
     ["--data-parallel", "2"], ["--fsdp"], ["--eval-jsonl", "eval.jsonl"],
     ["--eval-images-root", "."], ["--eval-limit", "5"],
     ["--eval-max-new-tokens", "24"], ["--mc-logprob"],
-    ["--async-save"], ["--trace-dir", "trace"]], ids=lambda f: f[0][2:])
+    ["--async-save"]], ids=lambda f: f[0][2:])
 def test_train_cli_refuses_unported_flags(flags):
     """The JAX CLI's training options the port lacks are accepted and
     raise, before any data is read."""
