@@ -176,11 +176,40 @@ result line):
    gives the same greedy tokens on the card and the CPU, K1 and K7
    launched. Each number beside the card's name and power limit.
 
+19. Eval and the serving options (K1, K7 native and int8 and K8 on the
+   eval paths; generation, sampling and the paged options are torch ops,
+   as the JAX package runs them outside Pallas): (a) the `tiny` config in
+   float32 on a small campaign (eight records over two JPEG frames): the
+   `eval` command's --output report equal card vs CPU with --batch-size 1
+   and 4, --speculate 3, --mc-logprob and --paged with each of
+   --prefix-cache, --prefill-chunk 16, --vision-cache 2, --speculate 3,
+   --kv-dtype int8, --logprobs (confidences within EVAL_SCORE_ATOL) and
+   --quantize-weights; option scores card vs CPU within EVAL_SCORE_ATOL;
+   `serve --sampling` tokens equal card vs CPU for four seeds and
+   temperatures, top_p 0.8 in one. (b) the flagship (8.075 B params,
+   seeded bf16 weights) over the eval data of a port pipeline run on phase
+   18's two small scans (their frames exported from the .sens beside the
+   engines' annotated images; every record's images must resolve),
+   EVAL_LIMIT records a file: `eval --batch-size 4 --mc-logprob`, then
+   `--paged --prefix-cache --prefill-chunk 1024 --vision-cache 8` with
+   `--speculate 4`, and with `--logprobs` (the two are exclusive), then
+   with the weights quantised to int8 (one record a file): records/s,
+   time to first token, decode tokens/s, prefix and vision hits,
+   speculation's tokens a verify,
+   agreement with the batched greedy answers (reported, not gated at
+   bf16), peak device memory, weight bytes; every record predicted and
+   every logprob finite; a keyed top-p draw's time beside a decode step.
+   (c) the bench MoE (`--moe-experts 4 --moe-impl ragged --moe-kernel
+   pallas`) with `eval --paged --kv-dtype int8` on one record a file.
+   K1 must launch on eval_batched and eval_paged, K7 on eval_paged, K7
+   int8 and gmm on moe_eval.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -206,7 +235,7 @@ N_SERVE = 16
 TRAIN_LAYERS = 8         # phase 9: LLM depth cut from 32 (see PERF.md)
 # phase 13: the train CLI's --max-tiles and --tiles-per-image defaults
 MOE_MAX_TILES, MOE_TILES_PER_IMAGE = 14, 6
-N_PHASES = 18
+N_PHASES = 19
 # phase 9's steps on one repeated batch run a fresh optimizer on the train
 # CLI's default schedule (--lr 1e-5, --warmup 100, --steps 1000)
 REPEAT_LR, REPEAT_WARMUP, REPEAT_TOTAL = 1e-5, 100, 1000
@@ -2937,6 +2966,517 @@ def phase_real_inputs(torch, cli, card, kernels):
     return out
 
 
+# phase 19: the eval command. (a) tiny float32 card vs CPU on a small
+# campaign; (b) the flagship in bf16 on the eval data of a pipeline run:
+# --max-tiles 6 (the CLI's default) makes a 240 x 320 frame 7 tiles of 256
+# tokens, so a two-frame prompt takes ~3,700 tokens: --max-prompt-len 4096
+EVAL_TILES, EVAL_PROMPT = 6, 4096
+EVAL_LIMIT = 3            # records a file of the pipeline's eval data
+EVAL_CHUNK, EVAL_VISION, EVAL_SPECULATE = 1024, 8, 4
+EVAL_SCORE_ATOL = 1e-5    # option scores and logprobs, card vs CPU (f32)
+TINY_PAGED = ["--paged", "--slots", "2", "--page-size", "16", "--num-pages",
+              "64", "--max-prompt-len", "128"]
+TINY_EVAL_FLAGS = {
+    "batch1": ["--batch-size", "1"], "batch4": ["--batch-size", "4"],
+    "speculate": ["--speculate", "3"], "mc_logprob": ["--mc-logprob"],
+    "prefix_cache": TINY_PAGED + ["--prefix-cache"],
+    "prefill_chunk": TINY_PAGED + ["--prefill-chunk", "16"],
+    "vision_cache": TINY_PAGED + ["--prefill-chunk", "16", "--vision-cache",
+                                  "2"],
+    "paged_speculate": TINY_PAGED + ["--speculate", "3"],
+    "int8_kv": TINY_PAGED + ["--kv-dtype", "int8"],
+    "logprobs": TINY_PAGED + ["--logprobs"],
+    "quantize_weights": TINY_PAGED + ["--quantize-weights"]}
+# serve --sampling card vs CPU: (seed, temperature, top_p) a request
+SAMPLED = [(0, 0.7, 1.0), (1, 1.0, 0.8), (7, 1.3, 1.0), (2**31 - 1, 0.5, 1.0)]
+
+
+def tiny_eval_campaign(np, root):
+    """Two 96 x 128 JPEG frames (the port's codec) and eight records over
+    them: three questions a frame sharing a long stem, and one
+    multiple-choice record a frame over both. Returns the JSONL path."""
+    from multi_spatialmllm_tpu_torch.ingest.jpeg import imwrite
+
+    os.makedirs(os.path.join(root, "imgs"))
+    rng = np.random.default_rng(SEED + 4)
+    for i in range(2):
+        imwrite(os.path.join(root, "imgs", f"{i}.jpg"),
+                rng.integers(0, 255, (96, 128, 3), dtype=np.uint8))
+    stem = ("These are two views of one indoor scene and every distance in "
+            "your answer must be reported in millimeters. ")
+    recs = []
+    for i in range(2):
+        recs += [{"id": f"{i}-{q}", "image": [f"{i}.jpg"],
+                  "text": f"<image>\n{stem}Question variant {q} here?",
+                  "question_type": "depth_estimation_coor", "gt_value": 900}
+                 for q in range(3)]
+        recs.append({"id": f"{i}-mc", "image": [f"{i}.jpg", f"{1 - i}.jpg"],
+                     "text": "<image>\n<image>\nWhich point corresponds?",
+                     "question_type": "visual_correspondence_multiple_choice",
+                     "gt_value": "A"})
+    path = os.path.join(root, "eval.jsonl")
+    with open(path, "w") as f:
+        f.write("".join(json.dumps(r) + "\n" for r in recs))
+    return path, recs
+
+
+def cli_run(cli, argv, stdin=""):
+    """`cli.main(argv)` -> its stdout lines (stdin from a string)."""
+    import contextlib
+    import io
+
+    saved, buf = sys.stdin, io.StringIO()
+    sys.stdin = io.StringIO(stdin)
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+    finally:
+        sys.stdin = saved
+    return buf.getvalue().splitlines()
+
+
+def eval_tiny_card_vs_cpu(torch, np, cli, M, tok, tmp, card):
+    """(a) tiny float32: `eval` for each flag set of TINY_EVAL_FLAGS on the
+    card and on the CPU (the --output files equal; with --logprobs the
+    predictions equal and the confidences within EVAL_SCORE_ATOL), the
+    option scores card vs CPU, and `serve --sampling` tokens card vs
+    CPU."""
+    import argparse
+
+    from multi_spatialmllm_tpu_torch.models import runner as R
+    from multi_spatialmllm_tpu_torch.models.data import DataConfig
+    from multi_spatialmllm_tpu_torch.models.preprocess import PreprocessConfig
+
+    jsonl, recs = tiny_eval_campaign(np, tmp)
+    tiny = M.CONFIGS["tiny"]
+    M.CONFIGS["tiny"] = lambda: M.with_dtype(tiny(), "float32")
+    try:
+        cfg = cli._config(argparse.Namespace(config="tiny",
+                                             vocab_size=tok.vocab_size))
+        models = {}
+        for dev in ("cpu", "cuda"):
+            models[dev] = M.MultiFrameMLLM(cfg, device=dev)
+            if dev == "cpu":
+                M.init_random_weights(models[dev], SEED)
+            else:
+                models[dev].load_state_dict(models["cpu"].state_dict())
+            models[dev].eval()
+        ckpt = os.path.join(tmp, "tiny.pt")
+        torch.save(models["cpu"].state_dict(), ckpt)
+        common = ["--checkpoint", ckpt, "--config", "tiny", "--vocab-size",
+                  str(tok.vocab_size), "--images-root",
+                  os.path.join(tmp, "imgs"), "--max-tiles", "1",
+                  "--max-new-tokens", "6"]
+        for name, flags in TINY_EVAL_FLAGS.items():
+            outs = {}
+            for dev in ("cuda", "cpu"):
+                out = os.path.join(tmp, f"{name}_{dev}.json")
+                cli_run(cli, ["eval", *common, "--eval-jsonl", jsonl,
+                              "--output", out, "--device", dev, *flags])
+                with open(out) as f:
+                    outs[dev] = f.read()
+            if name == "logprobs":
+                a, b = json.loads(outs["cuda"]), json.loads(outs["cpu"])
+                ca, cb = a.pop("confidences"), b.pop("confidences")
+                a.pop("mean_token_logprob"), b.pop("mean_token_logprob")
+                if a != b or max(abs(x - y) for x, y in zip(ca, cb)
+                                 if x is not None) > EVAL_SCORE_ATOL:
+                    fail(f"tiny eval {name}: card {a} {ca} vs CPU {b} {cb}")
+            elif outs["cuda"] != outs["cpu"]:
+                fail(f"tiny eval {name}: the report differs card vs CPU:\n"
+                     f"{outs['cuda'][:400]}\n{outs['cpu'][:400]}")
+        log(f"  (a) tiny f32 eval on {len(recs)} records: --output report "
+            f"equal card vs CPU for {', '.join(TINY_EVAL_FLAGS)}")
+        run_cfg = R.EvalRunConfig(max_new_tokens=6, data=DataConfig(
+            preprocess=PreprocessConfig(tile_size=cfg.vit.image_size,
+                                        max_tiles=1, resize_hw=None)))
+
+        def load(path):
+            return cli._read_image(os.path.join(tmp, "imgs", path))
+
+        worst = 0.0
+        for rec in recs:
+            cands = R.mc_candidates(rec)
+            if cands is None:
+                continue
+            s = {dev: R.score_candidates(models[dev], tok, rec, cands, load,
+                                         run_cfg) for dev in models}
+            worst = max(worst, float(np.abs(s["cuda"] - s["cpu"]).max()))
+        if worst > EVAL_SCORE_ATOL:
+            fail(f"option scores differ card vs CPU by {worst:.3e}")
+        lines = "".join(json.dumps({
+            "id": f"s{i}", "image": [f"{i % 2}.jpg"], "seed": seed,
+            "temperature": temp, "top_p": top_p,
+            "text": "<image>\nHow far is the chair?"}) + "\n"
+            for i, (seed, temp, top_p) in enumerate(SAMPLED))
+        tokens = {}
+        for dev in ("cuda", "cpu"):
+            res = [json.loads(ln) for ln in cli_run(
+                cli, ["serve", *common, *TINY_PAGED[1:], "--sampling",
+                      "--max-new-tokens", "12", "--device", dev], lines)]
+            if any("error" in r for r in res) or len(res) != len(SAMPLED):
+                fail(f"serve --sampling on {dev}: {res[:2]}")
+            tokens[dev] = {r["id"]: r["token_ids"] for r in res}
+        if tokens["cuda"] != tokens["cpu"]:
+            fail(f"serve --sampling tokens differ card vs CPU: {tokens}")
+    finally:
+        M.CONFIGS["tiny"] = tiny
+    log(f"  (a) option scores card vs CPU within {worst:.2e}; serve "
+        f"--sampling, {len(SAMPLED)} seeds and temperatures (top_p 0.8 in "
+        f"one): {sum(len(t) for t in tokens['cpu'].values())} tokens equal "
+        f"card vs CPU; {card}")
+
+
+def pipeline_eval_data(cli, tmp):
+    """Phase 18's two small scans through `ingest-sens` and `pipeline` on
+    the card, and their frames exported (every frame, numbered as the
+    records name them) into one images directory beside the engines'
+    annotated images. Returns (the evaluation_data dir, the images dir,
+    the records `--limit EVAL_LIMIT` evaluates in the eval command's
+    order, each with its place in its file); every record's images must
+    resolve."""
+    import contextlib
+    import io
+    import shutil
+
+    from multi_spatialmllm_tpu_torch.ingest.sens import export_posed_images
+
+    G = ingest_golden()
+    scans = os.path.join(tmp, "scans")
+    G.small_scans(scans)
+    packs, run = os.path.join(tmp, "packs"), os.path.join(tmp, "run")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["ingest-sens", "--scans", scans, "--frame-skip",
+                  str(G.SMALL_SKIP), "--output", packs, "--device", "cuda"])
+        cli.main(["pipeline", "--scenes", packs, "--output", run,
+                  "--device", "cuda"])
+    images = os.path.join(tmp, "images")
+    for scan in sorted(os.listdir(scans)):
+        export_posed_images(os.path.join(scans, scan, f"{scan}.sens"),
+                            os.path.join(images, scan), frame_skip=1)
+    root = os.path.join(run, "qa", "evaluation_data")
+    records = []
+    for engine in sorted(os.listdir(root)):
+        edir = os.path.join(root, engine)
+        if os.path.isdir(os.path.join(edir, "images")):
+            shutil.copytree(os.path.join(edir, "images"), images,
+                            dirs_exist_ok=True)
+        for fn in sorted(os.listdir(edir)):
+            if fn.endswith(".jsonl") and not fn.endswith("_orig.jsonl"):
+                with open(os.path.join(edir, fn)) as f:
+                    rows = [json.loads(ln) for ln in f if ln.strip()]
+                records += list(enumerate(rows[:EVAL_LIMIT]))
+    missing = [p for _, r in records for p in r["image"]
+               if not os.path.exists(os.path.join(images, p))]
+    if missing:
+        fail(f"eval records name missing frames: {missing[:4]}")
+    return root, images, records
+
+
+def flagship_eval_run(torch, cli, K, R, model, tok, argv, kernels, label):
+    """One `eval` of `model` (cli.eval_report, the command's own code
+    after the checkpoint load) with `argv`; every record predicted and
+    every logprob finite. Returns its numbers and launches. On the paged
+    path a campaign's requests arrive when its `generate_all` starts
+    (after the runner has read, tiled and tokenised all of them: `prep_s`,
+    summed over campaigns); a request's time to first token runs from
+    there to the return of its prefill. All times here are host clock."""
+    import math
+
+    args = cli.build_parser().parse_args(["eval", "--checkpoint", "-",
+                                          *argv])
+    for k in kernels:
+        k.launches = 0
+    firsts, prep, sizes = [], [], []
+    called, arrival = [0.0], [0.0]
+    prefill = K.PagedBatcher._prefill_into
+    generate_all = K.PagedBatcher.generate_all
+    predict = R.predict_with_batcher
+
+    def timed_predict(*a, **kw):
+        called[0] = time.perf_counter()
+        return predict(*a, **kw)
+
+    def timed_generate_all(self, requests):
+        arrival[0] = time.perf_counter()
+        prep.append(arrival[0] - called[0])
+        sizes.append(len(requests))
+        return generate_all(self, requests)
+
+    def timed_prefill(self, *a, **kw):
+        got = prefill(self, *a, **kw)
+        if got is not None:
+            firsts.append(time.perf_counter() - arrival[0])
+        return got
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.PagedBatcher._prefill_into = timed_prefill
+    K.PagedBatcher.generate_all = timed_generate_all
+    R.predict_with_batcher = timed_predict
+    t0 = time.perf_counter()
+    try:
+        report, preds, batcher = cli.eval_report(model, tok, args)
+        torch.cuda.synchronize()
+    finally:
+        K.PagedBatcher._prefill_into = prefill
+        K.PagedBatcher.generate_all = generate_all
+        R.predict_with_batcher = predict
+    wall = time.perf_counter() - t0
+    flat = [p for name in sorted(preds) for p in preds[name]]
+    if len(flat) != report["count"] or any(p is None for p in flat):
+        fail(f"{label}: {len(flat)} predictions for {report['count']} "
+             f"records")
+    confs = [c for r in report["engines"].values()
+             for c in r.get("confidences", []) if c is not None]
+    if any(not math.isfinite(c) for c in confs):
+        fail(f"{label}: a non-finite logprob")
+    out = {"records": len(flat), "wall_s": wall,
+           "records_per_s": len(flat) / wall, "predictions": flat,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": {k.name: k.launches for k in kernels},
+           "accuracy": report["accuracy"], "n_logprobs": len(confs)}
+    if batcher is not None:
+        st, pc = batcher.stats, batcher.config
+        firsts.sort()
+        # one step (or, speculating, one verify iteration) of every slot
+        per_step = 1e3 * st["decode_seconds"] / max(
+            1, st["decode_dispatches"] * pc.chunk)
+        out.update(
+            campaigns=len(sizes), campaign_records=sizes, slots=pc.slots,
+            prep_s=sum(prep), prefill_s=st["prefill_seconds"],
+            decode_s=st["decode_seconds"],
+            ttft_mean_s=sum(firsts) / len(firsts),
+            ttft_median_s=firsts[len(firsts) // 2], ttft_max_s=firsts[-1],
+            decode_tokens_per_s=st["decode_tokens"] / st["decode_seconds"],
+            prefill_resumed=st["prefill_resumed"],
+            pages_reused=st["pages_reused"], vision_hits=st["vision_hits"],
+            spec_tokens_per_verify=(st["decode_tokens"] / st["spec_verifies"]
+                                    if st["spec_verifies"] else None),
+            **({"verify_iteration_ms": per_step} if pc.speculate
+               else {"decode_step_ms": per_step}))
+    shown = {k: (round(v, 4) if isinstance(v, float) else v)
+             for k, v in out.items() if k != "predictions"}
+    log(f"  {label}: {json.dumps(shown)}")
+    return out
+
+
+@contextlib.contextmanager
+def k1_operands(A, R, llm_cfg):
+    """While the block runs, keep the first K1 operands of the language
+    model (its heads and head dim) with more than one row (a batched
+    prefill of right-padded prompts), and the first inside
+    `score_candidates`; yields them by label."""
+    got, scoring = {}, [False]
+    fwd, score = A.flash_attention_fwd_cuda, R.score_candidates
+
+    def keep(q, k, v, causal, segment_ids=None):
+        label = ("score_candidates" if scoring[0] else
+                 "batched prefill" if q.shape[0] > 1 else None)
+        if label and label not in got and q.shape[1] == llm_cfg.num_heads \
+                and q.shape[-1] == llm_cfg.head_dim:
+            got[label] = (q.clone(), k.clone(), v.clone(), causal,
+                          None if segment_ids is None
+                          else segment_ids.clone())
+        return fwd(q, k, v, causal, segment_ids)
+
+    def scored(*a, **kw):
+        scoring[0] = True
+        try:
+            return score(*a, **kw)
+        finally:
+            scoring[0] = False
+
+    A.flash_attention_fwd_cuda, R.score_candidates = keep, scored
+    try:
+        yield got
+    finally:
+        A.flash_attention_fwd_cuda, R.score_candidates = fwd, score
+
+
+def k1_on_operands(torch, A, got):
+    """K1 against its plain version on operands an eval path gave it
+    (`k1_operands`): the plain version on float32 copies is the answer,
+    the plain version on the bf16 values the yardstick of the per-64-row
+    tile rule (`verdict`), each a batch row at a time. K1_BF16_ATOL is for
+    unit-normal v, so max|err| is held to it times max|v| (o mixes v's
+    rows). Returns the largest max|err|."""
+    worst = 0.0
+    for label, (q, k, v, causal, seg) in got.items():
+        o, lse = A.flash_attention_fwd_cuda(q, k, v, causal, seg)
+        refs, lses, plains = [], [], []
+        for b in range(q.shape[0]):
+            r = slice(b, b + 1)
+            sg = None if seg is None else seg[r]
+            o_ref, lse_ref = A.flash_attention_fwd_plain(
+                q[r].float(), k[r].float(), v[r].float(), causal, sg)
+            refs.append(o_ref)
+            lses.append(lse_ref)
+            plains.append(A.flash_attention_fwd_plain(q[r], k[r], v[r],
+                                                      causal, sg)[0])
+        torch.cuda.synchronize()
+        tol = K1_BF16_ATOL * max(1.0, v.float().abs().max().item())
+        ok, err, text = verdict(o, torch.cat(refs), tol, torch.cat(plains))
+        err_lse = (lse - torch.cat(lses)).abs().max().item()
+        ok = ok and err_lse <= K1_LSE_ATOL
+        log(f"  K1 on the {label} operands, q {tuple(q.shape)} kv "
+            f"{tuple(k.shape)}: o {text}; lse max|err| {err_lse:.3e} (atol "
+            f"{K1_LSE_ATOL:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"flash_fwd disagrees with its plain version on the "
+                 f"{label} operands")
+        worst = max(worst, err)
+        del refs, lses, plains, o, lse
+    return worst
+
+
+def agreement(got, ref, scored):
+    """Records of `got` (a list, or a dict by record index) outside
+    `scored` whose prediction equals the reference's."""
+    got = dict(enumerate(got)) if isinstance(got, list) else got
+    idx = [i for i in got if i not in scored]
+    return sum(got[i] == ref[i] for i in idx), len(idx)
+
+
+def phase_eval(torch, cli, M, K, tok, card, kernels):
+    """Phase 19: (a) tiny card vs CPU, (b) the flagship in bf16 on a
+    pipeline run's eval data, (c) the bench MoE with int8 kv. Returns the
+    launches on the eval_paged, eval_batched and moe_eval paths, and K1's
+    largest max|err| on the batched path's operands."""
+    import tempfile
+
+    import numpy as np
+
+    from multi_spatialmllm_tpu_torch.models import quantize as Q
+    from multi_spatialmllm_tpu_torch.models import runner as R
+    from multi_spatialmllm_tpu_torch.models import serving as S
+    from multi_spatialmllm_tpu_torch.ops import attention as A
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        eval_tiny_card_vs_cpu(torch, np, cli, M, tok,
+                              os.path.join(tmp, "a"), card)
+        out["tiny_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        root, images, records = pipeline_eval_data(cli,
+                                                   os.path.join(tmp, "b"))
+        # the eval command reads the engines in sorted order, as `records`
+        scored = {i for i, (_, r) in enumerate(records)
+                  if R.mc_candidates(r)}
+        firsts = [i for i, (j, _) in enumerate(records) if j == 0]
+        out["data_s"] = time.perf_counter() - t0
+        log(f"  (b) {len(records)} eval records of a pipeline run on two "
+            f"small scans, every frame resolved ({out['data_s']:.1f} s)")
+        base = ["--eval-root", root, "--images-root", images, "--limit",
+                str(EVAL_LIMIT), "--max-tiles", str(EVAL_TILES),
+                "--max-prompt-len", str(EVAL_PROMPT)]
+        paged = ["--paged", "--slots", "8", "--page-size", "64",
+                 "--num-pages", "640", "--prefix-cache", "--prefill-chunk",
+                 str(EVAL_CHUNK), "--vision-cache", str(EVAL_VISION)]
+        cfg = M.flagship_config()
+        t0 = time.perf_counter()
+        model = M.MultiFrameMLLM(cfg, device="cuda")
+        M.init_random_weights(model, SEED)
+        model.eval()
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        bf16_bytes = Q.tree_nbytes(model)
+        log(f"  flagship: {n_params / 1e9:.3f} B params, "
+            f"{bf16_bytes / 2**30:.2f} GiB of weights, built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        runs = {}
+        with k1_operands(A, R, cfg.llm) as got:
+            runs["batched"] = flagship_eval_run(
+                torch, cli, K, R, model, tok,
+                base + ["--batch-size", "4", "--mc-logprob"], kernels,
+                "eval --batch-size 4 --mc-logprob (bf16)")
+        if len(got) != 2:
+            fail(f"K1 operands kept from the batched eval: {list(got)}")
+        out["k1_err"] = k1_on_operands(torch, A, got)
+        del got
+        torch.cuda.empty_cache()
+        runs["speculate"] = flagship_eval_run(
+            torch, cli, K, R, model, tok,
+            base + paged + ["--speculate", str(EVAL_SPECULATE)], kernels,
+            f"eval --paged {' '.join(paged[7:])} --speculate "
+            f"{EVAL_SPECULATE} (bf16)")
+        runs["logprobs"] = flagship_eval_run(
+            torch, cli, K, R, model, tok, base + paged + ["--logprobs"],
+            kernels, "eval --paged ... --logprobs (bf16)")
+        # sampling's cost beside a decode step, both on the host clock: one
+        # keyed top-p draw over 8 slots of the flagship vocabulary
+        # (threefry + Gumbel + nucleus), 20 back to back, synchronised
+        logits = torch.randn(8, cfg.llm.vocab_size, device="cuda")
+        samp = (torch.full((8,), 0.8, device="cuda"),
+                torch.full((8,), 0.9, device="cuda"),
+                torch.arange(8, dtype=torch.int32, device="cuda"), None,
+                True)
+        pos = torch.arange(8, device="cuda") + 3000
+        for _ in range(3):
+            S.next_tokens(logits, pos, samp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            S.next_tokens(logits, pos, samp)
+        torch.cuda.synchronize()
+        draw_ms = 1e3 * (time.perf_counter() - t0) / 20
+        step_ms = runs["logprobs"]["decode_step_ms"]
+        log(f"  sampling: a keyed top-p draw over 8 x {cfg.llm.vocab_size} "
+            f"takes {draw_ms:.3f} ms, {100 * draw_ms / step_ms:.1f}% of a "
+            f"{step_ms:.2f} ms decode step (both host clock, 8 slots)")
+        Q.quantize_model(model)
+        torch.cuda.empty_cache()
+        q_bytes = Q.tree_nbytes(model)
+        # one record a file (the dequantisation a call makes it the
+        # slowest run)
+        first = base[:5] + ["1"] + base[6:]
+        runs["int8_weights"] = flagship_eval_run(
+            torch, cli, K, R, model, tok, first + paged + ["--logprobs"],
+            kernels, "eval --paged ... --logprobs, int8 weights, --limit 1")
+        log(f"  weights: {q_bytes / 2**30:.2f} GiB int8 vs "
+            f"{bf16_bytes / 2**30:.2f} GiB bf16 ({q_bytes / bf16_bytes:.3f})")
+        ref = runs["batched"]["predictions"]
+        for name in ("speculate", "logprobs", "int8_weights"):
+            got = runs[name]["predictions"]
+            if name == "int8_weights":      # the first record of each file
+                got = {i: got[k] for k, i in enumerate(firsts)}
+            same, n = agreement(got, ref, scored)
+            log(f"  {name}: {same}/{n} decoded answers equal the unpaged "
+                f"greedy ones (bf16; not gated)")
+        del model
+        torch.cuda.empty_cache()
+        cfg = moe_config(cli)
+        model = M.MultiFrameMLLM(cfg, device="cuda")
+        M.init_random_weights(model, SEED)
+        model.eval()
+        runs["moe"] = flagship_eval_run(
+            torch, cli, K, R, model, tok,
+            ["--eval-root", root, "--images-root", images, "--limit", "1",
+             "--max-prompt-len", str(EVAL_PROMPT), "--paged", "--kv-dtype",
+             "int8", "--page-size", "128", "--num-pages", "320"],
+            kernels, "(c) bench MoE eval --paged --kv-dtype int8")
+        del model
+        torch.cuda.empty_cache()
+    log(f"  phase 19 parts: tiny {out['tiny_s']:.1f} s, eval data "
+        f"{out['data_s']:.1f} s; {card}")
+
+    def launches(*names):
+        total = {}
+        for n in names:
+            for k, v in runs[n]["launches"].items():
+                total[k] = total.get(k, 0) + v
+        return total
+
+    out.update(runs=runs, eval_paged=launches("speculate", "logprobs",
+                                              "int8_weights"),
+               eval_batched=runs["batched"]["launches"],
+               moe_eval=runs["moe"]["launches"])
+    for path in ("eval_paged", "eval_batched", "moe_eval"):
+        log(f"  launches on {path}: {out[path]}")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches_by_path, err, timing,
                  library_ms):
     """One entry of the `kernels` line: `timing` is (ms, plain ms,
@@ -3122,6 +3662,16 @@ def main(argv=None):
             f"{json.dumps(res['real_inputs']['rates'])}; phase 18 took "
             f"{time.perf_counter() - t0:.1f} s; {card}")
         torch.cuda.empty_cache()
+    if 19 in phases:
+        head(19, "eval and serving options: tiny f32 card vs CPU, the "
+                 "flagship in bf16 on a pipeline run's eval data (paged with "
+                 "every option, batched with option scoring, int8 weights), "
+                 "the bench MoE with int8 kv")
+        t0 = time.perf_counter()
+        res["eval"] = phase_eval(
+            torch, cli, M, K, tok, card,
+            [A.FLASH_FWD, P.PAGED_DECODE, P.PAGED_DECODE_INT8, G.GMM])
+        log(f"  phase 19 took {time.perf_counter() - t0:.1f} s; {card}")
     log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     if phases != set(range(3, N_PHASES + 1)):
@@ -3141,12 +3691,16 @@ def main(argv=None):
         return {p: launches[name] for p, launches in paths.items()}
 
     frames = res["real_inputs"]["serve"]
+    ev = res["eval"]
     flash = dict(serve=res["serve"], train=train, moe_serve=moe_serve,
-                 moe_train=moe_train, frames_serve=frames)
+                 moe_train=moe_train, frames_serve=frames,
+                 eval_paged=ev["eval_paged"], eval_batched=ev["eval_batched"],
+                 moe_eval=ev["moe_eval"])
     kernels = [
         kernel_entry("flash_fwd", "flash_fwd.cu",
                      f"{jax_attn}:92 (K1); :483 (K4, streaming)",
-                     by_path("flash_fwd", **flash), max(k1_err, err_fwd),
+                     by_path("flash_fwd", **flash),
+                     max(k1_err, err_fwd, ev["k1_err"]),
                      (k1["prefill"][0], k1["prefill"][1], k1["prefill"][3]),
                      k1["prefill"][2]),
         kernel_entry("flash_bwd_dq", "flash_bwd.cu",
@@ -3163,17 +3717,20 @@ def main(argv=None):
         kernel_entry("paged_decode", "paged_decode.cu",
                      "multi_spatialmllm_tpu/ops/paged_attention.py:95",
                      by_path("paged_decode", serve=res["serve"],
-                             frames_serve=frames), k7_err,
+                             frames_serve=frames,
+                             eval_paged=ev["eval_paged"]), k7_err,
                      k7_timing(k7), None),
         kernel_entry("paged_decode_int8", "paged_decode.cu",
                      "multi_spatialmllm_tpu/ops/paged_attention.py:95 "
                      "(quant branch, :220-245, :256-275)",
-                     by_path("paged_decode_int8", moe_serve=moe_serve),
+                     by_path("paged_decode_int8", moe_serve=moe_serve,
+                             moe_eval=ev["moe_eval"]),
                      k7i8_err, k7_timing(k7i8), None),
     ]
     for name, replaces, paths in (
             ("gmm", f"{jax_moe}:133 (_pallas_gmm: megablox gmm)",
-             dict(moe_train=moe_train, moe_serve=moe_serve)),
+             dict(moe_train=moe_train, moe_serve=moe_serve,
+                  moe_eval=ev["moe_eval"])),
             ("gmm_t", f"{jax_moe}:146-165 (VJP: gmm, transpose_rhs)",
              dict(moe_train=moe_train)),
             ("tgmm", f"{jax_moe}:146-165 (VJP: megablox tgmm)",

@@ -10,6 +10,7 @@ Commands:
   pipeline  the ScanNet stages and engines over an existing scene store
   coverage  sharded, resumable object-coverage runs, and --merge
   tapvid    the object-movement engines over TAPVid-3D npz records
+  eval      MultiSPA evaluation: checkpoint x eval JSONL -> scored report
   serve     JSONL serving loop (stdin -> stdout) over the paged batcher
   train     SFT on a data-mixture meta JSON (one device) -> rolling torch
             checkpoints
@@ -17,7 +18,8 @@ Commands:
 The data-engine commands write the trees of the JAX package's commands of
 the same names, on `--device` (the card unless the caller asks for the
 CPU), with no cv2 on their path; `serve` and `train` read JPEG and PNG
-frames without cv2 too (ingest/image.py, models/resize.py).
+frames without cv2 too (ingest/image.py, models/resize.py), and so does
+`eval`.
 """
 
 from __future__ import annotations
@@ -66,6 +68,8 @@ def make_request_builder(cfg, tokenizer, batcher, tiles_for: Callable):
                                [s.shape[0] for s in stacks])
         req = [np.asarray(ids, dtype=np.int32), tiles]
         if any(k in rec for k in ("temperature", "top_p", "seed")):
+            if not batcher.config.sampling:
+                raise ValueError("pass --sampling to use sampling knobs")
             req.append(SamplingParams(
                 temperature=float(rec.get("temperature", 0.0)),
                 top_p=float(rec.get("top_p", 1.0)),
@@ -82,7 +86,8 @@ def make_request_builder(cfg, tokenizer, batcher, tiles_for: Callable):
 def serve_lines(batcher, lines: Iterable[str], to_request: Callable,
                 tokenizer, emit: Callable, window: int = 64,
                 stream: bool = False,
-                more_buffered: Callable[[], bool] = lambda: True) -> None:
+                more_buffered: Callable[[], bool] = lambda: True,
+                logprobs: bool = False) -> None:
     """Serve JSONL request lines through `batcher`, calling `emit(obj)`
     with each result object.
 
@@ -92,7 +97,8 @@ def serve_lines(batcher, lines: Iterable[str], to_request: Callable,
     {"id", "error"} and never stops the loop.
 
     Result:  {"id", "text", "token_ids"} per request, or with `stream`
-             {"id", "delta_ids", "delta", "done"} chunks."""
+             {"id", "delta_ids", "delta", "done"} chunks; with `logprobs`
+             the final one also carries "logprobs" (rounded to 5 places)."""
     it = iter(lines)
     done = False
     n_line = 0
@@ -123,19 +129,26 @@ def serve_lines(batcher, lines: Iterable[str], to_request: Callable,
         texted: dict[int, str] = {i: "" for i in range(len(win))}
         for rid, toks, fin in batcher.generate_stream([r for _, r in win]):
             acc[rid].extend(toks)
+            lp = batcher.request_logprobs.get(rid) \
+                if logprobs and fin else None
             if stream and (toks or fin):
                 # decode the CUMULATIVE ids and emit the text suffix:
                 # per-chunk decode would split multi-byte characters
                 full = tokenizer.decode(np.asarray(acc[rid], np.int32))
                 delta, texted[rid] = full[len(texted[rid]):], full
-                emit({"id": win[rid][0],
-                      "delta_ids": [int(t) for t in toks],
-                      "delta": delta, "done": fin})
+                out = {"id": win[rid][0],
+                       "delta_ids": [int(t) for t in toks],
+                       "delta": delta, "done": fin}
             elif fin:
-                out = np.asarray(acc[rid], dtype=np.int32)
-                emit({"id": win[rid][0],
-                      "token_ids": [int(t) for t in out],
-                      "text": tokenizer.decode(out)})
+                ids = np.asarray(acc[rid], dtype=np.int32)
+                out = {"id": win[rid][0],
+                       "token_ids": [int(t) for t in ids],
+                       "text": tokenizer.decode(ids)}
+            else:
+                continue
+            if lp is not None:
+                out["logprobs"] = [round(x, 5) for x in lp]
+            emit(out)
 
 
 def cmd_serve(args) -> None:
@@ -143,22 +156,19 @@ def cmd_serve(args) -> None:
     per stdin line -> result lines on stdout.
 
     Request line:  {"id": ..., "text": "<image>\\n...", "image": [paths],
-                    "max_new_tokens": n}
+                    "max_new_tokens": n, "temperature": t, "top_p": p,
+                    "seed": s}   (the knobs need --sampling; omitted or 0
+                    temperature is greedy)
     Result line:   {"id": ..., "text": ..., "token_ids": [...]} or, with
-                   --stream, {"id", "delta_ids", "delta", "done"} chunks.
+                   --stream, {"id", "delta_ids", "delta", "done"} chunks;
+                   with --logprobs the final one carries "logprobs".
     """
-    import torch
-
-    from .models import mllm as M
     from .models.paged_kv import PagedBatcher, PagedConfig
     from .models.preprocess import PreprocessConfig, tile_image
     from .models.tokenizer import load_tokenizer
 
     cfg = _config(args)
-    device = torch.device(args.device)
-    model = M.MultiFrameMLLM(cfg, device=device)
-    model.load_state_dict(_load_params(args.checkpoint, device))
-    model.eval()
+    model = _load_model(cfg, args)
     tok = load_tokenizer(args.tokenizer)
     pre = PreprocessConfig(tile_size=cfg.vit.image_size,
                            max_tiles=args.max_tiles, resize_hw=None)
@@ -195,7 +205,7 @@ def cmd_serve(args) -> None:
                 make_request_builder(cfg, tok, batcher, tiles_for), tok,
                 lambda obj: print(json.dumps(obj), flush=True),
                 window=args.window, stream=args.stream,
-                more_buffered=more_buffered)
+                more_buffered=more_buffered, logprobs=args.logprobs)
     print(json.dumps({"served": True, "stats": batcher.stats}),
           file=sys.stderr)
 
@@ -236,6 +246,133 @@ def _config(args):
         cfg = dataclasses.replace(
             cfg, llm=dataclasses.replace(cfg.llm, **overrides))
     return cfg
+
+
+def _load_model(cfg, args):
+    """The model of `cfg` on `--device` with the `--checkpoint` weights,
+    quantised to int8 (models/quantize.py) with `--quantize-weights`."""
+    import torch
+
+    from .models import mllm as M
+    from .models.quantize import quantize_model
+
+    device = torch.device(args.device)
+    model = M.MultiFrameMLLM(cfg, device=device)
+    model.load_state_dict(_load_params(args.checkpoint, device))
+    model.eval()
+    if args.quantize_weights:
+        quantize_model(model)
+    return model
+
+
+def read_campaigns(args) -> list[tuple[str, list[dict]]]:
+    """(name, records) of `--eval-jsonl` (one campaign named by the file),
+    or of `--eval-root`: one campaign per engine directory holding
+    `*.jsonl` files, the `*_orig.jsonl` full pre-subsample dumps skipped;
+    each cut to `--limit` records a file."""
+    if bool(args.eval_jsonl) == bool(args.eval_root):
+        raise SystemExit("pass exactly one of --eval-jsonl / --eval-root")
+
+    def read_jsonl(path):
+        with open(path) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+        return rows[: args.limit] if args.limit else rows
+
+    if args.eval_jsonl:
+        return [(os.path.basename(args.eval_jsonl),
+                 read_jsonl(args.eval_jsonl))]
+    campaigns = []
+    for engine in sorted(os.listdir(args.eval_root)):
+        edir = os.path.join(args.eval_root, engine)
+        if not os.path.isdir(edir):
+            continue
+        rows = []
+        for fn in sorted(os.listdir(edir)):
+            if fn.endswith(".jsonl") and not fn.endswith("_orig.jsonl"):
+                rows.extend(read_jsonl(os.path.join(edir, fn)))
+        if rows:
+            campaigns.append((engine, rows))
+    if not campaigns:
+        raise SystemExit(f"no eval JSONL under {args.eval_root}")
+    return campaigns
+
+
+def eval_report(model, tok, args):
+    """Run the `eval` command's campaigns on `model` -> (report, the
+    predictions as the --output file holds them, the batcher or None): a
+    single campaign's eval_harness report, or with several the weighted
+    aggregate and one report per engine."""
+    from .models.data import DataConfig
+    from .models.preprocess import PreprocessConfig
+    from .models.runner import EvalRunConfig, run_eval
+
+    cfg = model.cfg
+    if tok.vocab_size > cfg.llm.vocab_size:
+        raise ValueError(f"tokenizer vocab {tok.vocab_size} > model vocab "
+                         f"{cfg.llm.vocab_size}")
+    campaigns = read_campaigns(args)
+    run_cfg = EvalRunConfig(
+        max_new_tokens=args.max_new_tokens, mc_logprob=args.mc_logprob,
+        speculate=0 if args.paged else args.speculate,
+        data=DataConfig(preprocess=PreprocessConfig(
+            tile_size=cfg.vit.image_size, max_tiles=args.max_tiles,
+            resize_hw=None)))
+    batcher = None
+    if args.paged:
+        from .models.paged_kv import PagedBatcher, PagedConfig
+
+        batcher = PagedBatcher(
+            model,
+            PagedConfig(slots=args.slots, page_size=args.page_size,
+                        num_pages=args.num_pages,
+                        max_prompt_len=args.max_prompt_len,
+                        max_new_tokens=args.max_new_tokens,
+                        kv_dtype=args.kv_dtype,
+                        prefix_cache=args.prefix_cache,
+                        prefill_chunk=args.prefill_chunk,
+                        vision_cache=args.vision_cache,
+                        speculate=args.speculate, logprobs=args.logprobs),
+            pad_id=tok.pad_id, eos_id=tok.eos_id)
+
+    def loader(path):
+        return _read_image(os.path.join(args.images_root, path))
+
+    per_engine, predictions = {}, {}
+    for name, samples in campaigns:
+        rep = run_eval(model, tok, samples, loader, run_cfg,
+                       batch_size=args.batch_size, batcher=batcher)
+        predictions[name] = rep.pop("predictions")
+        per_engine[name] = rep
+    if len(campaigns) == 1:
+        name = campaigns[0][0]
+        return per_engine[name], predictions[name], batcher
+    total = sum(r["count"] for r in per_engine.values())
+    hits = sum(r["accuracy"] * r["count"] for r in per_engine.values())
+    report = {"accuracy": hits / total if total else 0.0, "count": total,
+              "engines": per_engine}
+    return report, predictions, batcher
+
+
+def cmd_eval(args) -> None:
+    """MultiSPA evaluation: a checkpoint x eval JSONL (the engines'
+    records) x an images directory -> eval_harness report, on `--device`.
+    `--paged` serves the campaign through the paged batcher, with the
+    prefix cache, int8 kv, chunked prefill, vision cache, speculation and
+    logprobs as options; otherwise the batched path decodes
+    `--batch-size` rows at a time. Prints the report (with the batcher's
+    counters as `serving_stats`); `--output` also gets the predictions."""
+    from .models.tokenizer import load_tokenizer
+
+    cfg = _config(args)
+    model = _load_model(cfg, args)
+    tok = load_tokenizer(args.tokenizer)
+    report, preds, batcher = eval_report(model, tok, args)
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump({**report, "predictions": preds}, f)
+    if batcher is not None:
+        report["serving_stats"] = batcher.stats
+    print(json.dumps(report))
 
 
 def _load_params(path: str, device):
@@ -618,7 +755,9 @@ def _add_moe_flags(p, group: bool) -> None:
                         "hand-written kernels")
 
 
-def main(argv=None) -> None:
+def build_parser() -> argparse.ArgumentParser:
+    """The command-line parser: one subcommand a command, each with its
+    handler as `fn`."""
     parser = argparse.ArgumentParser(prog="multi_spatialmllm_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -689,6 +828,54 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_tapvid)
 
+    p = sub.add_parser("eval",
+                       help="MultiSPA eval: checkpoint x JSONL -> scores")
+    p.add_argument("--checkpoint", required=True,
+                   help="torch.save'd state dict of MultiFrameMLLM, or a "
+                        "train save (step dir or rolling root)")
+    p.add_argument("--config", choices=("flagship", "bench", "tiny"),
+                   default="flagship")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--tokenizer", default=None,
+                   help="HF tokenizer.json (default: builtin word-level)")
+    p.add_argument("--vocab-size", type=int, default=0,
+                   help="override the config's vocab (0 = keep; must "
+                        "cover the tokenizer)")
+    _add_moe_flags(p, group=False)
+    p.add_argument("--eval-jsonl", default=None,
+                   help="one engine evaluation_data JSONL")
+    p.add_argument("--eval-root", default=None,
+                   help="qa/evaluation_data directory: every engine's "
+                        "*.jsonl evaluated (skipping *_orig.jsonl), "
+                        "per-engine + aggregate report")
+    p.add_argument("--images-root", default=".")
+    p.add_argument("--output", default=None, help="report+predictions json")
+    p.add_argument("--limit", type=int, default=0)
+    p.add_argument("--max-new-tokens", type=int, default=24)
+    p.add_argument("--max-tiles", type=int, default=6)
+    p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--speculate", type=int, default=0)
+    p.add_argument("--paged", action="store_true",
+                   help="serve through the paged continuous batcher")
+    p.add_argument("--slots", type=int, default=8)
+    p.add_argument("--page-size", type=int, default=64)
+    p.add_argument("--num-pages", type=int, default=128)
+    p.add_argument("--max-prompt-len", type=int, default=2048)
+    p.add_argument("--mc-logprob", action="store_true",
+                   help="score multiple-choice records by candidate "
+                        "logprob instead of free decoding")
+    p.add_argument("--quantize-weights", action="store_true",
+                   help="weight-only int8 (models/quantize.py)")
+    p.add_argument("--kv-dtype", choices=("native", "int8"),
+                   default="native")
+    p.add_argument("--prefix-cache", action="store_true")
+    p.add_argument("--prefill-chunk", type=int, default=0)
+    p.add_argument("--vision-cache", type=int, default=0)
+    p.add_argument("--logprobs", action="store_true",
+                   help="report per-sample mean token logprob "
+                        "(report['confidences']); paged only")
+    p.set_defaults(fn=cmd_eval)
+
     p = sub.add_parser("serve",
                        help="JSONL serving loop (stdin -> stdout) over "
                             "the paged batcher")
@@ -707,6 +894,8 @@ def main(argv=None) -> None:
                    help="max requests drained per serving window")
     p.add_argument("--stream", action="store_true",
                    help="emit incremental token chunks per request")
+    p.add_argument("--sampling", action="store_true",
+                   help="honor temperature/top_p/seed request fields")
     p.add_argument("--max-new-tokens", type=int, default=64)
     p.add_argument("--slots", type=int, default=8)
     p.add_argument("--page-size", type=int, default=64)
@@ -720,14 +909,14 @@ def main(argv=None) -> None:
                    help="kv page pools in the model dtype, or int8 with "
                         "per-row scales")
     _add_moe_flags(p, group=False)
-    # the JAX CLI's further serving options: accepted, and each raises
-    # NotImplementedError until it is ported
-    p.add_argument("--sampling", action="store_true")
     p.add_argument("--prefix-cache", action="store_true")
     p.add_argument("--prefill-chunk", type=int, default=0)
     p.add_argument("--vision-cache", type=int, default=0)
     p.add_argument("--speculate", type=int, default=0)
-    p.add_argument("--logprobs", action="store_true")
+    p.add_argument("--quantize-weights", action="store_true",
+                   help="weight-only int8 (models/quantize.py)")
+    p.add_argument("--logprobs", action="store_true",
+                   help="attach per-token logprobs to each result")
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("train",
@@ -797,8 +986,11 @@ def main(argv=None) -> None:
     p.add_argument("--eval-max-new-tokens", type=int, default=None)
     p.add_argument("--mc-logprob", action="store_true")
     p.set_defaults(fn=cmd_train)
+    return parser
 
-    args = parser.parse_args(argv)
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
     args.fn(args)
 
 

@@ -3,19 +3,38 @@
 Port of multi_spatialmllm_tpu/models/llm.py: the training forward and
 prompt prefill (causal flash attention through the trainable op, with
 per-segment positions and a block-diagonal mask for packed rows; prefill
-returns the fresh kv as the contiguous row cache), the one-token paged
-decode step (the paged decode op lands the new kv row in the pools, native
-or int8 with per-row scales, and attends), and the masked next-token
-losses. With `moe_experts > 0` every layer's FFN is a routed MoE
-(models/moe.py); each layer returns its load-balance statistic, and
-`inference` (prefill and decode) selects the MoE's inference routing.
+without a cache returns the fresh kv rows), the decode forwards over a
+kv cache, and the masked next-token losses. A layer's cache is one of:
+
+* contiguous (`init_cache`): k/v `[B, KVH, max_len, hd]` written in place
+  at `index`, a scalar shared by every row or a per-row `[B]` tensor
+  (clamped so the t rows fit, as `dynamic_update_slice` clamps). A
+  multi-token forward at a scalar index is the prompt prefill: it attends
+  within the fresh kv through flash attention (the CUDA kernel on the
+  card). Every other forward attends over the cache with the grouped
+  masked einsums, query row i of a row admitting positions <= index + i
+  (decode, and the speculative verify chain).
+* paged (k_pages, v_pages, page_table, index, and k_scale/v_scale for
+  int8 pools): one token a slot goes through the paged decode op (the
+  CUDA kernel on the card lands the new kv row, native or int8, and
+  attends); t > 1 tokens (chunked prefill, speculative verify) are
+  scattered at their (page, offset), quantised first for int8 pools, and
+  attend over each slot's gathered, dequantised page window with the same
+  masked einsums.
+
+The caches are updated in place; the caller sets `index`. With
+`moe_experts > 0` every layer's FFN is a routed MoE (models/moe.py); each
+layer returns its load-balance statistic, and `inference` (every forward
+with a cache) selects the MoE's inference routing.
 
 Numerics follow the Flax modules: RMSNorm and RoPE compute in float32 and
 cast back; RoPE rotates split halves; every weight is cast to the config
 dtype at use, as Flax `Dense`/`Embed` cast their float32 params, so a model
-may hold float32 master weights (training) or weights already in the
-compute dtype (serving, where the casts are no-ops); norm scales stay
-float32. `remat` checkpoints each whole layer (`torch.utils.checkpoint`).
+may hold float32 master weights (training), weights already in the
+compute dtype (serving, where the casts are no-ops) or int8 weights with
+their scales (models/quantize.py, dequantised to float32 at use); norm
+scales stay float32. `remat` checkpoints each whole layer
+(`torch.utils.checkpoint`).
 """
 
 from __future__ import annotations
@@ -31,8 +50,14 @@ from ..ops.attention import (
     trainable_flash_attention,
     trainable_flash_attention_packed,
 )
-from ..ops.paged_attention import paged_decode_attention
+from ..ops.paged_attention import (
+    grouped_attention,
+    paged_decode_attention,
+    window_attention,
+    write_kv_chain,
+)
 from .moe import MoEMLP
+from .quantize import dequantized
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -106,7 +131,7 @@ class Linear(nn.Linear):
     def forward(self, x):
         cd = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(cd)
-        return F.linear(x.to(cd), self.weight.to(cd), bias)
+        return F.linear(x.to(cd), dequantized(self, "weight").to(cd), bias)
 
 
 class Embedding(nn.Embedding):
@@ -119,7 +144,8 @@ class Embedding(nn.Embedding):
         self.compute_dtype = dtype
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight).to(self.compute_dtype)
+        return F.embedding(ids, dequantized(self, "weight")).to(
+            self.compute_dtype)
 
 
 class RMSNorm(nn.Module):
@@ -146,14 +172,13 @@ class Attention(nn.Module):
         self.wv = Linear(d, cfg.num_kv_heads * hd, **kw)
         self.wo = Linear(cfg.num_heads * hd, d, **kw)
 
-    def forward(self, x, rope, paged=None, segment_ids=None):
-        """`rope`: `rope_tables` of the positions. Training and prefill
-        (`paged` None): causal attention over the fresh kv (block-diagonal
-        within equal `segment_ids` `[B, T]` for packed rows), returning
-        `(out, (k, v))` with k/v `[B, KVH, T, hd]`. Paged decode (`paged`
-        a dict of k_pages, v_pages, page_table, index, and k_scale/v_scale
-        for int8 pools; T == 1): returns `(out, None)`, the pools updated in
-        place."""
+    def forward(self, x, rope, cache=None, segment_ids=None):
+        """`rope`: `rope_tables` of the positions. Without a cache
+        (training, prefill): causal attention over the fresh kv
+        (block-diagonal within equal `segment_ids` `[B, T]` for packed
+        rows), returning `(out, (k, v))` with k/v `[B, KVH, T, hd]`. With a
+        contiguous or paged cache (see the module docstring): `(out,
+        None)`, the cache updated in place."""
         cfg = self.cfg
         b, t, _ = x.shape
         hd = cfg.head_dim
@@ -161,26 +186,72 @@ class Attention(nn.Module):
         k = self.wk(x).view(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
         v = self.wv(x).view(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
         q, k = rotate(q, rope), rotate(k, rope)
-        if paged is None:
+        kv = None
+        if cache is None:
             if segment_ids is None:
                 out = trainable_flash_attention(q, k, v, True)
             else:
                 out = trainable_flash_attention_packed(q, k, v, segment_ids,
                                                        True)
             kv = (k, v)
+        elif "k_pages" in cache:
+            if t == 1:
+                out = paged_decode_attention(
+                    q, cache["k_pages"], cache["v_pages"],
+                    cache["page_table"], cache["index"], k[:, :, 0],
+                    v[:, :, 0], cache.get("k_scale"), cache.get("v_scale"))
+            else:
+                scales = (cache.get("k_scale"), cache.get("v_scale"))
+                write_kv_chain(cache["k_pages"], cache["v_pages"],
+                               cache["page_table"], cache["index"], k, v,
+                               *scales)
+                out = window_attention(q, cache["k_pages"], cache["v_pages"],
+                                       cache["page_table"], cache["index"],
+                                       *scales)
         else:
-            if t != 1:
-                raise NotImplementedError(
-                    "multi-token paged forward (chunked prefill, prefix "
-                    "resume, speculation) is not ported yet (ROADMAP "
-                    "queue 1, item 15)")
-            out = paged_decode_attention(
-                q, paged["k_pages"], paged["v_pages"], paged["page_table"],
-                paged["index"], k[:, :, 0], v[:, :, 0],
-                paged.get("k_scale"), paged.get("v_scale"))
-            kv = None
+            idx = cache["index"]
+            scalar = not isinstance(idx, torch.Tensor) or idx.dim() == 0
+            write_cache_rows(cache, k, v)
+            if t > 1 and scalar:
+                # prompt prefill (index 0): attend within the fresh kv
+                out = trainable_flash_attention(q, k, v, True)
+            else:
+                kv_len = cache["k"].shape[2]
+                cur = (torch.as_tensor(idx, device=x.device).long()
+                       .reshape(-1, 1) + torch.arange(t, device=x.device))
+                valid = (torch.arange(kv_len, device=x.device)[None, None, :]
+                         <= cur[:, :, None])
+                out = grouped_attention(q, cache["k"], cache["v"], valid)
         out = out.transpose(1, 2).reshape(b, t, cfg.num_heads * hd)
         return self.wo(out), kv
+
+
+def write_cache_rows(cache: dict, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write k/v `[B, KVH, t, hd]` into a contiguous cache at its index (a
+    scalar, or a per-row `[B]` tensor), in place; the start is clamped to
+    `[0, max_len - t]` as `lax.dynamic_update_slice` clamps it."""
+    max_len, t = cache["k"].shape[2], k.shape[2]
+    idx = cache["index"]
+    if not isinstance(idx, torch.Tensor) or idx.dim() == 0:
+        start = min(max(int(idx), 0), max_len - t)
+        cache["k"][:, :, start:start + t] = k
+        cache["v"][:, :, start:start + t] = v
+        return
+    start = idx.long().clamp(0, max_len - t)
+    pos = start[:, None] + torch.arange(t, device=k.device)         # [B, t]
+    rows = torch.arange(k.shape[0], device=k.device)[:, None]
+    cache["k"][rows, :, pos] = k.transpose(1, 2)
+    cache["v"][rows, :, pos] = v.transpose(1, 2)
+
+
+def init_cache(cfg: LLMConfig, batch: int, max_len: int, device=None):
+    """An empty contiguous kv cache, one dict a layer: k/v `[batch, KVH,
+    max_len, hd]` in the config dtype (zeros) and index 0."""
+    dtype = DTYPES[cfg.dtype]
+    shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device),
+             "index": 0} for _ in range(cfg.num_layers)]
 
 
 class MLP(nn.Module):
@@ -206,12 +277,12 @@ class DecoderLayer(nn.Module):
         else:
             self.mlp = MLP(cfg, device)
 
-    def forward(self, x, rope, paged=None, segment_ids=None,
+    def forward(self, x, rope, cache=None, segment_ids=None,
                 inference: bool = False):
         """-> `(x, kv, aux)`: aux is the MoE load-balance statistic (None
         for a dense FFN). Pads (segment id 0) take no expert capacity and
         leave the statistic; `inference` marks prefill and decode."""
-        attn_out, kv = self.attn(self.attn_norm(x), rope, paged, segment_ids)
+        attn_out, kv = self.attn(self.attn_norm(x), rope, cache, segment_ids)
         x = x + attn_out
         h = self.mlp_norm(x)
         if hasattr(self, "moe"):
@@ -237,17 +308,17 @@ class DecoderLM(nn.Module):
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
                               device=device, dtype=dtype)
 
-    def forward(self, input_embeds, positions, paged=None, segment_ids=None,
+    def forward(self, input_embeds, positions, caches=None, segment_ids=None,
                 inference: bool = False, with_aux: bool = False):
-        """`paged`: None for training and prefill, else one pool dict per
-        layer (see Attention.forward); `segment_ids` `[B, T]` for packed
+        """`caches`: None, or one contiguous or paged cache dict per layer
+        (see the module docstring); `segment_ids` `[B, T]` for packed
         rows (with per-segment `positions`); `inference` True for prefill
         and decode (the MoE's inference routing), False for training.
         Returns `(logits, kv rows per layer)`, and with `with_aux` also the
         per-layer MoE statistics (None for dense layers)."""
         x = input_embeds
         rope = rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
-        remat = self.cfg.remat and paged is None and torch.is_grad_enabled()
+        remat = self.cfg.remat and caches is None and torch.is_grad_enabled()
         kvs, auxes = [], []
         for i, layer in enumerate(self.layers):
             if remat:
@@ -255,7 +326,7 @@ class DecoderLM(nn.Module):
                                         inference, use_reentrant=False)
             else:
                 x, kv, aux = layer(x, rope,
-                                   None if paged is None else paged[i],
+                                   None if caches is None else caches[i],
                                    segment_ids, inference)
             kvs.append(kv)
             auxes.append(aux)

@@ -2,7 +2,8 @@
 decoder, with vision features spliced into the token stream at
 IMG_CONTEXT positions. Port of multi_spatialmllm_tpu/models/mllm.py: the
 training forward (`forward`, padded or packed rows) and `loss_fn`, and the
-inference entry points `encode_tiles`, `spliced_embeds` and `prefill`.
+inference entry points `encode_tiles`, `spliced_embeds` (with `splice`,
+which takes the vision features already projected) and `prefill`.
 
 A model built with `param_dtype=torch.float32` holds float32 master
 weights and computes in its config dtype, as the Flax modules do with
@@ -81,11 +82,22 @@ class MultiFrameMLLM(nn.Module):
         `[B, T]`, `tiles` `[B, N_tiles, H, W, 3]`."""
         b = input_ids.shape[0]
         n_tiles = tiles.shape[1]
-        embeds = self.llm.embed(input_ids)
         if n_tiles == 0:      # text-only prompt: nothing to splice
+            return self.llm.embed(input_ids)
+        vis = self.encode_tiles(
+            tiles.reshape((b * n_tiles,) + tiles.shape[2:]))
+        return self.splice(input_ids,
+                           vis.reshape(b, n_tiles * vis.shape[1], -1))
+
+    def splice(self, input_ids: torch.Tensor,
+               vis: torch.Tensor) -> torch.Tensor:
+        """Token embeddings of `input_ids` `[B, T]` with the projected
+        vision features `vis` `[B, N, D]` (or `[1, N, D]`, shared by every
+        row) in the IMG_CONTEXT slots, in order."""
+        embeds = self.llm.embed(input_ids)
+        if vis.shape[1] == 0:
             return embeds
-        vis = self.encode_tiles(tiles.reshape((b * n_tiles,) + tiles.shape[2:]))
-        vis = vis.reshape(b, n_tiles * vis.shape[1], -1)
+        vis = vis.expand(input_ids.shape[0], -1, -1)
         is_ctx = input_ids == self.cfg.img_context_id
         slot = (torch.cumsum(is_ctx.long(), dim=1) - 1).clamp(
             0, vis.shape[1] - 1)
@@ -114,15 +126,18 @@ class MultiFrameMLLM(nn.Module):
                                     inference=False, with_aux=True)
         return (logits, auxes) if with_aux else logits
 
-    def prefill(self, input_ids: torch.Tensor, tiles: torch.Tensor):
-        """Prompt prefill -> `(logits, kv rows per layer)`. Right padding
-        is harmless: attention is causal, so logits at real positions never
+    def prefill(self, input_ids: torch.Tensor, tiles: torch.Tensor,
+                caches: list | None = None):
+        """Prompt prefill -> `(logits, kv rows per layer)`, or with
+        contiguous `caches` at index 0 (llm.init_cache) `(logits, None per
+        layer)`, the prompt's kv written into them. Right padding is
+        harmless: attention is causal, so logits at real positions never
         see pad keys, and the pad kv rows are never admitted by the decode
         mask (the caller rewinds the position to the true length)."""
         embeds = self.spliced_embeds(input_ids, tiles)
         b, t, _ = embeds.shape
         positions = torch.arange(t, device=embeds.device).expand(b, t)
-        return self.llm(embeds, positions, inference=True)
+        return self.llm(embeds, positions, caches, inference=True)
 
 
 def loss_fn(model: MultiFrameMLLM, batch: dict):

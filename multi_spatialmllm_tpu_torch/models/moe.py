@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.grouped_matmul import grouped_matmul
+from .quantize import dequantized
 
 # Inference chunks up to this length route with a no-drop capacity
 # (C = top_k * T).
@@ -199,9 +200,11 @@ class MoEMLP(nn.Module):
 
     def forward(self, x, valid=None, inference: bool = False):
         cfg = self.cfg
+        router, wi_gate, wi_up, wo = (dequantized(self, n) for n in
+                                      ("router", "wi_gate", "wi_up", "wo"))
         if cfg.moe_impl == "ragged":
-            return ragged_moe(cfg, x, self.router, self.wi_gate, self.wi_up,
-                              self.wo, valid=valid)
+            return ragged_moe(cfg, x, router, wi_gate, wi_up,
+                              wo, valid=valid)
         dtype = getattr(torch, cfg.dtype)
         b, t, d = x.shape
         # GShard groups (training only); inference routes whole chunks
@@ -216,14 +219,14 @@ class MoEMLP(nn.Module):
         else:
             xr, vr = x, valid
         cap = moe_capacity(cfg, xr.shape[1], inference=inference)
-        logits = torch.einsum("btd,de->bte", xr.float(), self.router.float())
+        logits = torch.einsum("btd,de->bte", xr.float(), router.float())
         dispatch, combine, aux = top_k_routing(logits, cfg.moe_top_k, cap,
                                                valid=vr)
         xin = torch.einsum("btec,btd->ebcd", dispatch.to(dtype),
                            xr.to(dtype))
-        gate = torch.einsum("ebcd,edf->ebcf", xin, self.wi_gate.to(dtype))
-        up = torch.einsum("ebcd,edf->ebcf", xin, self.wi_up.to(dtype))
+        gate = torch.einsum("ebcd,edf->ebcf", xin, wi_gate.to(dtype))
+        up = torch.einsum("ebcd,edf->ebcf", xin, wi_up.to(dtype))
         out = torch.einsum("ebcf,efd->ebcd", F.silu(gate) * up,
-                           self.wo.to(dtype))
+                           wo.to(dtype))
         y = torch.einsum("btec,ebcd->btd", combine.to(dtype), out)
         return y.reshape(b, t, d).to(dtype), aux

@@ -20,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import trainable_flash_attention_packed
 from .llm import DTYPES, Linear
+from .quantize import dequantized
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,12 +125,13 @@ class VisionTransformer(nn.Module):
         dtype = DTYPES[self.cfg.dtype]
         conv = self.patch_embed
         x = F.conv2d(pixels.to(dtype).permute(0, 3, 1, 2),
-                     conv.weight.to(dtype), conv.bias.to(dtype),
-                     stride=conv.stride)
+                     dequantized(conv, "weight").to(dtype),
+                     conv.bias.to(dtype), stride=conv.stride)
         x = x.flatten(2).transpose(1, 2)             # [B, P, D], row-major
         b = x.shape[0]
-        x = torch.cat([self.cls_token.to(dtype).expand(b, -1, -1), x], dim=1)
-        x = x + self.pos_embed.to(dtype)
+        cls = dequantized(self, "cls_token").to(dtype)
+        x = torch.cat([cls.expand(b, -1, -1), x], dim=1)
+        x = x + dequantized(self, "pos_embed").to(dtype)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for block in self.blocks:
             x = checkpoint(block, x, use_reentrant=False) if remat \

@@ -120,50 +120,72 @@ def quantize_kv_rows(rows: torch.Tensor):
     return q.to(torch.int8), scale
 
 
+def grouped_attention(q, k, v, valid):
+    """Masked softmax attention with GQA kept grouped (the JAX package's
+    decode-branch einsums, `llm.py:331-357`): q `[B, H, t, hd]`, k/v
+    `[B, KVH, L, hd]`, valid `[B, t, L]` bool -> `[B, H, t, hd]`. Scores
+    in float32, masked keys at NEG_INF, probabilities cast to q's dtype."""
+    b, h, t, hd = q.shape
+    kvh = k.shape[1]
+    qg = q.reshape(b, kvh, h // kvh, t, hd)
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qg, k).float() * (hd ** -0.5)
+    s = s.masked_fill(~valid[:, None, None], NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bgrqk,bgkd->bgrqd", p, v).reshape(b, h, t, hd)
+
+
+def gather_window(pages, page_table, scale=None, dtype=None):
+    """Each slot's pages in logical order: pool `[P, KVH, ps, hd]` and
+    page_table `[B, PPS]` -> `[B, KVH, PPS * ps, hd]`; an int8 pool with
+    its scales `[P, KVH, ps]` is dequantised (`int8.float() * scale`, cast
+    to `dtype`)."""
+    pt = page_table.long()
+    w = pages[pt]                                # [B, PPS, KVH, ps, hd]
+    if scale is not None:
+        w = (w.float() * scale[pt][..., None]).to(dtype)
+    b, pps, kvh, ps, hd = w.shape
+    return w.transpose(1, 2).reshape(b, kvh, pps * ps, hd)
+
+
 def window_attention(q, k_pages, v_pages, page_table, index, k_scale=None,
                      v_scale=None):
-    """One-token attention of each slot over its gathered page window,
-    admitting logical positions <= index (the JAX package's gather path).
-    q `[B, H, 1, hd]`, pools `[P, KVH, ps, hd]`, page_table `[B, PPS]`,
-    index `[B]` -> `[B, H, 1, hd]`. With int8 pools and their scales
-    `[P, KVH, ps]` the windows are dequantised first (`int8.float() *
-    scale`, cast to q's dtype)."""
-    b, h, _, hd = q.shape
-    kvh = k_pages.shape[1]
-    rep = h // kvh
-    pt = page_table.long()
-    kw, vw = k_pages[pt], v_pages[pt]            # [B, PPS, KVH, ps, hd]
+    """Attention of each slot's t query rows over its gathered page
+    window, row i admitting logical positions <= index + i (the JAX
+    package's gather path). q `[B, H, t, hd]`, pools `[P, KVH, ps, hd]`,
+    page_table `[B, PPS]`, index `[B]` -> `[B, H, t, hd]`. With int8 pools
+    and their scales `[P, KVH, ps]` the windows are dequantised first."""
+    t = q.shape[2]
+    k = gather_window(k_pages, page_table, k_scale, q.dtype)
+    v = gather_window(v_pages, page_table, v_scale, q.dtype)
+    pos = torch.arange(k.shape[2], device=q.device)
+    cur = index.long()[:, None] + torch.arange(t, device=q.device)
+    return grouped_attention(q, k, v, pos[None, None, :] <= cur[:, :, None])
+
+
+def write_kv_chain(k_pages, v_pages, page_table, index, k, v, k_scale=None,
+                   v_scale=None):
+    """Scatter each slot's t kv rows k/v `[B, KVH, t, hd]` to the logical
+    positions index .. index + t - 1, at (page_table[b, pos // ps],
+    pos % ps), in place; for int8 pools (scales given) the rows are
+    quantised with `quantize_kv_rows` and their scales land beside them."""
+    ps = k_pages.shape[2]
+    t = k.shape[2]
+    logical = index.long()[:, None] + torch.arange(t, device=k.device)
+    pages = torch.gather(page_table.long(), 1, logical // ps)     # [B, t]
+    off = logical % ps
+    k_rows, v_rows = k.transpose(1, 2), v.transpose(1, 2)   # [B, t, KVH, hd]
     if k_scale is not None:
-        kw = (kw.float() * k_scale[pt][..., None]).to(q.dtype)
-        vw = (vw.float() * v_scale[pt][..., None]).to(q.dtype)
-    win = kw.shape[1] * kw.shape[3]
-    k = kw.transpose(1, 2).reshape(b, kvh, win, hd)
-    v = vw.transpose(1, 2).reshape(b, kvh, win, hd)
-    qg = q.reshape(b, kvh, rep, 1, hd)
-    s = torch.einsum("bgrqd,bgkd->bgrqk", qg, k).float() * (hd ** -0.5)
-    pos = torch.arange(win, device=q.device)
-    valid = pos[None, :] <= index.long()[:, None]          # [B, win]
-    s = s.masked_fill(~valid[:, None, None, None, :], NEG_INF)
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.einsum("bgrqk,bgkd->bgrqd", p, v).reshape(b, h, 1, hd)
+        k_rows, k_scale[pages, :, off] = quantize_kv_rows(k_rows)
+        v_rows, v_scale[pages, :, off] = quantize_kv_rows(v_rows)
+    k_pages[pages, :, off] = k_rows.to(k_pages.dtype)
+    v_pages[pages, :, off] = v_rows.to(v_pages.dtype)
 
 
 def write_kv_rows(k_pages, v_pages, page_table, index, k_new, v_new,
                   k_scale=None, v_scale=None):
-    """Scatter each slot's `[KVH, hd]` row to (page_table[b, index//ps],
-    index % ps), in place; for int8 pools (scales given) the rows are
-    quantised with `quantize_kv_rows` and their scales land beside them."""
-    ps = k_pages.shape[2]
-    idx = index.long()
-    rows = torch.arange(idx.shape[0], device=idx.device)
-    page = page_table.long()[rows, idx // ps]
-    if k_scale is not None:
-        k_new, ks = quantize_kv_rows(k_new)
-        v_new, vs = quantize_kv_rows(v_new)
-        k_scale[page, :, idx % ps] = ks
-        v_scale[page, :, idx % ps] = vs
-    k_pages[page, :, idx % ps] = k_new
-    v_pages[page, :, idx % ps] = v_new
+    """`write_kv_chain` of one row a slot: k_new/v_new `[B, KVH, hd]`."""
+    write_kv_chain(k_pages, v_pages, page_table, index, k_new[:, :, None],
+                   v_new[:, :, None], k_scale, v_scale)
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, page_table, index,

@@ -112,7 +112,7 @@ def main():
         batcher._extend_to(slot, int(batcher.positions[slot]) + pcfg.chunk)
 
     def decode():
-        toks, _, _ = K.paged_decode_chunk(
+        toks, _, _, _ = K.paged_decode_chunk(
             model, torch.as_tensor(batcher.last_token, device="cuda"),
             torch.as_tensor(batcher.positions, device="cuda"),
             batcher.pools,

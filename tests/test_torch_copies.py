@@ -27,6 +27,7 @@ IDENTICAL = [
     "engines/visual_correspondence.py",
     "engines/object_perception.py",
     "engines/fast_jsonl.py",
+    "models/eval_harness.py",
     "ingest/__init__.py",
     "ingest/tapvid.py",
     "ingest/ply.py",

@@ -14,6 +14,7 @@ misaligned operand raises before any launch; and chip_smoke.py refuses to
 run (non-zero exit, no result line) without a CUDA device or outside the
 repository."""
 
+import dataclasses
 import json
 import os
 import shutil
@@ -83,6 +84,7 @@ PORT_MODULES = [
     "multi_spatialmllm_tpu_torch.models._vocab_templates",
     "multi_spatialmllm_tpu_torch.models.convert",
     "multi_spatialmllm_tpu_torch.models.data",
+    "multi_spatialmllm_tpu_torch.models.eval_harness",
     "multi_spatialmllm_tpu_torch.models.generate",
     "multi_spatialmllm_tpu_torch.models.llm",
     "multi_spatialmllm_tpu_torch.models.mixture",
@@ -90,6 +92,8 @@ PORT_MODULES = [
     "multi_spatialmllm_tpu_torch.models.moe",
     "multi_spatialmllm_tpu_torch.models.paged_kv",
     "multi_spatialmllm_tpu_torch.models.preprocess",
+    "multi_spatialmllm_tpu_torch.models.prng",
+    "multi_spatialmllm_tpu_torch.models.quantize",
     "multi_spatialmllm_tpu_torch.models.resize",
     "multi_spatialmllm_tpu_torch.models.runner",
     "multi_spatialmllm_tpu_torch.models.serving",
@@ -275,6 +279,67 @@ def test_unsupported_device_raises_not_falls_back():
 # the card's installation: what it lacks cannot be imported, and any
 # attempt at jax or the JAX package is reported
 _CARD_BLOCKED = BLOCKED + ("cv2", "pandas", "pyarrow")
+
+
+def test_eval_and_serve_options_run_with_the_cards_installation(tmp_path):
+    """`eval` (paged with every serving option and int8 weights; batched
+    with option scoring) and `serve --sampling --logprobs` on JPEG and PNG
+    frames, with cv2, jax and the JAX package unimportable."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from multi_spatialmllm_tpu_torch.models import mllm as TMM
+
+    rng = np.random.default_rng(2)
+    (tmp_path / "imgs").mkdir()
+    for i, ext in enumerate(("jpg", "png")):
+        cv2.imwrite(str(tmp_path / "imgs" / f"f{i}.{ext}"),
+                    rng.integers(0, 255, (96, 128, 3), dtype=np.uint8))
+    cfg = TMM.tiny_config()
+    model = TMM.MultiFrameMLLM(dataclasses.replace(
+        cfg, llm=dataclasses.replace(cfg.llm, vocab_size=800)))
+    TMM.init_random_weights(model, 0)
+    torch.save(model.state_dict(), tmp_path / "tiny.pt")
+    stem = "every distance in millimeters from the first camera center. "
+    recs = [{"id": f"{i}-{q}", "image": [f"f{i}.{ext}"],
+             "text": f"<image>\n{stem}Question {q}?",
+             "question_type": "depth_estimation_coor", "gt_value": 900}
+            for i, ext in enumerate(("jpg", "png")) for q in range(2)]
+    recs.append({"id": "mc", "image": ["f0.jpg", "f1.png"],
+                 "text": "<image>\n<image>\nWhich point? A B C D",
+                 "question_type": "visual_correspondence_multiple_choice",
+                 "gt_value": "A"})
+    (tmp_path / "eval.jsonl").write_text(
+        "".join(json.dumps(r) + "\n" for r in recs))
+    common = ["--checkpoint", "tiny.pt", "--config", "tiny", "--device",
+              "cpu", "--vocab-size", "800", "--images-root", "imgs",
+              "--max-tiles", "1", "--max-new-tokens", "4"]
+    paged = ["--paged", "--slots", "2", "--page-size", "16", "--num-pages",
+             "64", "--max-prompt-len", "128"]
+    [rep] = _run_blocked(
+        ["eval", *common, "--eval-jsonl", "eval.jsonl", *paged,
+         "--prefix-cache", "--prefill-chunk", "16", "--vision-cache", "2",
+         "--speculate", "2", "--kv-dtype", "int8", "--quantize-weights"],
+        tmp_path, blocked=_CARD_BLOCKED)
+    assert rep["count"] == 5
+    assert rep["serving_stats"]["vision_hits"] >= 2
+    assert rep["serving_stats"]["prefill_resumed"] >= 1
+    [rep] = _run_blocked(
+        ["eval", *common, "--eval-jsonl", "eval.jsonl", "--batch-size", "2",
+         "--mc-logprob", "--output", "out.json"], tmp_path,
+        blocked=_CARD_BLOCKED)
+    saved = json.loads((tmp_path / "out.json").read_text())
+    assert saved["predictions"][-1] in "ABCD" and rep["count"] == 5
+    lines = "".join(json.dumps({"id": f"q{i}", "image": [f"f{i}.{ext}"],
+                                "text": "<image>\nhow far?",
+                                "temperature": 0.8, "seed": i}) + "\n"
+                    for i, ext in enumerate(("jpg", "png")))
+    results = _run_blocked(
+        ["serve", *common, *paged[1:], "--sampling", "--logprobs",
+         "--prefix-cache"], tmp_path, stdin=lines, blocked=_CARD_BLOCKED)
+    assert sorted(r["id"] for r in results) == ["q0", "q1"]
+    assert all(len(r["logprobs"]) == len(r["token_ids"]) for r in results)
 
 
 def _blocking(blocked):

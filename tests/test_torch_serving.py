@@ -176,13 +176,23 @@ def test_serve_jsonl_loop(models):
             assert finals["a"]["text"] == TOK.decode(expect["a"])
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(models):
+    """The six serving options are ported (they build); what still raises
+    is multi-LoRA serving (ROADMAP queue 1, item 14), an adapter name in a
+    request, and an unknown kv dtype."""
+    _, _, tmodel = models
     for kw in (dict(prefix_cache=True),
                dict(prefill_chunk=16), dict(vision_cache=2),
                dict(speculate=2), dict(sampling=True), dict(logprobs=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TK.PagedConfig(**kw)
+        cfg = TK.PagedConfig(**kw)
+        assert TK.PagedBatcher(tmodel, cfg).config == cfg
     assert TK.PagedConfig(kv_dtype="int8").kv_dtype == "int8"  # ported
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+        TK.PagedBatcher(tmodel, TK.PagedConfig(), adapters={"a": {}})
+    ids, tiles = _requests(tmodel.cfg, (40,))[0]
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+        TK.PagedBatcher(tmodel, TK.PagedConfig()).generate_all(
+            [(ids, tiles, "adapter")])
     with pytest.raises(ValueError, match="kv_dtype"):
         TK.PagedConfig(kv_dtype="fp8")
 
