@@ -204,6 +204,36 @@ result line):
    K1 must launch on eval_batched and eval_paged, K7 on eval_paged, K7
    int8 and gmm on moe_eval.
 
+20. Checkpoint import/export and LoRA (K1, K2, K3, K7 native and int8, and
+   K8's gmm and gmm_t on these paths; the LoRA merge, the per-row adapter
+   deltas and the safetensors reader and writer are torch ops and host
+   code): (a) the `tiny` config in float32: a fixture HF checkpoint with
+   layer scales through `import-checkpoint` on the card and on the CPU
+   (state dicts bit-equal) and `export-checkpoint` (files byte-equal),
+   greedy serving of the import card vs CPU, 3 LoRA steps card vs CPU
+   within TRAIN_REL, and a mixed-adapter PagedBatcher (base and two
+   adapters with non-zero B, native and int8 kv, prefix cache, chunked
+   prefill and speculation) card vs CPU; (b) the flagship in bf16 at
+   whole depth: an HF-layout state drawn on the card from a seeded
+   generator, written as 4 GB shards (5 and the index) through
+   models/safetensors_io.py, `import-checkpoint --config flagship --dtype
+   bfloat16` (seconds and GB/s), the import equal to `convert_state_dict`
+   on the card bit for bit, `export-checkpoint`, and the export
+   re-imported equal to the import (needs ~34 GB of free disk under the
+   temporary directory, checked first; the files go as the phase goes);
+   (c) 16 flagship requests on the imported weights through the serve
+   loop in thirds on the base and two rank-16 adapters, beside an
+   adapter-free run of the same requests (decode tokens/s of both), base
+   rows equal to the adapter-free run's, adapter rows against a batcher on
+   merged weights (reported); (d) LoRA rank 16 of the flagship at its
+   whole 32-layer depth from the imported weights (frozen float32 base,
+   the LLM's layers rematerialised, packed 4096-token rows, batch 2):
+   `trainable` must be 13,631,488 and the loss must fall over 5 steps on
+   one repeated batch (peak memory, step seconds, K1/K2/K3 launches a
+   step); then the bench MoE (`--moe-experts 4 --moe-impl ragged
+   --moe-kernel pallas`) the same way: gmm and gmm_t launch, tgmm never
+   (the expert tables are frozen).
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -235,7 +265,24 @@ N_SERVE = 16
 TRAIN_LAYERS = 8         # phase 9: LLM depth cut from 32 (see PERF.md)
 # phase 13: the train CLI's --max-tiles and --tiles-per-image defaults
 MOE_MAX_TILES, MOE_TILES_PER_IMAGE = 14, 6
-N_PHASES = 19
+N_PHASES = 20
+# phase 20: LoRA rank 16 on the default targets (wq, wk, wv, wo of the
+# flagship's 32 layers: (131,072 + 81,920 + 81,920 + 131,072) a layer)
+LORA_RANK = 16
+LORA_TRAINABLE = 13_631_488
+# its repeated-batch steps: a LoRA learning rate, warmup 1 (the first
+# update has lr 0), REPEAT_STEPS steps
+LORA_LR, LORA_WARMUP = 2e-4, 1
+# (a): the tiny LoRA run's merged weights card vs CPU (tests/test_torch_lora.py
+# holds adapters to JAX's at this bound) and how far they must have moved
+# from the import (adapters that never updated leave them where they were)
+TINY_LORA_ATOL, TINY_LORA_MOVED = 1e-5, 1e-4
+# (c): an adapter row's first prefill logits lie within this fraction of
+# the base's distance from the merged weights' logits (bf16: the unmerged
+# delta is added after the bf16 product, the merged weight rounds W + delta)
+LORA_LOGIT_FRAC = 0.25
+SHARD_GB = 4.0           # export-checkpoint's default shard size
+PHASE20_DISK = 34e9      # peak: the 4 GB shards and the imported file
 # phase 9's steps on one repeated batch run a fresh optimizer on the train
 # CLI's default schedule (--lr 1e-5, --warmup 100, --steps 1000)
 REPEAT_LR, REPEAT_WARMUP, REPEAT_TOTAL = 1e-5, 100, 1000
@@ -1053,26 +1100,50 @@ def top2_margin(torch, model, ids, tiles, generated, step):
     return float(top[0] - top[1])
 
 
-def phase_tiny(torch, M, K, cfg=None, label="tiny", kv_dtype="native"):
+def phase_tiny(torch, M, K, cfg=None, label="tiny", kv_dtype="native",
+               state=None, adapters=None, lora_cfg=None, options=None):
     """Greedy tokens of a tiny config in f32 (`cfg`, the tiny config by
-    default): CPU (plain) vs card."""
+    default; seeded weights, or `state`): CPU (plain) vs card. With
+    `adapters` ({name: adapter dict} and their `lora_cfg`) the requests
+    go in thirds to the base and two adapters, and a near tie is judged on
+    the request's merged weights; `options` are more PagedConfig fields."""
     cfg = cfg or M.with_dtype(M.tiny_config(), "float32")
     cpu_model = M.MultiFrameMLLM(cfg)
-    M.init_random_weights(cpu_model, SEED)
+    if state is None:
+        M.init_random_weights(cpu_model, SEED)
+    else:
+        cpu_model.load_state_dict(state)
     cpu_model.eval()
     gpu_model = M.MultiFrameMLLM(cfg, device="cuda")
     gpu_model.load_state_dict(cpu_model.state_dict())
     gpu_model.eval()
     pcfg = dict(slots=3, page_size=16, num_pages=64, max_prompt_len=256,
                 max_new_tokens=12, chunk=4, length_bucket=64,
-                kv_dtype=kv_dtype)
+                kv_dtype=kv_dtype, **(options or {}))
     requests = K.make_serve_requests(cfg, 6, seed=SEED + 5)
-    want = K.PagedBatcher(cpu_model, K.PagedConfig(**pcfg)).generate_all(
-        requests)
-    got = K.PagedBatcher(gpu_model, K.PagedConfig(**pcfg)).generate_all(
-        requests)
+    names = [None] * len(requests)
+    teachers = {None: cpu_model}
+    lora = {}
+    if adapters:
+        from multi_spatialmllm_tpu_torch.parallel import lora as L
+
+        names = [(None, *adapters)[i % 3] for i in range(len(requests))]
+        requests = [r + ((n,) if n else ()) for r, n in zip(requests, names)]
+        for n, ad in adapters.items():
+            teachers[n] = M.MultiFrameMLLM(cfg)
+            teachers[n].load_state_dict(L.merge_lora(
+                cpu_model.state_dict(), ad, lora_cfg))
+        lora = dict(adapters=adapters, lora_config=lora_cfg)
+    want = K.PagedBatcher(cpu_model, K.PagedConfig(**pcfg),
+                          **lora).generate_all(requests)
+    if adapters:
+        lora["adapters"] = {n: {w: {p: t.cuda() for p, t in ad.items()}
+                                for w, ad in a.items()}
+                            for n, a in adapters.items()}
+    got = K.PagedBatcher(gpu_model, K.PagedConfig(**pcfg),
+                         **lora).generate_all(requests)
     n_same = 0
-    for i, ((ids, tiles), g, w) in enumerate(zip(requests, got, want)):
+    for i, ((ids, tiles, *_), g, w) in enumerate(zip(requests, got, want)):
         g, w = g.tolist(), w.tolist()
         if g == w:
             n_same += 1
@@ -1081,14 +1152,15 @@ def phase_tiny(torch, M, K, cfg=None, label="tiny", kv_dtype="native"):
                  min(len(g), len(w)))
         if k == min(len(g), len(w)):
             fail(f"{label} request {i}: token streams differ in length only")
-        margin = top2_margin(torch, cpu_model, ids, tiles, w, k)
+        margin = top2_margin(torch, teachers[names[i]], ids, tiles, w, k)
         log(f"  {label} request {i}: first difference at step {k} "
             f"(card {g[k]}, CPU {w[k]}), CPU top-2 margin {margin:.3e}")
         if margin >= MARGIN:
             fail(f"{label} request {i} differs at step {k} with margin "
                  f"{margin:.3e} >= {MARGIN:g}")
-    log(f"  {label} f32, {kv_dtype} kv: {n_same}/{len(requests)} requests "
-        f"token-identical (card vs CPU), tokens {sum(len(w) for w in want)}")
+    log(f"  {label} f32, {kv_dtype} kv{', ' + str(options) if options else ''}"
+        f": {n_same}/{len(requests)} requests token-identical (card vs CPU), "
+        f"tokens {sum(len(w) for w in want)}")
 
 
 def serve_tokenizer():
@@ -3020,15 +3092,17 @@ def tiny_eval_campaign(np, root):
     return path, recs
 
 
-def cli_run(cli, argv, stdin=""):
-    """`cli.main(argv)` -> its stdout lines (stdin from a string)."""
-    import contextlib
+def cli_run(cli, argv, stdin="", err=None):
+    """`cli.main(argv)` -> its stdout lines (stdin from a string; stderr
+    into `err`, a text stream, when given)."""
     import io
 
     saved, buf = sys.stdin, io.StringIO()
     sys.stdin = io.StringIO(stdin)
     try:
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), (
+                contextlib.redirect_stderr(err) if err is not None
+                else contextlib.nullcontext()):
             cli.main(argv)
     finally:
         sys.stdin = saved
@@ -3477,6 +3551,577 @@ def phase_eval(torch, cli, M, K, tok, card, kernels):
     return out
 
 
+def watched_train_steps(torch, cli, kernels):
+    """A context manager: within it the CLI's `train_steps` zeroes the
+    counts of `kernels` and the card's peak-memory reading just before the
+    steps, and records in the dict it yields the steps' history, the
+    launches and the peak GiB."""
+    seen = {}
+    inner = cli.train_steps
+
+    def wrapped(*args, **kwargs):
+        for kern in kernels:
+            kern.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        summary, history = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        seen.update(history=history,
+                    launches={k.name: k.launches for k in kernels},
+                    peak=torch.cuda.max_memory_allocated() / 2**30)
+        return summary, history
+
+    @contextlib.contextmanager
+    def watching():
+        cli.train_steps = wrapped
+        try:
+            yield seen
+        finally:
+            cli.train_steps = inner
+
+    return watching()
+
+
+def train_cli(torch, cli, argv, kernels):
+    """`cli.main(["train", *argv])` on its device -> (the summary line,
+    its stderr events by kind, what `watched_train_steps` saw)."""
+    import io
+
+    err = io.StringIO()
+    with watched_train_steps(torch, cli, kernels) as seen:
+        lines = cli_run(cli, ["train", *argv], err=err)
+    events = {}
+    for line in err.getvalue().splitlines():
+        if line.startswith("[train] "):
+            kind, _, rest = line[8:].partition(" ")
+            events.setdefault(kind, []).append(
+                dict(kv.split("=", 1) for kv in rest.split() if "=" in kv))
+    return json.loads(lines[-1]), events, seen, err.getvalue()
+
+
+def write_tiny_train_world(np, root):
+    """tiny_eval_campaign's frames and eval records under `root`, and a
+    one-dataset mixture of six records over the frames. Returns (meta,
+    eval JSONL)."""
+    jsonl, _ = tiny_eval_campaign(np, root)
+    with open(os.path.join(root, "train.jsonl"), "w") as f:
+        for i in range(6):
+            f.write(json.dumps({"id": f"s{i}", "image": [f"{i % 2}.jpg"],
+                                "conversations": [
+                {"from": "human", "value": "<image>\nhow far is the chair?"},
+                {"from": "gpt", "value": f"{100 + 7 * i} mm"}]}) + "\n")
+    meta = os.path.join(root, "mix.json")
+    with open(meta, "w") as f:
+        json.dump({"spa": {"root": "imgs", "annotation": "train.jsonl",
+                           "repeat_time": 1}}, f)
+    return meta, jsonl
+
+
+def lora_tiny_cli(torch, np, cli, T, root, init, vocab, label):
+    """`train --lora-rank 4` of the tiny f32 model from `init` for 3 steps
+    with `--eval-*` (`--mc-logprob`) and `--async-save` on the CPU and on
+    the card: every step's loss and grad norm within TRAIN_REL, the summary
+    (eval_accuracy equal), the lora and eval events equal, the same
+    checkpoint layout, the saved merged weights within TINY_LORA_ATOL card
+    vs CPU and moved from `init` by more than TINY_LORA_MOVED."""
+    meta, jsonl = write_tiny_train_world(np, root)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        out = os.path.join(root, f"lora_{dev}")
+        summary, events, seen, _ = train_cli(torch, cli, [
+            "--meta", meta, "--config", "tiny", "--vocab-size", str(vocab),
+            "--init-checkpoint", init, "--steps", "3", "--batch-size", "2",
+            "--seq-len", "128", "--max-tiles", "1", "--tiles-per-image", "1",
+            "--warmup", "1", "--lr", "1e-3", "--log-every", "1", "--seed",
+            "3", "--lora-rank", "4", "--eval-jsonl", jsonl,
+            "--eval-images-root", os.path.join(root, "imgs"),
+            "--eval-every", "2", "--eval-max-new-tokens", "6",
+            "--mc-logprob", "--async-save", "--save-every", "2", "--output",
+            out, "--device", dev], [])
+        with open(os.path.join(out, "LATEST")) as f:
+            layout = (sorted(os.listdir(out)), f.read())
+        saved = T.restore_checkpoint(out, map_location="cpu")
+        runs[dev] = (summary, events, seen["history"], layout, saved)
+    (s_c, e_c, h_c, l_c, p_c), (s_g, e_g, h_g, l_g, p_g) = (runs["cpu"],
+                                                            runs["cuda"])
+    worst = {key: max(abs(a[key] - b[key]) / abs(a[key])
+                      for a, b in zip(h_c, h_g))
+             for key in ("loss", "grad_norm")}
+    steps = [[e["step"] for e in ev.get("checkpoint", [])]
+             for ev in (e_c, e_g)]
+    init_sd = torch.load(init, map_location="cpu", weights_only=True)
+    gap = max((p_c["params"][k] - p_g["params"][k]).abs().max().item()
+              for k in p_c["params"])
+    moved = max((p_c["params"][k] - init_sd[k]).abs().max().item()
+                for k in init_sd)
+    log(f"  {label}: train --lora-rank 4, 3 steps, --eval-every 2 "
+        f"--mc-logprob --async-save: losses CPU "
+        f"{[round(h['loss'], 6) for h in h_c]} card "
+        f"{[round(h['loss'], 6) for h in h_g]}; worst relative difference "
+        f"loss {worst['loss']:.3e}, grad norm {worst['grad_norm']:.3e} "
+        f"(tol {TRAIN_REL:g}); eval events {e_g.get('eval')}; "
+        f"eval_accuracy {s_g.get('eval_accuracy')}; lora event "
+        f"{e_g.get('lora')}; saves at steps {steps[1]} ({l_g[0]}); merged "
+        f"weights max|card - CPU| {gap:.3e} (tol {TINY_LORA_ATOL:g}), "
+        f"moved from the import by {moved:.3e} (at least "
+        f"{TINY_LORA_MOVED:g})")
+    if len(h_c) != 3 or len(h_g) != 3 or max(worst.values()) > TRAIN_REL:
+        fail(f"{label}: LoRA train steps differ between the CPU and the "
+             f"card")
+    for key in ("first_loss", "last_loss"):
+        if abs(s_c[key] - s_g[key]) > TRAIN_REL * abs(s_c[key]):
+            fail(f"{label}: summary {key} {s_g[key]} vs CPU {s_c[key]}")
+    if s_c.get("eval_accuracy") != s_g.get("eval_accuracy") or \
+            "eval_accuracy" not in s_g:
+        fail(f"{label}: eval_accuracy card {s_g.get('eval_accuracy')} vs "
+             f"CPU {s_c.get('eval_accuracy')}")
+    if e_c.get("eval") != e_g.get("eval") or len(e_g.get("eval", [])) != 2:
+        fail(f"{label}: eval events card {e_g.get('eval')} vs CPU "
+             f"{e_c.get('eval')}")
+    if e_c.get("lora") != e_g.get("lora") or not e_g.get("lora"):
+        fail(f"{label}: lora events card {e_g.get('lora')} vs CPU "
+             f"{e_c.get('lora')}")
+    if l_c != l_g or steps[0] != steps[1] or steps[1] != ["2", "3"]:
+        fail(f"{label}: checkpoints card {l_g} {steps[1]} vs CPU {l_c} "
+             f"{steps[0]}")
+    if p_c.get("opt_state") is not None or p_g.get("opt_state") is not None:
+        fail(f"{label}: a LoRA save holds optimizer state")
+    if gap > TINY_LORA_ATOL or moved < TINY_LORA_MOVED:
+        fail(f"{label}: merged weights card vs CPU {gap:.3e}, moved "
+             f"{moved:.3e}")
+
+
+def random_adapters(torch, model, lc, n, seed, std):
+    """n seeded adapters of `lc` for `model` with non-zero B (normal, std
+    `std`), on the model's device."""
+    from multi_spatialmllm_tpu_torch.models import prng
+    from multi_spatialmllm_tpu_torch.parallel import lora as L
+
+    out = {}
+    for i in range(n):
+        ad = L.init_lora(model, lc, prng.key(seed + i))
+        gen = torch.Generator(device=next(model.parameters()).device)
+        gen.manual_seed(seed + i)
+        for t in ad.values():
+            t["b"].normal_(0.0, std, generator=gen)
+        out[f"adapter_{'AB'[i]}"] = ad
+    return out
+
+
+def phase20_tiny(torch, np, cli, M, K, T, tok, tmp):
+    """(a) tiny f32, card vs CPU: import-checkpoint of a fixture with
+    layer scales (state dicts bit-equal), export-checkpoint (files
+    byte-equal), greedy serving of the import, `train --lora-rank 4` from
+    the import, and a mixed-adapter PagedBatcher (native and int8 kv, with
+    the prefix cache, chunked prefill and speculation). The CLI's `tiny`
+    computes in float32 here."""
+    from multi_spatialmllm_tpu_torch.models import checkpoint_import as CI
+    from multi_spatialmllm_tpu_torch.parallel import lora as L
+
+    vocab = tok.vocab_size
+    tiny = M.CONFIGS["tiny"]
+    M.CONFIGS["tiny"] = lambda: M.with_dtype(tiny(), "float32")
+    try:
+        cfg = cli._config(argparse.Namespace(config="tiny",
+                                             vocab_size=vocab))
+        fixture = CI.make_fixture_state_dict(cfg, SEED + 20)
+        src = os.path.join(tmp, "hf_tiny")
+        n = len(CI.write_sharded({k: torch.from_numpy(v)
+                                  for k, v in fixture.items()}, src,
+                                 2_000_000))
+        sds, files = {}, {}
+        for name, dev in (("cpu", "cpu"), ("card", "cuda")):
+            pt = os.path.join(tmp, f"tiny_{name}.pt")
+            out = os.path.join(tmp, f"tiny_export_{name}")
+            common = ["--config", "tiny", "--vocab-size", str(vocab),
+                      "--device", dev]
+            cli_run(cli, ["import-checkpoint", "--checkpoint", src,
+                          "--output", pt, "--dtype", "float32", *common])
+            cli_run(cli, ["export-checkpoint", "--checkpoint", pt,
+                          "--output", out, "--dtype", "bfloat16",
+                          "--shard-gb", "0.001", *common])
+            sds[name] = torch.load(pt, map_location="cpu", weights_only=True)
+            files[name] = {}
+            for f in sorted(os.listdir(out)):
+                with open(os.path.join(out, f), "rb") as fh:
+                    files[name][f] = fh.read()
+        bad = [k for k in sds["cpu"] if not torch.equal(sds["cpu"][k],
+                                                        sds["card"][k])]
+        if bad or set(sds["cpu"]) != set(sds["card"]):
+            fail(f"tiny import differs card vs CPU: {bad[:4]}")
+        if files["cpu"] != files["card"]:
+            fail("tiny export files differ card vs CPU")
+        log(f"  (a) tiny import of {n} fixture shards (layer scales "
+            f"folded): {len(sds['cpu'])} tensors bit-equal card vs CPU; "
+            f"export {len(files['cpu'])} files "
+            f"({sum(map(len, files['cpu'].values()))} bytes) byte-equal")
+        state = sds["cpu"]
+        phase_tiny(torch, M, K, cfg, "tiny import", state=state)
+        lora_tiny_cli(torch, np, cli, T, os.path.join(tmp, "tiny_train"),
+                      os.path.join(tmp, "tiny_cpu.pt"), vocab, "tiny import")
+    finally:
+        M.CONFIGS["tiny"] = tiny
+    lc = L.LoRAConfig(rank=4, targets=("wq", "wk", "wv", "wo", "gate", "up",
+                                       "down"))
+    probe = M.MultiFrameMLLM(cfg)
+    adapters = random_adapters(torch, probe, lc, 2, SEED + 22, 0.2)
+    for kv in ("native", "int8"):
+        phase_tiny(torch, M, K, cfg, "tiny multi-LoRA", kv_dtype=kv,
+                   state=state, adapters=adapters, lora_cfg=lc,
+                   options=dict(prefix_cache=True, prefill_chunk=16,
+                                speculate=2))
+
+
+def file_bytes(root):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for f in os.listdir(root))
+
+
+def same_state(torch, got, want, what):
+    """Leaf for leaf, bit for bit (want's device; got streams over)."""
+    if set(got) != set(want):
+        fail(f"{what}: names differ: {sorted(set(got) ^ set(want))[:4]}")
+    for k, v in want.items():
+        g = got[k].to(v.device)
+        if g.dtype != v.dtype or not torch.equal(g, v):
+            fail(f"{what}: {k} differs")
+
+
+def phase20_checkpoint(torch, cli, M, tmp, card):
+    """(b) the flagship, bf16, whole depth: an HF-layout state drawn on the
+    card, written as 4 GB shards, `import-checkpoint` (seconds, GB/s),
+    held against `convert_state_dict` in memory, `export-checkpoint`, and
+    the export re-imported equal to the import. Returns the imported
+    file."""
+    import shutil
+
+    from multi_spatialmllm_tpu_torch.models import checkpoint_import as CI
+
+    free = shutil.disk_usage(tmp).free
+    log(f"  (b) disk free under {tmp}: {free / 1e9:.1f} GB (the phase needs "
+        f"~{PHASE20_DISK / 1e9:.0f} GB at its peak)")
+    if free < PHASE20_DISK:
+        fail(f"phase 20 needs {PHASE20_DISK / 1e9:.0f} GB of free disk "
+             f"under {tmp}, has {free / 1e9:.1f} GB")
+    cfg = M.flagship_config()
+    t0 = time.perf_counter()
+    state = CI.random_state_dict(cfg, SEED + 23, device="cuda",
+                                 dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_el = sum(t.numel() for t in state.values())
+    src = os.path.join(tmp, "hf_flagship")
+    t1 = time.perf_counter()
+    shards = CI.write_sharded(state, src, int(SHARD_GB * 1e9))
+    t_write = time.perf_counter() - t1
+    size = file_bytes(src)
+    log(f"  HF-layout flagship state: {len(state)} tensors, {n_el / 1e9:.3f}"
+        f" B elements (layer scales included), drawn on the card in "
+        f"{t1 - t0:.1f} s; written as {len(shards)} shards + index "
+        f"({size / 1e9:.3f} GB) in {t_write:.1f} s ({size / 1e9 / t_write:.2f}"
+        f" GB/s)")
+    if len(shards) != 5 or not os.path.exists(
+            os.path.join(src, "model.safetensors.index.json")):
+        fail(f"expected 5 shards and an index, got {os.listdir(src)}")
+    pt = os.path.join(tmp, "flagship.pt")
+    t0 = time.perf_counter()
+    cli_run(cli, ["import-checkpoint", "--checkpoint", src, "--output", pt,
+                  "--config", "flagship", "--dtype", "bfloat16",
+                  "--device", "cuda"])
+    t_imp = time.perf_counter() - t0
+    log(f"  import-checkpoint --config flagship --dtype bfloat16 on the "
+        f"card: {t_imp:.1f} s for {size / 1e9:.3f} GB read and "
+        f"{os.path.getsize(pt) / 1e9:.3f} GB written "
+        f"({size / 1e9 / t_imp:.2f} GB/s of safetensors read); {card}")
+    shutil.rmtree(src)
+    want = CI.convert_state_dict(state, cfg, torch.bfloat16)
+    del state
+    got = torch.load(pt, map_location="cpu", mmap=True, weights_only=True)
+    same_state(torch, got, want, "flagship import vs convert_state_dict")
+    log(f"  the import equals convert_state_dict on the card leaf for leaf, "
+        f"bit for bit ({len(want)} tensors)")
+    del want
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "flagship_export")
+    t0 = time.perf_counter()
+    cli_run(cli, ["export-checkpoint", "--checkpoint", pt, "--output", out,
+                  "--config", "flagship", "--dtype", "bfloat16",
+                  "--shard-gb", str(SHARD_GB), "--device", "cuda"])
+    t_exp = time.perf_counter() - t0
+    size = file_bytes(out)
+    log(f"  export-checkpoint: {len(os.listdir(out))} files, "
+        f"{size / 1e9:.3f} GB in {t_exp:.1f} s ({size / 1e9 / t_exp:.2f} "
+        f"GB/s)")
+    t0 = time.perf_counter()
+    again = CI.load_internvl2_checkpoint(out, cfg, torch.bfloat16, "cuda")
+    t_re = time.perf_counter() - t0
+    same_state(torch, got, again, "re-import of the export")
+    log(f"  re-import of the export ({t_re:.1f} s) equals the import bit "
+        f"for bit")
+    del again, got
+    shutil.rmtree(out)
+    torch.cuda.empty_cache()
+    return pt
+
+
+def phase20_serve(torch, M, K, cli, tok, pt, kernels, card):
+    """(c) 16 flagship requests on the imported weights through the serve
+    loop, in thirds on the base and two adapters (rank 16, the attention
+    targets, non-zero B), beside the same requests with no adapters. The
+    base rows must equal the adapter-free run's and some adapter row must
+    differ from it; each adapter's first prefill logits must lie within
+    LORA_LOGIT_FRAC of the base's distance from its merged-weights logits;
+    the adapter rows' tokens against a batcher on the merged weights are
+    reported. Returns the launches of the multi-LoRA run."""
+    from multi_spatialmllm_tpu_torch.parallel import lora as L
+    from multi_spatialmllm_tpu_torch.parallel.lora_serving import (
+        stack_adapters,
+    )
+
+    cfg = M.flagship_config()
+    dev = torch.device("cuda")
+    model = M.MultiFrameMLLM(cfg, device=dev)
+    model.load_state_dict(torch.load(pt, map_location=dev,
+                                     weights_only=True))
+    model.eval()
+    lc = L.LoRAConfig(rank=LORA_RANK)
+    adapters = random_adapters(torch, model, lc, 2, SEED + 24, 0.02)
+    pcfg = K.PagedConfig(slots=8, page_size=64, num_pages=256,
+                         max_prompt_len=2048, max_new_tokens=32)
+    lines, tiles = serve_lines_for(cfg, N_SERVE, K)
+    names = [(None, *adapters)[i * 3 // N_SERVE] for i in range(N_SERVE)]
+
+    def run(batcher, with_names, label):
+        build = cli.make_request_builder(cfg, tok, batcher, tiles.get)
+
+        def to_request(rec):
+            req = build(rec)
+            name = names[int(rec["id"][3:])] if with_names else None
+            return req + (name,) if name else req
+
+        events = []
+        for kern in kernels:
+            kern.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.serve_lines(batcher, lines, to_request, tok,
+                        lambda o: events.append(o))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        errors = [o for o in events if "error" in o]
+        if errors or len(events) != N_SERVE:
+            fail(f"{label}: {len(events)} results, errors {errors[:2]}")
+        st = batcher.stats
+        rate = st["decode_tokens"] / st["decode_seconds"]
+        log(f"  {label}: {N_SERVE}/{N_SERVE} finished in {wall:.3f} s; "
+            f"decode {st['decode_tokens']} tokens in "
+            f"{st['decode_seconds']:.3f} s -> {rate:.1f} tokens/s; prefill "
+            f"{st['prefill_seconds']:.3f} s; launches "
+            f"{ {k.name: k.launches for k in kernels} }")
+        return ({o["id"]: o["token_ids"] for o in events}, rate,
+                {k.name: k.launches for k in kernels})
+
+    def batcher(**lora):
+        return K.PagedBatcher(model, pcfg, pad_id=tok.pad_id,
+                              eos_id=tok.eos_id, **lora)
+
+    torch.cuda.reset_peak_memory_stats()
+    plain, plain_rate, _ = run(batcher(), False, "adapter-free")
+    mixed, lora_rate, launches = run(
+        batcher(adapters=adapters, lora_config=lc), True,
+        "multi-LoRA (base, adapter_A, adapter_B in thirds)")
+    if min(launches.values()) <= 0:
+        fail(f"a kernel never launched on the multi-LoRA path: {launches}")
+    base_rows = [f"req{i}" for i in range(N_SERVE) if names[i] is None]
+    if any(mixed[r] != plain[r] for r in base_rows):
+        fail("base rows of the mixed batch differ from the adapter-free "
+             "run")
+    changed = sum(mixed[f"req{i}"] != plain[f"req{i}"]
+                  for i in range(N_SERVE) if names[i])
+    if changed == 0:
+        fail("no adapter row differs from the base: the adapters did not "
+             "reach the served rows")
+
+    tables = stack_adapters(list(adapters.values()), cfg.llm.num_layers, lc)
+    build = cli.make_request_builder(cfg, tok, batcher(), tiles.get)
+
+    @torch.no_grad()
+    def first_logits(ids, row_tiles, idx=None):
+        lora = None if idx is None else {**tables, "idx": torch.tensor(
+            [idx], device=dev)}
+        logits, _ = model.prefill(
+            torch.as_tensor(ids[None], dtype=torch.long, device=dev),
+            torch.as_tensor(row_tiles[None], dtype=torch.float32,
+                            device=dev), lora=lora)
+        return logits[0, -1].float()
+
+    agree, logit_gaps = {}, {}
+    for k, (name, ad) in enumerate(adapters.items(), start=1):
+        row = names.index(name)
+        ids, row_tiles = build(json.loads(lines[row]))[:2]
+        unmerged = first_logits(ids, row_tiles, k)
+        base = first_logits(ids, row_tiles)
+        with L.merged(model, ad, lc):
+            merged_logits = first_logits(ids, row_tiles)
+            merged, _, _ = run(batcher(), False, f"merged {name}")
+        gap = (unmerged - merged_logits).abs().max().item()
+        apart = (base - merged_logits).abs().max().item()
+        logit_gaps[name] = (gap, apart)
+        if not gap <= LORA_LOGIT_FRAC * apart:
+            fail(f"{name}: req{row}'s first prefill logits lie "
+                 f"{gap:.4g} from the merged weights', more than "
+                 f"{LORA_LOGIT_FRAC:g} x the base's {apart:.4g}")
+        rows = [f"req{i}" for i in range(N_SERVE) if names[i] == name]
+        prefix = [next((j for j, (a, b) in enumerate(zip(mixed[r],
+                                                          merged[r]))
+                        if a != b), len(mixed[r])) for r in rows]
+        agree[name] = (sum(mixed[r] == merged[r] for r in rows), len(rows),
+                       prefix)
+    gaps = {n: (round(g, 5), round(a, 5), round(g / a, 4))
+            for n, (g, a) in logit_gaps.items()}
+    log(f"  first prefill logits of each adapter's first row: max|unmerged "
+        f"- merged|, max|base - merged| and their ratio (gate: <= "
+        f"{LORA_LOGIT_FRAC:g}): {gaps}")
+    log(f"  adapter rows token-equal to their merged-weights batcher, of "
+        f"the rows, and each row's tokens before the first difference "
+        f"(reported, bf16 unmerged and merged deltas round differently): "
+        f"{agree}; adapter rows that differ from the base: {changed} of "
+        f"{N_SERVE - len(base_rows)}; decode {lora_rate:.1f} tokens/s "
+        f"multi-LoRA vs {plain_rate:.1f} adapter-free "
+        f"({lora_rate / plain_rate:.3f}x); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; {card}")
+    del model
+    torch.cuda.empty_cache()
+    return launches, dict(lora_tokens_per_s=lora_rate,
+                          plain_tokens_per_s=plain_rate, agree=agree,
+                          logit_gaps=logit_gaps, changed=changed)
+
+
+def write_repeat_mixture(root, n_records):
+    """A mixture of `n_records` copies of one record (one 448 x 448 JPEG
+    frame, a question and its answer from the template banks the tokenizer
+    was built from), so every packed batch the train CLI draws from it is
+    the same batch. Returns the meta JSON's path."""
+    from multi_spatialmllm_tpu_torch.ingest.jpeg import imwrite
+    from multi_spatialmllm_tpu_torch.models._vocab_templates import (
+        TEMPLATE_CORPUS,
+    )
+
+    os.makedirs(os.path.join(root, "frames"))
+    imwrite(os.path.join(root, "frames", "f.jpg"), synthetic_frame("f.jpg"))
+    q, a = (t.replace("<image>", "").strip() for t in TEMPLATE_CORPUS[:2])
+    rec = json.dumps({"id": "r", "image": ["f.jpg"], "conversations": [
+        {"from": "human", "value": "Image-1: <image>\n" + q},
+        {"from": "gpt", "value": a}]})
+    with open(os.path.join(root, "repeat.jsonl"), "w") as f:
+        f.write((rec + "\n") * n_records)
+    meta = os.path.join(root, "mix.json")
+    with open(meta, "w") as f:
+        json.dump({"repeat": {"root": "frames", "annotation": "repeat.jsonl",
+                              "repeat_time": 1.0, "length": n_records}}, f)
+    return meta
+
+
+def lora_train_cli(torch, cli, kernels, label, config_flags, cfg, init,
+                   max_tiles, tiles_per_image):
+    """`train --lora-rank 16 --packed` (two 4096-token rows a batch) for
+    REPEAT_STEPS steps of one repeated batch, on the card, from `init`
+    (the CLI's seeded weights when None). The loss must fall at every
+    update after the first (lr 0); K1 must launch once a ViT layer and
+    twice an LLM layer a step (the LLM's layers recomputed in the
+    backward), K2 and K3 once an LLM layer (the frozen ViT takes no
+    backward). Returns (launches, summary, peak GiB, trainable, the
+    CLI's stderr)."""
+    import gc
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        meta = write_repeat_mixture(root, 64)
+        t0 = time.perf_counter()
+        summary, events, seen, err = train_cli(torch, cli, [
+            "--meta", meta, *config_flags, "--lora-rank", str(LORA_RANK),
+            "--packed", "--seq-len", "4096", "--batch-size", "2", "--steps",
+            str(REPEAT_STEPS), "--lr", str(LORA_LR), "--warmup",
+            str(LORA_WARMUP), "--max-tiles", str(max_tiles),
+            "--tiles-per-image", str(tiles_per_image), "--log-every", "1",
+            "--seed", str(SEED), "--device", "cuda",
+            *(["--init-checkpoint", init] if init else [])], kernels)
+        wall = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    history, launches, peak = seen["history"], seen["launches"], seen["peak"]
+    losses = [h["loss"] for h in history]
+    trainable = int(events["lora"][0]["trainable"])
+    per_step = {k: v / REPEAT_STEPS for k, v in launches.items()}
+    log(f"  {label}: the train CLI ({' '.join(config_flags)} --lora-rank "
+        f"{LORA_RANK}) in {wall:.1f} s: {summary}; lora event "
+        f"{events['lora'][0]}; losses {losses}; step seconds "
+        f"{[round(h['step_s'], 4) for h in history]}; peak {peak:.3f} GiB; "
+        f"launches a step {per_step}; {card_name_and_power_limit()}")
+    if summary["steps"] != REPEAT_STEPS or not all(
+            b < a for a, b in zip(losses[1:], losses[2:])):
+        fail(f"{label}: the loss did not fall on a repeated batch: {losses}")
+    want = {"flash_fwd": cfg.vit.num_layers + 2 * cfg.llm.num_layers,
+            "flash_bwd_dq": cfg.llm.num_layers,
+            "flash_bwd_dkv": cfg.llm.num_layers}
+    if any(per_step[k] != v for k, v in want.items()):
+        fail(f"{label}: launches a step {per_step}, expected {want} (remat "
+             f"of every LLM layer, no ViT backward)")
+    return launches, summary, peak, trainable, err
+
+
+def phase20_train(torch, M, cli, pt, kernels, moe_kernels):
+    """(d) `train --config flagship --lora-rank 16` at the whole 32-layer
+    depth from the imported weights (the CLI turns on the LLM's remat),
+    then the bench MoE's LoRA with its expert tables frozen (gmm and gmm_t
+    launch, tgmm never)."""
+    launches, summary, peak, trainable, _ = lora_train_cli(
+        torch, cli, kernels, "flagship LoRA, whole depth",
+        ["--config", "flagship"], M.flagship_config(), pt, 6, 6)
+    if trainable != LORA_TRAINABLE:
+        fail(f"trainable adapter params {trainable} != {LORA_TRAINABLE}")
+    flags = ["--config", "bench", "--moe-experts", "4", "--moe-impl",
+             "ragged", "--moe-kernel", "pallas"]
+    moe_launches, moe_summary, moe_peak, _, err = lora_train_cli(
+        torch, cli, kernels + moe_kernels,
+        "bench MoE LoRA (experts frozen)", flags, moe_config(cli), None,
+        MOE_MAX_TILES, MOE_TILES_PER_IMAGE)
+    if "note: --lora-rank with --moe-experts" not in err:
+        fail("the train CLI printed no MoE LoRA note")
+    if moe_launches["tgmm"] != 0 or min(
+            moe_launches[k] for k in ("gmm", "gmm_t")) <= 0:
+        fail(f"MoE LoRA launches: {moe_launches} (gmm and gmm_t must "
+             f"launch, tgmm never: the experts are frozen)")
+    return dict(train=launches, moe_train=moe_launches, peak=peak,
+                summary=summary, moe_peak=moe_peak, moe_summary=moe_summary)
+
+
+def phase_lora(torch, cli, M, K, T, tok, card, kernels, moe_kernels,
+               serve_kernels):
+    """Phase 20: (a) tiny card vs CPU, (b) the flagship checkpoint
+    import/export, (c) multi-LoRA flagship serving, (d) whole-depth LoRA
+    training and the MoE LoRA, both through the train CLI."""
+    import tempfile
+
+    import numpy as np
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        phase20_tiny(torch, np, cli, M, K, T, tok, tmp)
+        log(f"  (a) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        pt = phase20_checkpoint(torch, cli, M, tmp, card)
+        log(f"  (b) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["serve"], out["serve_rates"] = phase20_serve(
+            torch, M, K, cli, tok, pt, serve_kernels, card)
+        log(f"  (c) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out.update(phase20_train(torch, M, cli, pt, kernels, moe_kernels))
+        log(f"  (d) took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches_by_path, err, timing,
                  library_ms):
     """One entry of the `kernels` line: `timing` is (ms, plain ms,
@@ -3672,6 +4317,18 @@ def main(argv=None):
             torch, cli, M, K, tok, card,
             [A.FLASH_FWD, P.PAGED_DECODE, P.PAGED_DECODE_INT8, G.GMM])
         log(f"  phase 19 took {time.perf_counter() - t0:.1f} s; {card}")
+        torch.cuda.empty_cache()
+    if 20 in phases:
+        head(20, "checkpoint import/export and LoRA: tiny card vs CPU, the "
+                 "flagship checkpoint through import-checkpoint and "
+                 "export-checkpoint, multi-LoRA flagship serving, "
+                 "whole-depth flagship LoRA training, the bench MoE LoRA")
+        t0 = time.perf_counter()
+        res["lora"] = phase_lora(
+            torch, cli, M, K, T, tok, card,
+            [A.FLASH_FWD, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV],
+            [G.GMM, G.GMM_T, G.TGMM], [A.FLASH_FWD, P.PAGED_DECODE])
+        log(f"  phase 20 took {time.perf_counter() - t0:.1f} s; {card}")
     log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     if phases != set(range(3, N_PHASES + 1)):
@@ -3692,10 +4349,12 @@ def main(argv=None):
 
     frames = res["real_inputs"]["serve"]
     ev = res["eval"]
+    lo = res["lora"]
     flash = dict(serve=res["serve"], train=train, moe_serve=moe_serve,
                  moe_train=moe_train, frames_serve=frames,
                  eval_paged=ev["eval_paged"], eval_batched=ev["eval_batched"],
-                 moe_eval=ev["moe_eval"])
+                 moe_eval=ev["moe_eval"], lora_serve=lo["serve"],
+                 lora_train=lo["train"], moe_lora_train=lo["moe_train"])
     kernels = [
         kernel_entry("flash_fwd", "flash_fwd.cu",
                      f"{jax_attn}:92 (K1); :483 (K4, streaming)",
@@ -3706,19 +4365,22 @@ def main(argv=None):
         kernel_entry("flash_bwd_dq", "flash_bwd.cu",
                      f"{jax_attn}:269 (K2); :592 (K5, streaming)",
                      by_path("flash_bwd_dq", train=train,
-                             moe_train=moe_train), err_dq,
+                             moe_train=moe_train, lora_train=lo["train"],
+                             moe_lora_train=lo["moe_train"]), err_dq,
                      (tr["dq"][0], tr["plain"], tr["dq"][1]), tr["lib_bwd"]),
         kernel_entry("flash_bwd_dkv", "flash_bwd.cu",
                      f"{jax_attn}:324 (K3); :645 (K6, streaming)",
                      by_path("flash_bwd_dkv", train=train,
-                             moe_train=moe_train), err_dkv,
+                             moe_train=moe_train, lora_train=lo["train"],
+                             moe_lora_train=lo["moe_train"]), err_dkv,
                      (tr["dkv"][0], tr["plain"], tr["dkv"][1]),
                      tr["lib_bwd"]),
         kernel_entry("paged_decode", "paged_decode.cu",
                      "multi_spatialmllm_tpu/ops/paged_attention.py:95",
                      by_path("paged_decode", serve=res["serve"],
                              frames_serve=frames,
-                             eval_paged=ev["eval_paged"]), k7_err,
+                             eval_paged=ev["eval_paged"],
+                             lora_serve=lo["serve"]), k7_err,
                      k7_timing(k7), None),
         kernel_entry("paged_decode_int8", "paged_decode.cu",
                      "multi_spatialmllm_tpu/ops/paged_attention.py:95 "
@@ -3730,9 +4392,9 @@ def main(argv=None):
     for name, replaces, paths in (
             ("gmm", f"{jax_moe}:133 (_pallas_gmm: megablox gmm)",
              dict(moe_train=moe_train, moe_serve=moe_serve,
-                  moe_eval=ev["moe_eval"])),
+                  moe_eval=ev["moe_eval"], moe_lora_train=lo["moe_train"])),
             ("gmm_t", f"{jax_moe}:146-165 (VJP: gmm, transpose_rhs)",
-             dict(moe_train=moe_train)),
+             dict(moe_train=moe_train, moe_lora_train=lo["moe_train"])),
             ("tgmm", f"{jax_moe}:146-165 (VJP: megablox tgmm)",
              dict(moe_train=moe_train))):
         t_k, t_p, t_l, bound, _ = k8[(name, "train gate/up")]

@@ -12,8 +12,11 @@ Commands:
   tapvid    the object-movement engines over TAPVid-3D npz records
   eval      MultiSPA evaluation: checkpoint x eval JSONL -> scored report
   serve     JSONL serving loop (stdin -> stdout) over the paged batcher
-  train     SFT on a data-mixture meta JSON (one device) -> rolling torch
-            checkpoints
+  train     SFT on a data-mixture meta JSON (one device; full or LoRA) ->
+            rolling torch checkpoints
+  import-checkpoint  HF InternVL-2 safetensors -> the port's state dict
+  export-checkpoint  the port's state dict or a train save -> HF
+            InternVL-2 safetensors shard(s)
 
 The data-engine commands write the trees of the JAX package's commands of
 the same names, on `--device` (the card unless the caller asks for the
@@ -447,22 +450,30 @@ def train_steps(step_fn: Callable, batches: Iterable[dict], steps: int,
 
 def _refuse_unported_train_flags(args) -> None:
     unported = {
-        "--lora-rank": args.lora_rank,
         "--model-parallel > 1": args.model_parallel > 1,
         "--seq-parallel > 1": args.seq_parallel > 1,
         "--expert-parallel > 1": args.expert_parallel > 1,
         "--data-parallel > 1": args.data_parallel > 1,
-        "--fsdp": args.fsdp, "--eval-jsonl": args.eval_jsonl,
-        "--eval-every": args.eval_every,
-        "--eval-images-root": args.eval_images_root is not None,
-        "--eval-limit": args.eval_limit,
-        "--eval-max-new-tokens": args.eval_max_new_tokens is not None,
-        "--mc-logprob": args.mc_logprob, "--async-save": args.async_save}
+        "--fsdp": args.fsdp}
     asked = [flag for flag, val in unported.items() if val]
     if asked:
         raise NotImplementedError(
             f"train {', '.join(asked)}: not ported yet (the port trains on "
             f"one device; see ROADMAP.md)")
+
+
+def _train_config(args):
+    """`_config` for `train`: with `--lora-rank` on the flagship the LLM
+    recomputes each layer in the backward (remat), since the whole-depth
+    activations do not fit beside the frozen float32 base on one 80 GB
+    card."""
+    import dataclasses
+
+    cfg = _config(args)
+    if args.lora_rank and args.config == "flagship" and not cfg.llm.remat:
+        cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm,
+                                                               remat=True))
+    return cfg
 
 
 def cmd_train(args) -> None:
@@ -471,9 +482,13 @@ def cmd_train(args) -> None:
     Deterministic mixture streaming (models/mixture.py), padded or packed
     batches, float32 master weights with the config's compute dtype, a
     dense or routed-MoE decoder (`--moe-*`), and the optax-equivalent AdamW
-    step (parallel/train.py); prints the JAX CLI's summary line."""
+    step (parallel/train.py); `--lora-rank` trains adapters alone over the
+    frozen base (parallel/lora.py) and saves merged weights; `--eval-*`
+    scores held-out records on the (merged) weights; `--async-save` writes
+    checkpoints on a background thread. Prints the JAX CLI's summary
+    line."""
     _refuse_unported_train_flags(args)
-    cfg = _config(args)
+    cfg = _train_config(args)
     import torch
 
     from .models import mllm as M
@@ -488,6 +503,7 @@ def cmd_train(args) -> None:
     from .models.tokenizer import load_tokenizer
     from .parallel.train import (
         AdamW,
+        AsyncRollingSaver,
         TrainConfig,
         make_train_step,
         restore_checkpoint,
@@ -501,6 +517,9 @@ def cmd_train(args) -> None:
     if tok.img_context_id != cfg.img_context_id:
         raise ValueError(f"IMG_CONTEXT id {tok.img_context_id} != "
                          f"{cfg.img_context_id}")
+    if args.resume and args.lora_rank:
+        raise ValueError("--resume restores full-finetune opt_state; LoRA "
+                         "runs restart")
     if args.save_every and not args.output:
         raise ValueError("--save-every needs --output")
     if args.resume and not args.init_checkpoint:
@@ -533,31 +552,96 @@ def cmd_train(args) -> None:
     device = torch.device(args.device)
     model = M.MultiFrameMLLM(cfg, device=device, param_dtype=torch.float32)
     M.init_random_weights(model, args.seed)
-    opt = AdamW(list(model.named_parameters()),
-                TrainConfig(learning_rate=args.lr, warmup_steps=args.warmup,
-                            total_steps=args.steps))
+    train_cfg = TrainConfig(learning_rate=args.lr, warmup_steps=args.warmup,
+                            total_steps=args.steps)
     start_step = 0
+    opt_state = None
     if args.init_checkpoint:
         if args.resume:
             state = restore_checkpoint(os.path.abspath(args.init_checkpoint),
                                        map_location=device)
             model.load_state_dict(state["params"])
-            opt.load_state_dict(state["opt_state"])
+            opt_state = state["opt_state"]
             start_step = int(state["step"])
         else:
             model.load_state_dict(_load_params(args.init_checkpoint, device))
         log_event("restored", path=os.path.abspath(args.init_checkpoint),
                   step=start_step)
-    step_fn = make_train_step(model, opt, accum_steps=args.accum)
+    lora = lcfg = None
+    if args.lora_rank:
+        from .models import prng
+        from .parallel import lora as L
+
+        lcfg = L.LoRAConfig(rank=args.lora_rank)
+        if args.moe_experts:
+            # the default targets are the attention weights; routed expert
+            # tables are never adapted
+            print("note: --lora-rank with --moe-experts adapts the "
+                  "ATTENTION kernels only; the routed MoE FFN stays "
+                  "frozen (expert tables are not LoRA targets)",
+                  file=sys.stderr)
+        lora = L.init_lora(model, lcfg, prng.key(args.seed + 1))
+        opt = AdamW(L.lora_named_tensors(lora), train_cfg)
+        step_fn = L.make_lora_train_step(model, opt, lcfg)
+        log_event("lora", rank=lcfg.rank,
+                  trainable=L.lora_param_count(lora))
+    else:
+        opt = AdamW(list(model.named_parameters()), train_cfg)
+        if opt_state is not None:
+            opt.load_state_dict(opt_state)
+        step_fn = make_train_step(model, opt, accum_steps=args.accum)
+
+    eval_samples: list = []
+    if args.eval_jsonl:
+        with open(args.eval_jsonl) as f:
+            eval_samples = [json.loads(line) for line in f if line.strip()]
+        if args.eval_limit:
+            eval_samples = eval_samples[: args.eval_limit]
+    eval_done: dict = {}              # step -> accuracy (no repeats)
+
+    def run_eval_now(step):
+        from .models.runner import EvalRunConfig, run_eval
+
+        if step in eval_done:
+            return eval_done[step]
+        from .parallel.lora import merged
+
+        with merged(model, lora, lcfg), torch.no_grad():
+            rep = run_eval(
+                model, tok, eval_samples,
+                lambda p: _read_image(os.path.join(args.eval_images_root,
+                                                   p)),
+                EvalRunConfig(max_new_tokens=args.eval_max_new_tokens,
+                              mc_logprob=args.mc_logprob, data=data_cfg),
+                batch_size=min(len(eval_samples), args.batch_size))
+        log_event("eval", step=step, accuracy=round(rep["accuracy"], 4),
+                  count=rep["count"])
+        eval_done[step] = rep["accuracy"]
+        return rep["accuracy"]
+
+    saver = AsyncRollingSaver(os.path.abspath(args.output), keep=args.keep) \
+        if args.async_save and args.output else None
 
     def save(step):
-        where = save_checkpoint_rolling(os.path.abspath(args.output), model,
-                                        opt, step=step, keep=args.keep)
+        if lora is not None:            # merged weights, no optimizer state
+            from .parallel.lora import merge_lora
+
+            params, state = merge_lora(model.state_dict(), lora, lcfg), None
+        else:
+            params, state = model, opt
+        if saver is not None:           # the write overlaps the next steps
+            where = saver.save(params, state, step=step)
+        else:
+            where = save_checkpoint_rolling(os.path.abspath(args.output),
+                                            params, state, step=step,
+                                            keep=args.keep)
         log_event("checkpoint", path=where, step=step)
 
     def after_step(n):
         if args.save_every and n % args.save_every == 0:
             save(n)
+        if eval_samples and args.eval_every and n % args.eval_every == 0:
+            run_eval_now(n)
 
     if start_step:
         # the mixture replays deterministically: skip the trained batches
@@ -572,7 +656,64 @@ def cmd_train(args) -> None:
                                        after_step=after_step)
     if args.output:
         save(start_step + len(history))
+        if saver is not None:
+            saver.wait()                # the final save is durable
+    if eval_samples:
+        summary = {**summary, "eval_accuracy": run_eval_now(
+            start_step + len(history))}
     print(json.dumps({**summary, "devices": 1, "device": str(device)}))
+
+
+_DTYPE_NAMES = ("bfloat16", "float32")
+
+
+def cmd_import_checkpoint(args) -> None:
+    """HF InternVL-2 safetensors (a file or a directory of shards) -> the
+    port's checkpoint form, a `torch.save`d state dict that `serve`,
+    `eval` and `train --init-checkpoint` read. Tensors are read one at a
+    time, cast to `--dtype` and converted on `--device`."""
+    import torch
+
+    from .models import checkpoint_import as CI
+
+    cfg = _config(args)
+    device = torch.device(args.device)
+    sd = CI.load_internvl2_checkpoint(args.checkpoint, cfg,
+                                      param_dtype=getattr(torch, args.dtype),
+                                      device=device)
+    out = os.path.abspath(args.output)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    torch.save(sd, out)
+    print(json.dumps({"output": args.output,
+                      "parameters": sum(t.numel() for t in sd.values()),
+                      "dtype": args.dtype}))
+
+
+def cmd_export_checkpoint(args) -> None:
+    """Inverse of import-checkpoint: the port's state dict (or the params
+    of a train save) -> HF InternVL-2 safetensors, `model.safetensors` or
+    `--shard-gb` shards in the JAX export's key order with
+    `model.safetensors.index.json`, so weights trained here load back into
+    the reference's InternVL-2 stack (layer scales stay folded)."""
+    import torch
+
+    from .models import checkpoint_import as CI
+
+    cfg = _config(args)
+    sd = _load_params(args.checkpoint, torch.device(args.device))
+    if cfg.llm.moe_experts > 0 or any(".moe." in k for k in sd):
+        raise SystemExit(
+            "export-checkpoint: routed-MoE checkpoints cannot be "
+            "exported — the HF InternVL-2 safetensors layout has no "
+            "routed-expert tensors (feed_forward.w{1,2,3} are dense). "
+            "Keep MoE checkpoints in orbax form; eval/serve/generate "
+            "load them via --moe-experts.")
+    dtype = getattr(torch, args.dtype)
+    state = {k: v.to(dtype) for k, v in
+             CI.export_state_dict(sd, cfg).items()}
+    names = CI.write_sharded(state, args.output, int(args.shard_gb * 1e9))
+    print(json.dumps({"output": args.output, "tensors": len(state),
+                      "shards": len(names), "dtype": args.dtype}))
 
 
 def cmd_demo(args) -> None:
@@ -919,6 +1060,41 @@ def build_parser() -> argparse.ArgumentParser:
                    help="attach per-token logprobs to each result")
     p.set_defaults(fn=cmd_serve)
 
+    p = sub.add_parser("import-checkpoint",
+                       help="HF InternVL-2 safetensors -> the port's "
+                            "state dict")
+    p.add_argument("--checkpoint", required=True,
+                   help=".safetensors file or directory of shards")
+    p.add_argument("--output", required=True,
+                   help="torch.save'd state dict to write")
+    p.add_argument("--config", choices=("flagship", "tiny"),
+                   default="flagship")
+    p.add_argument("--vocab-size", type=int, default=0)
+    p.add_argument("--dtype", choices=_DTYPE_NAMES, default="bfloat16")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_import_checkpoint)
+
+    p = sub.add_parser("export-checkpoint",
+                       help="the port's state dict -> HF InternVL-2 "
+                            "safetensors")
+    p.add_argument("--checkpoint", required=True,
+                   help="torch.save'd state dict (import-checkpoint "
+                        "output) or a train save")
+    p.add_argument("--output", required=True,
+                   help="directory for *.safetensors (+ index when "
+                        "sharded)")
+    p.add_argument("--config", choices=("flagship", "bench", "tiny"),
+                   default="flagship")
+    p.add_argument("--vocab-size", type=int, default=0)
+    # no --moe-experts: the HF InternVL-2 layout has no routed-expert
+    # tensors, and an MoE state dict is refused
+    p.add_argument("--dtype", choices=_DTYPE_NAMES, default="bfloat16")
+    p.add_argument("--shard-gb", type=float, default=4.0,
+                   help="max shard size in GB (HF-style index written "
+                        "when more than one shard)")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_export_checkpoint)
+
     p = sub.add_parser("train",
                        help="SFT on a data-mixture meta JSON -> rolling "
                             "torch checkpoints (one device)")
@@ -967,24 +1143,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data-shard", type=int, default=0)
     p.add_argument("--data-num-shards", type=int, default=1)
     _add_moe_flags(p, group=True)
-    # the JAX CLI's further training options: accepted, and each raises
-    # NotImplementedError until it is ported
-    p.add_argument("--lora-rank", type=int, default=0)
+    p.add_argument("--lora-rank", type=int, default=0,
+                   help="adapter-only training (0 = full finetune); saves "
+                        "MERGED params; on the flagship the LLM recomputes "
+                        "each layer in the backward (remat)")
+    p.add_argument("--async-save", action="store_true",
+                   help="overlap checkpoint writes with training (LATEST "
+                        "flips only after a write finishes)")
+    p.add_argument("--trace-dir", default=None,
+                   help="torch.profiler trace dir for the training steps")
+    p.add_argument("--eval-jsonl", default=None,
+                   help="held-out eval records: scored after training and "
+                        "every --eval-every steps (accuracy in the log and "
+                        "summary)")
+    p.add_argument("--eval-every", type=int, default=0)
+    p.add_argument("--eval-images-root", default=".")
+    p.add_argument("--eval-limit", type=int, default=0)
+    p.add_argument("--eval-max-new-tokens", type=int, default=24)
+    p.add_argument("--mc-logprob", action="store_true",
+                   help="score MC eval records by candidate logprob")
+    # the JAX CLI's multi-device options: accepted, and each raises
+    # NotImplementedError (the port trains on one device)
     p.add_argument("--data-parallel", type=int, default=0)
     p.add_argument("--model-parallel", type=int, default=1)
     p.add_argument("--seq-parallel", type=int, default=1)
     p.add_argument("--expert-parallel", type=int, default=1)
     p.add_argument("--fsdp", action="store_true")
-    p.add_argument("--async-save", action="store_true")
-    p.add_argument("--trace-dir", default=None,
-                   help="torch.profiler trace dir for the training steps")
-    p.add_argument("--eval-jsonl", default=None)
-    p.add_argument("--eval-every", type=int, default=0)
-    # (no defaults here: any value given is refused)
-    p.add_argument("--eval-images-root", default=None)
-    p.add_argument("--eval-limit", type=int, default=0)
-    p.add_argument("--eval-max-new-tokens", type=int, default=None)
-    p.add_argument("--mc-logprob", action="store_true")
     p.set_defaults(fn=cmd_train)
     return parser
 

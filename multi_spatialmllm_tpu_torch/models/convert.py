@@ -15,8 +15,9 @@ dict), given as nested dicts of numpy arrays. Layouts:
   params with no `kernel` level) as they are: the port keeps the JAX
   layouts `[D, E]`, `[E, D, F]`, `[E, F, D]`.
 
-Values stay float32; `load_state_dict` casts them to each parameter's
-dtype (the same rounding as Flax's cast at compute time).
+Values keep their dtype (float32, or bfloat16 bit for bit);
+`load_state_dict` casts them to each parameter's dtype (the same rounding
+as Flax's cast at compute time).
 """
 
 from __future__ import annotations
@@ -28,7 +29,13 @@ from .mllm import MLLMConfig
 
 
 def _t(a) -> torch.Tensor:
-    return torch.tensor(np.asarray(a))
+    """A copy of array `a` as a tensor; bfloat16 arrays (ml_dtypes, which
+    numpy knows only by name) carry their bits across as they are."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.tensor(a)
 
 
 def _dense(p: dict) -> dict:
@@ -105,3 +112,42 @@ def jax_params_to_state_dict(params: dict, cfg: MLLMConfig) -> dict:
     _put(sd, "llm.final_norm", _norm(llm["final_norm"]))
     _put(sd, "llm.lm_head", _dense(llm["lm_head"]))
     return sd
+
+
+def _port_module(keys: tuple) -> str:
+    """A JAX kernel's module path (`llm/layer_3/attn/wq`) -> the port's
+    module name (`llm.layers.3.attn.wq`)."""
+    out = []
+    for k in keys:
+        head, _, idx = k.rpartition("_")
+        if head in ("layer", "block") and idx.isdigit():
+            out += [f"{head}s", idx]
+        else:
+            out.append(k)
+    return ".".join(out)
+
+
+def jax_lora_to_port(adapters: dict) -> dict:
+    """A JAX adapter tree (parallel/lora.init_lora's structure: `{...:
+    {<target>: {"kernel": {"a": [fan_in, r], "b": [r, fan_out]}}}}`, with
+    or without the leading "params") -> the port's adapters `{weight name:
+    {"a", "b"}}`, the values as they are. The JAX kernel's in and out dims
+    flatten as `_dense`/`_dense_in2` flatten them, so the delta on the
+    port's `[out, in]` weight is `((A @ B) * scale).T`. The tree names
+    every weight itself, so no config is needed."""
+    out: dict = {}
+
+    def walk(node, keys):
+        if isinstance(node, dict) and "a" in node and "b" in node \
+                and not isinstance(node["a"], dict):
+            if keys[-1] != "kernel":
+                raise ValueError(f"adapter not on a kernel: {keys}")
+            name = _port_module(tuple(k for k in keys[:-1]
+                                      if k != "params"))
+            out[f"{name}.weight"] = {"a": _t(node["a"]), "b": _t(node["b"])}
+            return
+        for k in sorted(node):
+            walk(node[k], keys + (k,))
+
+    walk(adapters, ())
+    return out

@@ -263,8 +263,7 @@ def prefetch_iterator(it, depth: int = 2):
     compute. Yields exactly the wrapped iterator's items in order;
     producer exceptions re-raise at the consumer; abandoning the
     generator stops the producer (no thread leak). Composes with
-    mixture_batches / packed_batch_iterator, which prefetch_batches'
-    padded-only pipeline does not."""
+    mixture_batches and packed_batch_iterator."""
     import queue as queue_mod
     import threading
 
@@ -306,3 +305,4 @@ def prefetch_iterator(it, depth: int = 2):
     finally:
         stop.set()
         thread.join()
+

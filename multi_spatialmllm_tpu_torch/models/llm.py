@@ -121,17 +121,54 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 class Linear(nn.Linear):
     """`nn.Linear` with Flax `Dense(dtype=...)` semantics: input, weight and
     bias are cast to the compute dtype (the dtype it was built in) at use,
-    whatever dtype the parameters are held in."""
+    whatever dtype the parameters are held in. A training adapter
+    (`adapter`: `({"a", "b"}, scale)`, set by parallel/lora.py) is merged
+    into the weight at every forward: `W.float() + ((A @ B) * scale).T`,
+    cast back to W's dtype, a new tensor (the base is never written)."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool = True,
                  device=None, dtype=None):
         super().__init__(d_in, d_out, bias=bias, device=device, dtype=dtype)
         self.compute_dtype = dtype
+        self.adapter = None
 
     def forward(self, x):
         cd = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(cd)
-        return F.linear(x.to(cd), dequantized(self, "weight").to(cd), bias)
+        w = dequantized(self, "weight")
+        if self.adapter is not None:
+            w = merge_adapter(w, *self.adapter)
+        return F.linear(x.to(cd), w.to(cd), bias)
+
+
+def merge_adapter(w: torch.Tensor, ad: dict, scale: float) -> torch.Tensor:
+    """`w` `[out, in]` plus its adapter's delta `((A @ B) * scale).T`
+    (A `[in, r]`, B `[r, out]`), added in float32 and cast back to `w`'s
+    dtype: the product, then the scale, then the add, as the JAX
+    package's `merge_lora`. A new tensor; `w` is untouched."""
+    return (w.float() + ((ad["a"] @ ad["b"]) * scale).T).to(w.dtype)
+
+
+def apply_lora_delta(x: torch.Tensor, lora: dict | None, name: str,
+                     dtype: torch.dtype) -> torch.Tensor | None:
+    """Per-row LoRA delta for serving (parallel/lora_serving.py): `lora`
+    carries the stacked tables `{name: (A [N, fan_in, r], B [N, r,
+    fan_out])}`, a per-row adapter index `idx` `[B]` and the alpha/rank
+    scale; each row gathers its own adapter (index 0 is the zero base
+    adapter). `x` `[B, T, fan_in]` -> the delta `[B, T, fan_out]` in
+    `dtype` (x in float32, `btd,bdr->btr` then `btr,bro->bto`, times the
+    scale, then cast), or None when `name` has no adapter."""
+    if lora is None or name not in lora["tables"]:
+        return None
+    a_stack, b_stack = lora["tables"][name]
+    a = a_stack[lora["idx"]]
+    b = b_stack[lora["idx"]]
+    xa = torch.einsum("btd,bdr->btr", x.float(), a)
+    return (torch.einsum("btr,bro->bto", xa, b) * lora["scale"]).to(dtype)
+
+
+def _plus(y: torch.Tensor, d: torch.Tensor | None) -> torch.Tensor:
+    return y if d is None else y + d
 
 
 class Embedding(nn.Embedding):
@@ -172,19 +209,24 @@ class Attention(nn.Module):
         self.wv = Linear(d, cfg.num_kv_heads * hd, **kw)
         self.wo = Linear(cfg.num_heads * hd, d, **kw)
 
-    def forward(self, x, rope, cache=None, segment_ids=None):
+    def forward(self, x, rope, cache=None, segment_ids=None, lora=None):
         """`rope`: `rope_tables` of the positions. Without a cache
         (training, prefill): causal attention over the fresh kv
         (block-diagonal within equal `segment_ids` `[B, T]` for packed
         rows), returning `(out, (k, v))` with k/v `[B, KVH, T, hd]`. With a
         contiguous or paged cache (see the module docstring): `(out,
-        None)`, the cache updated in place."""
+        None)`, the cache updated in place. `lora`: a layer's serving
+        adapters (`apply_lora_delta`) on wq, wk, wv and wo."""
         cfg = self.cfg
         b, t, _ = x.shape
         hd = cfg.head_dim
-        q = self.wq(x).view(b, t, cfg.num_heads, hd).transpose(1, 2)
-        k = self.wk(x).view(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
-        v = self.wv(x).view(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
+        dt = DTYPES[cfg.dtype]
+        q = _plus(self.wq(x), apply_lora_delta(x, lora, "wq", dt))
+        k = _plus(self.wk(x), apply_lora_delta(x, lora, "wk", dt))
+        v = _plus(self.wv(x), apply_lora_delta(x, lora, "wv", dt))
+        q = q.view(b, t, cfg.num_heads, hd).transpose(1, 2)
+        k = k.view(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
+        v = v.view(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
         q, k = rotate(q, rope), rotate(k, rope)
         kv = None
         if cache is None:
@@ -223,7 +265,7 @@ class Attention(nn.Module):
                          <= cur[:, :, None])
                 out = grouped_attention(q, cache["k"], cache["v"], valid)
         out = out.transpose(1, 2).reshape(b, t, cfg.num_heads * hd)
-        return self.wo(out), kv
+        return _plus(self.wo(out), apply_lora_delta(out, lora, "wo", dt)), kv
 
 
 def write_cache_rows(cache: dict, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -257,13 +299,18 @@ def init_cache(cfg: LLMConfig, batch: int, max_len: int, device=None):
 class MLP(nn.Module):
     def __init__(self, cfg: LLMConfig, device=None):
         super().__init__()
+        self.cfg = cfg
         kw = {"bias": False, "device": device, "dtype": DTYPES[cfg.dtype]}
         self.gate = Linear(cfg.hidden_size, cfg.ffn_size, **kw)
         self.up = Linear(cfg.hidden_size, cfg.ffn_size, **kw)
         self.down = Linear(cfg.ffn_size, cfg.hidden_size, **kw)
 
-    def forward(self, x):
-        return self.down(F.silu(self.gate(x)) * self.up(x))
+    def forward(self, x, lora=None):
+        dt = DTYPES[self.cfg.dtype]
+        gate = _plus(self.gate(x), apply_lora_delta(x, lora, "gate", dt))
+        up = _plus(self.up(x), apply_lora_delta(x, lora, "up", dt))
+        h = F.silu(gate) * up
+        return _plus(self.down(h), apply_lora_delta(h, lora, "down", dt))
 
 
 class DecoderLayer(nn.Module):
@@ -278,18 +325,21 @@ class DecoderLayer(nn.Module):
             self.mlp = MLP(cfg, device)
 
     def forward(self, x, rope, cache=None, segment_ids=None,
-                inference: bool = False):
+                inference: bool = False, lora=None):
         """-> `(x, kv, aux)`: aux is the MoE load-balance statistic (None
         for a dense FFN). Pads (segment id 0) take no expert capacity and
-        leave the statistic; `inference` marks prefill and decode."""
-        attn_out, kv = self.attn(self.attn_norm(x), rope, cache, segment_ids)
+        leave the statistic; `inference` marks prefill and decode; `lora`
+        is the layer's serving adapters."""
+        attn_out, kv = self.attn(self.attn_norm(x), rope, cache, segment_ids,
+                                 lora)
         x = x + attn_out
         h = self.mlp_norm(x)
         if hasattr(self, "moe"):
             valid = None if segment_ids is None else segment_ids != 0
-            out, aux = self.moe(h, valid=valid, inference=inference)
+            out, aux = self.moe(h, valid=valid, inference=inference,
+                                lora=lora)
             return x + out, kv, aux
-        return x + self.mlp(h), kv, None
+        return x + self.mlp(h, lora), kv, None
 
 
 class DecoderLM(nn.Module):
@@ -309,25 +359,32 @@ class DecoderLM(nn.Module):
                               device=device, dtype=dtype)
 
     def forward(self, input_embeds, positions, caches=None, segment_ids=None,
-                inference: bool = False, with_aux: bool = False):
+                inference: bool = False, with_aux: bool = False, lora=None):
         """`caches`: None, or one contiguous or paged cache dict per layer
         (see the module docstring); `segment_ids` `[B, T]` for packed
         rows (with per-segment `positions`); `inference` True for prefill
-        and decode (the MoE's inference routing), False for training.
-        Returns `(logits, kv rows per layer)`, and with `with_aux` also the
-        per-layer MoE statistics (None for dense layers)."""
+        and decode (the MoE's inference routing), False for training;
+        `lora` a multi-adapter serving bundle (parallel/lora_serving.py's
+        tables with a per-row `idx`). Returns `(logits, kv rows per
+        layer)`, and with `with_aux` also the per-layer MoE statistics
+        (None for dense layers)."""
         x = input_embeds
         rope = rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
         remat = self.cfg.remat and caches is None and torch.is_grad_enabled()
         kvs, auxes = [], []
         for i, layer in enumerate(self.layers):
+            layer_lora = None
+            if lora is not None and lora["layers"][i]:
+                layer_lora = {"scale": lora["scale"], "idx": lora["idx"],
+                              "tables": lora["layers"][i]}
             if remat:
                 x, kv, aux = checkpoint(layer, x, rope, None, segment_ids,
-                                        inference, use_reentrant=False)
+                                        inference, layer_lora,
+                                        use_reentrant=False)
             else:
                 x, kv, aux = layer(x, rope,
                                    None if caches is None else caches[i],
-                                   segment_ids, inference)
+                                   segment_ids, inference, layer_lora)
             kvs.append(kv)
             auxes.append(aux)
         logits = self.lm_head(self.final_norm(x))

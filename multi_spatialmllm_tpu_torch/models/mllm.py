@@ -127,17 +127,19 @@ class MultiFrameMLLM(nn.Module):
         return (logits, auxes) if with_aux else logits
 
     def prefill(self, input_ids: torch.Tensor, tiles: torch.Tensor,
-                caches: list | None = None):
+                caches: list | None = None, lora: dict | None = None):
         """Prompt prefill -> `(logits, kv rows per layer)`, or with
         contiguous `caches` at index 0 (llm.init_cache) `(logits, None per
         layer)`, the prompt's kv written into them. Right padding is
         harmless: attention is causal, so logits at real positions never
         see pad keys, and the pad kv rows are never admitted by the decode
-        mask (the caller rewinds the position to the true length)."""
+        mask (the caller rewinds the position to the true length). `lora`
+        is a multi-adapter serving bundle (parallel/lora_serving.py's
+        `stack_adapters` with a per-row `idx`)."""
         embeds = self.spliced_embeds(input_ids, tiles)
         b, t, _ = embeds.shape
         positions = torch.arange(t, device=embeds.device).expand(b, t)
-        return self.llm(embeds, positions, caches, inference=True)
+        return self.llm(embeds, positions, caches, inference=True, lora=lora)
 
 
 def loss_fn(model: MultiFrameMLLM, batch: dict):

@@ -198,8 +198,16 @@ class MoEMLP(nn.Module):
         self.wo = nn.Parameter(torch.zeros(e, f, d, dtype=dtype,
                                            device=device))
 
-    def forward(self, x, valid=None, inference: bool = False):
+    def forward(self, x, valid=None, inference: bool = False, lora=None):
         cfg = self.cfg
+        if lora is not None and any(n in lora.get("tables", {})
+                                    for n in ("gate", "up", "down")):
+            # serving adapters target the dense SwiGLU weights; ignoring
+            # them here would serve an un-adapted FFN as adapted
+            raise ValueError(
+                "LoRA adapters target dense MLP kernels (gate/up/down); "
+                "this model's FFN is a routed MoE — attention-only "
+                "adapters are supported, MLP adapters are not")
         router, wi_gate, wi_up, wo = (dequantized(self, n) for n in
                                       ("router", "wi_gate", "wi_up", "wo"))
         if cfg.moe_impl == "ragged":

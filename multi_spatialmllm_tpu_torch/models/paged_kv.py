@@ -33,7 +33,13 @@ pools:
 * `logprobs`: each emitted token's float32 log-probability, in
   `request_logprobs[rid]`.
 
-Multi-LoRA requests (an adapter name in a request) are not ported.
+Multi-LoRA serving (`adapters=`, `lora_config=`): LoRA adapters served
+unmerged per request (parallel/lora_serving.py): a request may name its
+adapter, one batch mixes adapters and base rows, and each row's deltas
+apply on every path (prefill, chunked prefill, prefix resume, decode and
+the speculative verify chain). Prefix-cache pages are keyed by the adapter
+too, so pages are never shared across adapters; the vision cache is not
+(the ViT takes no adapter).
 
 Key invariants (as in the JAX package):
 * Page 0 is a SINK page, never allocated: freed/idle slots' table rows
@@ -57,6 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.paged_attention import gather_window, quantize_kv_rows
+from ..parallel.lora_serving import stack_adapters
 from .generate import model_device, pad_to_bucket
 from .llm import DTYPES, LLMConfig
 from .mllm import MLLMConfig, MultiFrameMLLM
@@ -72,12 +79,6 @@ from .serving import (
 )
 
 KV_DTYPES = ("native", "int8")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to multi_spatialmllm_tpu_torch yet "
-        f"(ROADMAP, {item})")
 
 
 @dataclasses.dataclass
@@ -219,24 +220,26 @@ def _paged_caches(pools: list, page_table: torch.Tensor,
 
 def _paged_forward(model: MultiFrameMLLM, embeds: torch.Tensor,
                    positions: torch.Tensor, pools: list,
-                   page_table: torch.Tensor) -> torch.Tensor:
+                   page_table: torch.Tensor, lora=None) -> torch.Tensor:
     """Embeddings `[B, t, D]` at positions `[B, t]` (each row's first at
-    its cache index) through the decoder over the paged pools -> logits."""
+    its cache index) through the decoder over the paged pools -> logits;
+    `lora` the rows' serving adapters."""
     caches = _paged_caches(pools, page_table,
                            positions[:, 0].to(torch.int32))
-    logits, _ = model.llm(embeds, positions, caches, inference=True)
+    logits, _ = model.llm(embeds, positions, caches, inference=True,
+                          lora=lora)
     return logits
 
 
 def _paged_step(model: MultiFrameMLLM, pools: list,
-                page_table: torch.Tensor):
+                page_table: torch.Tensor, lora=None):
     """`step(token [B, 1], positions [B]) -> logits [B, V]`: one decode
     step over the paged pools (K7 on the card)."""
     llm = model.llm
 
     def step(token, pos):
         return _paged_forward(model, llm.embed(token), pos[:, None].long(),
-                              pools, page_table)[:, -1]
+                              pools, page_table, lora)[:, -1]
 
     return step
 
@@ -263,12 +266,12 @@ class PagedBatcher:
     def __init__(self, model: MultiFrameMLLM,
                  config: PagedConfig | None = None, pad_id: int = 0,
                  eos_id: int = 2, stop_ids: tuple = (),
-                 adapters: dict | None = None):
+                 adapters: dict | None = None, lora_config=None):
         """`stop_ids`: extra token ids that terminate like eos (first stop
-        wins, excluded from the output)."""
-        if adapters:
-            raise _not_ported("multi-LoRA adapter serving",
-                              "queue 1, item 14")
+        wins, excluded from the output). `adapters`: `{name: adapter dict}`
+        (parallel/lora.init_lora's structure) served unmerged per request,
+        a request naming its adapter by a str extra; `lora_config` is the
+        adapters' LoRAConfig (their alpha is not in the tensors)."""
         self.model = model
         self.config = config or PagedConfig()
         self.pad_id = pad_id
@@ -283,6 +286,24 @@ class PagedBatcher:
                              "path")
         self.request_logprobs: dict[int, list[float]] = {}
         self.device = model_device(model)
+        self.lora_tables = None
+        self.adapter_index: dict[str, int] = {}
+        if adapters:
+            if lora_config is None:
+                raise ValueError(
+                    "PagedBatcher(adapters=...) needs lora_config: the "
+                    "adapters carry rank but not alpha, and a default "
+                    "scale would silently mis-serve them")
+            names = list(adapters)
+            tables = stack_adapters([adapters[n] for n in names],
+                                    model.cfg.llm.num_layers, lora_config)
+            tables["layers"] = [
+                {t: (a.to(self.device), b.to(self.device))
+                 for t, (a, b) in layer.items()}
+                for layer in tables["layers"]]
+            self.lora_tables = tables
+            self.adapter_index = {n: i + 1 for i, n in enumerate(names)}
+        self.slot_adapter = np.zeros(cfg.slots, dtype=np.int64)
         self.pools = init_paged_pools(model.cfg.llm, cfg, self.device)
         self.allocator = PageAllocator(cfg.num_pages)
         # host-side mirrors; uploaded per chunk (a few hundred int32s).
@@ -325,6 +346,7 @@ class PagedBatcher:
         self.page_table[slot, :] = 0            # sink: writes can't corrupt
         self.positions[slot] = 0                # idle decode stays in-range
         self.last_token[slot, 0] = 0
+        self.slot_adapter[slot] = 0
         self.temperature[slot] = 0.0
         self.top_p[slot] = 1.0
         self.seed[slot] = 0
@@ -360,11 +382,13 @@ class PagedBatcher:
         self.slot_pages[slot].extend(got)
         return True
 
-    def _page_keys(self, prompt_ids: np.ndarray, tiles) -> list[bytes]:
+    def _page_keys(self, prompt_ids: np.ndarray, tiles,
+                   adapter: str | None = None) -> list[bytes]:
         """Digest per full page of real prompt tokens: every token id up to
-        the page's end and, once a vision position precedes that end, the
-        tile pixels (vision kv depends on the pixels, not the placeholder
-        id)."""
+        the page's end, the adapter name (adapted projections change every
+        kv row, so pages are never shared across adapters) and, once a
+        vision position precedes the page's end, the tile pixels (vision kv
+        depends on the pixels, not the placeholder id)."""
         ps = self.config.page_size
         img = int(self.model.cfg.img_context_id)
         ids = np.asarray(prompt_ids, dtype=np.int32)
@@ -373,6 +397,7 @@ class PagedBatcher:
         for p in range(len(ids) // ps):
             head = ids[: (p + 1) * ps]
             h = hashlib.blake2b(head.tobytes(), digest_size=16)
+            h.update(repr(adapter).encode())
             if (head == img).any():
                 if tiles_digest is None:
                     tiles_digest = hashlib.blake2b(
@@ -389,6 +414,16 @@ class PagedBatcher:
             del self._page_key[page]
             self.allocator.release([page])
         self.prefix_pages.clear()
+
+    def _lora_for(self, idx) -> dict | None:
+        """The serving bundle for rows with adapter indices `idx` (0 = the
+        base), or None without adapters."""
+        if self.lora_tables is None:
+            return None
+        return {"scale": self.lora_tables["scale"],
+                "idx": torch.as_tensor(np.asarray(idx, np.int64),
+                                       device=self.device),
+                "layers": self.lora_tables["layers"]}
 
     # -- prefill programs ----------------------------------------------------
 
@@ -421,7 +456,8 @@ class PagedBatcher:
             self.vision_feats.move_to_end(digest)
         return self.model.splice(ids_t, vis)
 
-    def _prefill_chunks(self, slot, ids, tiles, start, m, true_len, samp):
+    def _prefill_chunks(self, slot, ids, tiles, start, m, true_len, samp,
+                        lora):
         """Chunked prefill: m chunks of `prefill_chunk` rows from `start`
         through the paged pools; the first token comes from the row at the
         true prompt end (drawn with key fold(seed, that position))."""
@@ -436,7 +472,7 @@ class PagedBatcher:
             lo = start + i * c
             positions = torch.arange(lo, lo + c, device=self.device)[None]
             logits = _paged_forward(self.model, emb[:, lo:lo + c],
-                                    positions, self.pools, pt_row)
+                                    positions, self.pools, pt_row, lora)
         last = logits[:, true_len - 1 - (start + (m - 1) * c)]
         return self._first(last, true_len, samp)
 
@@ -448,7 +484,7 @@ class PagedBatcher:
             if self.config.logprobs else None
         return int(first[0, 0]), lp
 
-    def _prefix_resume(self, ids, shared, fresh, true_len, samp):
+    def _prefix_resume(self, ids, shared, fresh, true_len, samp, lora):
         """Prefill resumed after a prefix-cache hit (text-only suffix): the
         shared pages gathered (dequantised) into a contiguous cache, ONLY
         the suffix tokens run through the chunked-decode branch at their
@@ -475,7 +511,7 @@ class PagedBatcher:
         positions = torch.arange(n_shared, t_total, device=dev)[None]
         llm = self.model.llm
         logits, _ = llm(llm.embed(suffix), positions, caches,
-                        inference=True)
+                        inference=True, lora=lora)
         first = self._first(logits[:, true_len - n_shared - 1], true_len,
                             samp)
         page_ids = torch.as_tensor(fresh, dtype=torch.long, device=dev)
@@ -487,7 +523,8 @@ class PagedBatcher:
 
     @torch.no_grad()
     def _prefill_into(self, slot: int, prompt_ids: np.ndarray, tiles,
-                      sp: SamplingParams | None = None):
+                      sp: SamplingParams | None = None,
+                      adapter: str | None = None):
         """Returns (the first generated token id, its logprob or None), or
         None if the pool cannot cover the prompt right now."""
         cfg = self.config
@@ -513,7 +550,7 @@ class PagedBatcher:
         keys: list[bytes] = []
         j = 0
         if cfg.prefix_cache:
-            keys = self._page_keys(prompt_ids, tiles)
+            keys = self._page_keys(prompt_ids, tiles, adapter)
             j_max = (true_len - 1) // ps
             while j < j_max and keys[j] in self.prefix_pages:
                 j += 1
@@ -545,16 +582,18 @@ class PagedBatcher:
 
         t0 = time.perf_counter()
         samp = self._samp1(sp)
+        aidx = 0 if adapter is None else self.adapter_index[adapter]
+        lora1 = self._lora_for([aidx])
         if c:
             first, lp = self._prefill_chunks(slot, ids, tiles, start, m,
-                                             true_len, samp)
+                                             true_len, samp, lora1)
         elif j:
             first, lp = self._prefix_resume(ids, shared, fresh, true_len,
-                                            samp)
+                                            samp, lora1)
         else:
             first, lp, row_kvs = prefill_one(
                 self.model, ids, np.asarray(tiles)[None], true_len, samp,
-                cfg.logprobs)
+                cfg.logprobs, lora1)
             paged_insert(self.pools, row_kvs, pages)
         self.stats["prefill_seconds"] += time.perf_counter() - t0
 
@@ -569,6 +608,7 @@ class PagedBatcher:
 
         self.positions[slot] = true_len
         self.last_token[slot, 0] = first
+        self.slot_adapter[slot] = aidx
         self.temperature[slot] = sp.temperature
         self.top_p[slot] = sp.top_p
         self.seed[slot] = sp.seed
@@ -581,29 +621,31 @@ class PagedBatcher:
     # -- request lifecycle ---------------------------------------------------
 
     def _unpack(self, request):
-        """(ids, tiles[, SamplingParams][, max_new]) in any trailing order;
-        a per-request token budget is an int in 1..config.max_new_tokens;
-        an adapter name (multi-LoRA) raises."""
-        if any(isinstance(x, str) for x in request[2:]):
-            raise _not_ported("multi-LoRA adapter serving",
-                              "queue 1, item 14")
-        ids, tiles, _, sp, max_new = unpack_request(
-            request, self.config.max_new_tokens)
-        return ids, tiles, sp, max_new
+        """(ids, tiles[, adapter name][, SamplingParams][, max_new]) in any
+        trailing order -> (ids, tiles, adapter, sp, max_new); a per-request
+        token budget is an int in 1..config.max_new_tokens, an adapter one
+        of the names given at construction."""
+        ids, tiles, adapter, sp, max_new = unpack_request(
+            request, self.config.max_new_tokens, allow_adapter=True)
+        if adapter is not None and adapter not in self.adapter_index:
+            raise ValueError(f"unknown adapter {adapter!r}; registered: "
+                             f"{sorted(self.adapter_index)}")
+        return ids, tiles, adapter, sp, max_new
 
     def _decode(self):
         """One dispatch over every slot (`serving.dispatch`)."""
         table = torch.as_tensor(self.page_table, device=self.device)
         llm = self.model.llm
+        lora = self._lora_for(self.slot_adapter)
 
         def verify(tokens, pos):
             slot = torch.arange(tokens.shape[1], device=self.device)
             return _paged_forward(self.model, llm.embed(tokens),
                                   pos.long()[:, None] + slot[None, :],
-                                  self.pools, table)
+                                  self.pools, table, lora)
 
-        return dispatch(self, _paged_step(self.model, self.pools, table),
-                        verify)
+        return dispatch(self, _paged_step(self.model, self.pools, table,
+                                          lora), verify)
 
     def generate_all(self, requests) -> list[np.ndarray]:
         """requests: iterable of (prompt_ids int32 [T], tiles [n,H,W,3])
@@ -633,7 +675,7 @@ class PagedBatcher:
         emitted: dict[int, int] = {}      # clean tokens already yielded
         slot_req = [-1] * cfg.slots
         stalled = 0  # consecutive loop turns with no decode/finish progress
-        budgets = {rid: u[3] or cfg.max_new_tokens
+        budgets = {rid: u[4] or cfg.max_new_tokens
                    for rid, u in unpacked.items()}
 
         def finished(rid):
@@ -667,8 +709,9 @@ class PagedBatcher:
             for slot in range(cfg.slots):
                 if slot_req[slot] < 0 and queue:
                     rid = queue[0]
-                    ids_r, tiles_r, sp_r, _ = unpacked[rid]
-                    got = self._prefill_into(slot, ids_r, tiles_r, sp_r)
+                    ids_r, tiles_r, adapter_r, sp_r, _ = unpacked[rid]
+                    got = self._prefill_into(slot, ids_r, tiles_r, sp_r,
+                                             adapter_r)
                     if got is None:             # pool dry: defer refill
                         break
                     queue.pop(0)

@@ -141,3 +141,43 @@ def categorical(k: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
         assert k.shape[:-1] == logits.shape[:-1], (k.shape, logits.shape)
         g = gumbel(k.reshape(-1, 2), logits.shape[-1:]).reshape(logits.shape)
     return torch.argmax(g + logits.float(), dim=-1)
+
+
+# XLA's float32 erf_inv (Giles' single-precision approximation), the
+# polynomial in w = -log1p(-x*x) for w < 5 and in sqrt(w) - 3 past it
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 `erf_inv` (`lax.erf_inv`) as torch ops: the same
+    polynomial, each step a fused multiply-add as XLA's CPU code makes it
+    (the product exact in float64, one rounding to float32 after the add
+    but for a rare double rounding). `log1p` is torch's, not XLA's own
+    approximation, so a result can be a few ulp from JAX's
+    (tests/test_torch_lora.py states the bound)."""
+    x = x.float()
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+    lt5 = torch.tensor(_ERFINV_LT5, dtype=torch.float32, device=x.device)
+    ge5 = torch.tensor(_ERFINV_GE5, dtype=torch.float32, device=x.device)
+    p = torch.where(lt, lt5[0], ge5[0])
+    for i in range(1, len(_ERFINV_LT5)):
+        c = torch.where(lt, lt5[i], ge5[i]).double()
+        p = (c + p.double() * w).float()
+    out = p * x
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
+                       out)
+
+
+def normal(k: torch.Tensor, shape) -> torch.Tensor:
+    """`jax.random.normal(k, shape, float32)`: `sqrt(2) * erf_inv(u)` of
+    JAX's uniform `u` on `[nextafter(-1, 0), 1)`."""
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    u = uniform(k, shape, minval=lo, maxval=1.0)
+    return torch.tensor(2.0 ** 0.5, dtype=torch.float32) * erfinv(u)

@@ -105,15 +105,17 @@ def sampling_state(cfg, temperature, top_p, seed, device):
 
 @torch.no_grad()
 def prefill_one(model: MultiFrameMLLM, ids: np.ndarray, tiles: np.ndarray,
-                true_len: int, samp=None, logprobs: bool = False):
+                true_len: int, samp=None, logprobs: bool = False,
+                lora: dict | None = None):
     """B=1 prefill of a bucketed prompt `ids` `[1, T]` with tiles
     `[1, n, H, W, 3]` -> `(first token, its logprob or None, kv rows per
     layer)`, each kv row pair `[1, KVH, T, hd]`; `samp` as `next_tokens`
-    takes it, for one row."""
+    takes it, for one row; `lora` the row's serving adapters."""
     device = model_device(model)
     logits, kvs = model.prefill(
         torch.as_tensor(ids, dtype=torch.long, device=device),
-        torch.as_tensor(tiles, dtype=torch.float32, device=device))
+        torch.as_tensor(tiles, dtype=torch.float32, device=device),
+        lora=lora)
     last = logits[:, true_len - 1]
     pos = torch.full((1,), true_len - 1, dtype=torch.long, device=device)
     first = next_tokens(last, pos, samp)
@@ -200,8 +202,9 @@ def dispatch(batcher, step_logits, verify_logits):
 
 
 def unpack_request(request, max_new_tokens: int, allow_adapter=False):
-    """(ids, tiles[, SamplingParams][, max_new_tokens int][, adapter str])
-    in any trailing order -> (ids, tiles, adapter, sp, max_new)."""
+    """(ids, tiles[, SamplingParams][, max_new_tokens int][, adapter str,
+    with `allow_adapter`]) in any trailing order -> (ids, tiles, adapter,
+    sp, max_new)."""
     ids, tiles, adapter, sp, max_new = (request[0], request[1], None, None,
                                         None)
     for extra in request[2:]:
@@ -218,8 +221,10 @@ def unpack_request(request, max_new_tokens: int, allow_adapter=False):
             max_new = extra
         else:
             raise TypeError(
-                f"request extras must be SamplingParams or a "
-                f"max_new_tokens int, got {type(extra).__name__}")
+                f"request extras must be "
+                f"{'an adapter name (str), ' if allow_adapter else ''}"
+                f"SamplingParams or a max_new_tokens int, got "
+                f"{type(extra).__name__}")
     return ids, tiles, adapter, sp or SamplingParams(), max_new
 
 

@@ -25,7 +25,10 @@ the JAX step, which returns new trees, the step updates them in place.
 Rolling checkpoints keep the JAX package's layout and crash safety: each
 save lands in `{root}/step_{N:08d}/` (here one `torch.save` file), `LATEST`
 flips to it only after the write, and older step directories beyond `keep`
-are pruned.
+are pruned. `AsyncRollingSaver` writes on a background thread from a host
+copy taken before `save()` returns (the step updates tensors in place, so
+a write of the live tensors would be torn), and flips `LATEST` only once a
+write is complete.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import math
 import os
 import re
 import shutil
+import threading
 from typing import Callable
 
 import torch
@@ -176,16 +180,24 @@ def make_train_step(model, optimizer: AdamW, accum_steps: int = 1
     return step
 
 
-def save_checkpoint(path: str, model, optimizer: AdamW | None = None,
-                    step: int = 0) -> None:
-    """One `torch.save` file under directory `path`: the model's state
-    dict, the optimizer state (when given) and the step."""
-    os.makedirs(path, exist_ok=True)
-    payload = {"params": model.state_dict(), "step": step}
+def _payload(params, optimizer: AdamW | None, step: int) -> dict:
+    """What a checkpoint holds: `params` (a model's state dict, or a state
+    dict), the optimizer state when given, and the step."""
+    state = params.state_dict() if hasattr(params, "state_dict") else params
+    payload = {"params": state, "step": step}
     if optimizer is not None:
         payload["opt_state"] = optimizer.state_dict()
+    return payload
+
+
+def save_checkpoint(path: str, params, optimizer: AdamW | None = None,
+                    step: int = 0) -> None:
+    """One `torch.save` file under directory `path`: the state dict of
+    `params` (a model, or a state dict such as merged LoRA weights), the
+    optimizer state (when given) and the step."""
+    os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
-    torch.save(payload, tmp)
+    torch.save(_payload(params, optimizer, step), tmp)
     os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
 
 
@@ -202,14 +214,88 @@ def _commit_latest(root: str, step: int, keep: int) -> None:
         shutil.rmtree(os.path.join(root, stale), ignore_errors=True)
 
 
-def save_checkpoint_rolling(root: str, model, optimizer: AdamW | None = None,
+def save_checkpoint_rolling(root: str, params,
+                            optimizer: AdamW | None = None,
                             step: int = 0, keep: int = 2) -> str:
     """Crash-safe rolling save into `{root}/step_{N:08d}`; returns it."""
     os.makedirs(root, exist_ok=True)
     out = os.path.join(os.path.abspath(root), f"step_{step:08d}")
-    save_checkpoint(out, model, optimizer, step=step)
+    save_checkpoint(out, params, optimizer, step=step)
     _commit_latest(root, step, keep)
     return out
+
+
+_ASYNC_TMP = ".async-tmp"
+
+
+def _host_copy(tree):
+    """A host copy of every tensor of a nested dict, taken now."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach()
+        return t.clone() if t.device.type == "cpu" else t.cpu()
+    return tree
+
+
+class AsyncRollingSaver:
+    """Asynchronous crash-safe rolling saves (the train CLI's
+    `--async-save`).
+
+    `save()` returns once a host copy of the state exists; the write then
+    runs on a background thread, into `{root}/step_N.async-tmp`, renamed to
+    `step_N` when it is complete. `LATEST` flips to a step only after its
+    write has finished, on the next `save()` or on `wait()`, so an
+    interrupted run never points `LATEST` at a half-written directory.
+    Half-written leftovers of an earlier run are cleared at init."""
+
+    def __init__(self, root: str, keep: int = 2):
+        self.root = os.path.abspath(root)
+        self.keep = keep
+        self._pending: tuple[int, threading.Thread, list] | None = None
+        os.makedirs(self.root, exist_ok=True)
+        for d in os.listdir(self.root):
+            if d.endswith(_ASYNC_TMP):
+                shutil.rmtree(os.path.join(self.root, d), ignore_errors=True)
+
+    def _write(self, payload: dict, step: int, errors: list) -> None:
+        try:
+            out = os.path.join(self.root, f"step_{step:08d}")
+            tmp = out + _ASYNC_TMP
+            os.makedirs(tmp, exist_ok=True)
+            torch.save(payload, os.path.join(tmp, CHECKPOINT_FILE))
+            if os.path.exists(out):
+                shutil.rmtree(out)
+            os.replace(tmp, out)
+        except BaseException as exc:   # re-raised by the committing call
+            errors.append(exc)
+
+    def _commit(self) -> None:
+        if self._pending is None:
+            return
+        step, thread, errors = self._pending
+        thread.join()
+        self._pending = None
+        if errors:
+            raise errors[0]
+        _commit_latest(self.root, step, self.keep)
+
+    def save(self, params, optimizer: AdamW | None = None,
+             step: int = 0) -> str:
+        """Finish the previous save, copy the state to the host and start
+        its write; returns the step dir it will land in."""
+        self._commit()
+        payload = _host_copy(_payload(params, optimizer, step))
+        errors: list = []
+        thread = threading.Thread(target=self._write,
+                                  args=(payload, step, errors), daemon=True)
+        thread.start()
+        self._pending = (step, thread, errors)
+        return os.path.join(self.root, f"step_{step:08d}")
+
+    def wait(self) -> None:
+        """Block until every pending save is written and committed."""
+        self._commit()
 
 
 def resolve_checkpoint(path: str) -> str:

@@ -8,7 +8,9 @@ object-movement engines), its `tapvid` command, and its `ingest-scannet`,
 `ingest-sens`, `coverage` and `pipeline --trace-dir` commands run with the
 card's installation simulated (no jax, flax, optax, orbax, cv2, pandas,
 pyarrow or JAX package) and write the files of a run with cv2 importable;
-a kernel build on a host without CUDA raises instead of
+`import-checkpoint`, `export-checkpoint`, `train --lora-rank` and a
+mixed-adapter paged batcher run with safetensors and ml_dtypes
+unimportable too; a kernel build on a host without CUDA raises instead of
 falling back; a library's name changes with its shared headers; a
 misaligned operand raises before any launch; and chip_smoke.py refuses to
 run (non-zero exit, no result line) without a CUDA device or outside the
@@ -82,6 +84,7 @@ PORT_MODULES = [
     "multi_spatialmllm_tpu_torch.ops.grouped_matmul",
     "multi_spatialmllm_tpu_torch.ops.paged_attention",
     "multi_spatialmllm_tpu_torch.models._vocab_templates",
+    "multi_spatialmllm_tpu_torch.models.checkpoint_import",
     "multi_spatialmllm_tpu_torch.models.convert",
     "multi_spatialmllm_tpu_torch.models.data",
     "multi_spatialmllm_tpu_torch.models.eval_harness",
@@ -96,14 +99,20 @@ PORT_MODULES = [
     "multi_spatialmllm_tpu_torch.models.quantize",
     "multi_spatialmllm_tpu_torch.models.resize",
     "multi_spatialmllm_tpu_torch.models.runner",
+    "multi_spatialmllm_tpu_torch.models.safetensors_io",
     "multi_spatialmllm_tpu_torch.models.serving",
     "multi_spatialmllm_tpu_torch.models.tokenizer",
     "multi_spatialmllm_tpu_torch.models.vit",
     "multi_spatialmllm_tpu_torch.parallel",
     "multi_spatialmllm_tpu_torch.parallel.distributed",
+    "multi_spatialmllm_tpu_torch.parallel.lora",
+    "multi_spatialmllm_tpu_torch.parallel.lora_serving",
     "multi_spatialmllm_tpu_torch.parallel.train",
 ]
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "multi_spatialmllm_tpu")
+# the card has neither safetensors nor ml_dtypes: the port reads and writes
+# safetensors files and bfloat16 without them
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "multi_spatialmllm_tpu",
+           "safetensors", "ml_dtypes")
 KERNELS = [TA.FLASH_FWD, TA.FLASH_BWD_DQ, TA.FLASH_BWD_DKV, TP.PAGED_DECODE,
            TP.PAGED_DECODE_INT8, TG.GMM, TG.GMM_T, TG.TGMM]
 
@@ -136,7 +145,8 @@ def test_prompt_markers_match_the_jax_tokenizer():
 
 # a finder that refuses the JAX package and JAX itself (or `blocked`): any
 # import of them (lazy ones included) fails the run
-def _blocker(blocked=None):
+def _blocker(blocked=None, body="from multi_spatialmllm_tpu_torch.__main__ "
+                                 "import main\nmain(sys.argv[1:])"):
     return textwrap.dedent(f"""
     import importlib.abc, importlib.machinery, sys
 
@@ -156,13 +166,12 @@ def _blocker(blocked=None):
             pass
 
     sys.meta_path.insert(0, Refuse())
-    from multi_spatialmllm_tpu_torch.__main__ import main
-    main(sys.argv[1:])
-""")
+""") + body + "\n"
 
 
-def _run_blocked(args, tmp_path, stdin="", blocked=None):
-    proc = subprocess.run([sys.executable, "-c", _blocker(blocked), *args],
+def _run_blocked(args, tmp_path, stdin="", blocked=None, **kw):
+    proc = subprocess.run([sys.executable, "-c", _blocker(blocked, **kw),
+                           *args],
                           env=_env(), cwd=tmp_path, input=stdin,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -250,6 +259,95 @@ def test_moe_train_and_int8_serve_run_with_the_jax_package_unimportable(
     _train_then_serve(
         tmp_path, ["--moe-experts", "4", "--moe-impl", "ragged",
                    "--moe-kernel", "pallas"], ["--kv-dtype", "int8"])
+
+
+_ADAPTER_SERVE = """
+import json, sys
+import numpy as np, torch
+from multi_spatialmllm_tpu_torch.models import mllm as M, paged_kv as K, prng
+from multi_spatialmllm_tpu_torch.parallel import lora as L
+from multi_spatialmllm_tpu_torch.__main__ import _config, build_parser
+args = build_parser().parse_args(["serve", "--checkpoint", sys.argv[1],
+                                  "--config", "tiny", "--vocab-size", "800",
+                                  "--device", "cpu"])
+cfg = _config(args)
+model = M.MultiFrameMLLM(cfg)
+model.load_state_dict(torch.load(sys.argv[1]))
+lc = L.LoRAConfig(rank=2, targets=("wq", "wv", "gate", "down"))
+ads = {}
+for i, name in enumerate(("a", "b")):
+    ad = L.init_lora(model, lc, prng.key(i))
+    for t in ad.values():
+        t["b"].normal_(0.0, 0.5, generator=torch.Generator().manual_seed(i))
+    ads[name] = ad
+reqs = K.make_serve_requests(cfg, 4, seed=1)
+reqs = [r + (("a", "b", None, "a")[i],) if i != 2 else r
+        for i, r in enumerate(reqs)]
+pcfg = K.PagedConfig(slots=2, page_size=16, num_pages=64,
+                     max_prompt_len=256, max_new_tokens=4,
+                     length_bucket=64, prefix_cache=True, prefill_chunk=16,
+                     speculate=2, kv_dtype="int8")
+got = K.PagedBatcher(model, pcfg, adapters=ads,
+                     lora_config=lc).generate_all(reqs)
+print(json.dumps({"tokens": [g.tolist() for g in got]}))
+"""
+
+
+def test_checkpoint_lora_and_adapter_serving_run_with_the_cards_installation(
+        tmp_path):
+    """`import-checkpoint` of HF safetensors shards, `export-checkpoint`,
+    `train --lora-rank` from the imported weights and a mixed-adapter
+    PagedBatcher, with jax, the JAX package, safetensors, ml_dtypes and cv2
+    unimportable; the export reads back through safetensors (here) equal
+    to the import's source (no layer scales, so nothing folds)."""
+    import numpy as np
+    from safetensors.numpy import load_file, save_file
+
+    from multi_spatialmllm_tpu_torch.models import checkpoint_import as TC
+    from multi_spatialmllm_tpu_torch.models import mllm as TMM
+
+    cfg = TMM.tiny_config()
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm,
+                                                           vocab_size=800))
+    state = TC.make_fixture_state_dict(cfg, 3, with_layer_scale=False)
+    names = list(state)
+    (tmp_path / "hf").mkdir()
+    save_file({k: state[k] for k in names[:30]},
+              str(tmp_path / "hf" / "model-1.safetensors"))
+    save_file({k: state[k] for k in names[30:]},
+              str(tmp_path / "hf" / "model-2.safetensors"))
+    [imp] = _run_blocked(
+        ["import-checkpoint", "--checkpoint", "hf", "--output", "m.pt",
+         "--config", "tiny", "--vocab-size", "800", "--dtype", "float32",
+         "--device", "cpu"], tmp_path, blocked=_CARD_BLOCKED)
+    assert imp["parameters"] == sum(v.size for v in state.values())
+    [exp] = _run_blocked(
+        ["export-checkpoint", "--checkpoint", "m.pt", "--output", "out",
+         "--config", "tiny", "--vocab-size", "800", "--dtype", "float32",
+         "--shard-gb", "0.001", "--device", "cpu"], tmp_path,
+        blocked=_CARD_BLOCKED)
+    assert exp["shards"] > 1
+    assert (tmp_path / "out" / "model.safetensors.index.json").exists()
+    back = {}
+    for f in sorted((tmp_path / "out").glob("*.safetensors")):
+        back.update(load_file(str(f)))
+    assert sorted(back) == sorted(state)
+    for k, v in state.items():
+        assert np.array_equal(back[k], v), k
+
+    _write_mixture(tmp_path)
+    [report] = _run_blocked(
+        ["train", "--meta", "mix.json", "--config", "tiny", "--device",
+         "cpu", "--vocab-size", "800", "--init-checkpoint", "m.pt",
+         "--lora-rank", "2", "--steps", "3", "--batch-size", "2",
+         "--seq-len", "128", "--max-tiles", "1", "--tiles-per-image", "1",
+         "--warmup", "1", "--lr", "1e-3", "--output", "lora_ckpt"],
+        tmp_path, blocked=_CARD_BLOCKED)
+    assert report["steps"] == 3
+    [served] = _run_blocked(["m.pt"], tmp_path, blocked=_CARD_BLOCKED,
+                            body=_ADAPTER_SERVE)
+    assert len(served["tokens"]) == 4
+    assert all(0 < len(t) <= 4 for t in served["tokens"])
 
 
 @pytest.mark.parametrize("kernel", KERNELS, ids=lambda k: k.name)

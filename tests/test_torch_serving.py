@@ -177,9 +177,10 @@ def test_serve_jsonl_loop(models):
 
 
 def test_unported_options_raise(models):
-    """The six serving options are ported (they build); what still raises
-    is multi-LoRA serving (ROADMAP queue 1, item 14), an adapter name in a
-    request, and an unknown kv dtype."""
+    """The six serving options and multi-LoRA serving are ported (they
+    build; tests/test_torch_lora.py serves adapters); what raises is an
+    adapter set without its LoRAConfig and an adapter name the batcher
+    does not know (as in the JAX batcher), and an unknown kv dtype."""
     _, _, tmodel = models
     for kw in (dict(prefix_cache=True),
                dict(prefill_chunk=16), dict(vision_cache=2),
@@ -187,10 +188,10 @@ def test_unported_options_raise(models):
         cfg = TK.PagedConfig(**kw)
         assert TK.PagedBatcher(tmodel, cfg).config == cfg
     assert TK.PagedConfig(kv_dtype="int8").kv_dtype == "int8"  # ported
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+    with pytest.raises(ValueError, match="needs lora_config"):
         TK.PagedBatcher(tmodel, TK.PagedConfig(), adapters={"a": {}})
     ids, tiles = _requests(tmodel.cfg, (40,))[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+    with pytest.raises(ValueError, match="unknown adapter 'adapter'"):
         TK.PagedBatcher(tmodel, TK.PagedConfig()).generate_all(
             [(ids, tiles, "adapter")])
     with pytest.raises(ValueError, match="kv_dtype"):
