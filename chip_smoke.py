@@ -23,10 +23,11 @@ result line):
    `scaled_dot_product_attention` at the shapes its paths run (flagship
    prefill S 2048, the ViT shape with its pad segment, the bench MoE
    prefill H16 over KVH8 S 512, a packed S 4096 train row of 16 segments
-   and a 96-token pad, unpacked S 4096, S 8192), then at the edges of its
-   128-row tiling (S 1, 127, 129, 200, 1153, segment boundaries inside a
-   tile, GQA rep 1, 2 and 4, head dims 32, 64, 128) and small float32
-   cases; prints the entry point's host cost a call.
+   and a 96-token pad, unpacked S 4096, S 8192; untimed: phase 22's
+   bench LLM B4 H16 over KVH8 S 2048 and ViT of 8 tiles), then at the
+   edges of its 128-row tiling (S 1, 127, 129, 200, 1153, segment
+   boundaries inside a tile, GQA rep 1, 2 and 4, head dims 32, 64, 128)
+   and small float32 cases; prints the entry point's host cost a call.
 4. paged_decode (K7) against the plain gather-window version at the
    flagship serve shape (8 slots, H32 over KVH8, hd 128, page 64), a long
    shape (8 slots at 4,096 positions) and a skewed one (one slot at
@@ -50,8 +51,9 @@ result line):
 7. flash_bwd_dq (K2) and flash_bwd_dkv (K3), and K1 at their shapes,
    against the plain forward and backward on float32 copies of the same
    values: the flagship train shape, a packed row, the ViT shape, the
-   S 8192 streaming shape (which stands for K4-K6) and small float32 GQA
-   cases. bf16 results are also held, per 64-row tile, to twice the plain
+   S 8192 streaming shape (which stands for K4-K6), small float32 GQA
+   cases and phase 22's bench shapes (the LLM's B4 H16 over KVH8 S2048,
+   the ViT's 8 tiles). bf16 results are also held, per 64-row tile, to twice the plain
    version's own bf16 error, and a probe shows that check failing a dq
    and a dv with one tile 10% off; K2 and K3 timed (C entry points, and
    the whole wrapper) at the four bf16 shapes (the unpacked and packed
@@ -96,8 +98,9 @@ result line):
 13. MoE train at full width, nothing cut: `--config bench --moe-experts 4
    --moe-impl ragged --moe-kernel pallas` (through the CLI's config
    rules), as phase 9 (the train CLI's tile defaults, 14 and 6); every
-   loss finite, the flash kernels and gmm, gmm_t and tgmm launched (their
-   launches a step printed), then the repeated-batch check.
+   loss finite, the launches a step equal to MOE_TRAIN_LAUNCHES (K1 in
+   the forward alone under the config's `dots_and_flash_saveable`; K8's
+   grouped products recomputed), then the repeated-batch check.
 14. MoE serve at full width: the same model in bf16 with seeded weights,
    `bench_paged_config(kv_dtype="int8")` (8 slots, page 128, 53 pages,
    prompts up to 512, 128 new tokens), 16 one-image requests through the
@@ -234,6 +237,40 @@ result line):
    --moe-kernel pallas`) the same way: gmm and gmm_t launch, tgmm never
    (the expert tables are frozen).
 
+21. The data engine's hybrid and pipelined paths (no kernel of their
+   own: torch ops on the card, numpy on the host): (a) bench.py's
+   real-scale scene: its float64 and its hybrid labels must both equal
+   the JAX package's CPU float64 labels by the SHA-256 stored in
+   stages/_visibility_golden.json (scripts/gen_visibility_golden.py);
+   the float64 call's seconds and device ms, the hybrid call's seconds,
+   device ms, flagged share and host fix-up seconds, its peak bytes a
+   pair; (b) bench.py's split_projection_val on PROJ_SCENES of its 6
+   real-scale scenes (seeds 20-22), the sequential loop against
+   `project_scenes_pipelined`: visibility and relations byte-equal,
+   s/scene of both and the 312-scene val split in minutes; (c) `run_all`
+   (the demo's scenes and TAPVid records) with
+   `PipelineConfig(dtype="hybrid")` card vs CPU file for file. The
+   rates under bench.py's keys, beside the card's name and power limit.
+22. The bench train step, bench.py's model block: `bench_1chip_config`
+   (batch 4, S 2048, 2 tiles a row) from `make_example_batch` through
+   `make_chained_train_step` (chains of 8, the best of 3) under whole-
+   layer remat, `dots_with_no_batch_dims_saveable` and
+   `dots_and_flash_saveable`: step ms, tokens/s, MFU (utils/flops.py
+   against the card's bf16 peak), peak GiB, K1/K2/K3 launches a step
+   and the device's time a step by kind (torch.profiler over one step);
+   K1 must launch once an attention call a step under
+   `dots_and_flash_saveable` (none in the backward) and twice under the
+   others, and the chains' losses must agree within BENCH_LOSS_REL; the
+   model block under bench.py's names. K1 and K2/K3 against their plain
+   versions on the operands the first step under `dots_and_flash_saveable`
+   gave the flash backward (the LLM's and the ViT's), by phase 7's rules
+   (a max|err| may also reach twice the plain version's own on the bf16
+   values: those limits are for unit-normal operands); the same harness at the tiny f32 config under that policy, CPU vs
+   card (losses and first-step gradients within TRAIN_REL, parameter
+   changes within BENCH_TINY_UPDATE_REL). Then the bench MoE (ragged, K8)
+   for MOE_BENCH_STEPS steps under its policy: launches a step and peak
+   GiB.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -265,7 +302,14 @@ N_SERVE = 16
 TRAIN_LAYERS = 8         # phase 9: LLM depth cut from 32 (see PERF.md)
 # phase 13: the train CLI's --max-tiles and --tiles-per-image defaults
 MOE_MAX_TILES, MOE_TILES_PER_IMAGE = 14, 6
-N_PHASES = 20
+# ... and its launches a step, 2 microbatches of 6 ViT and 8 LLM layers:
+# under the bench MoE's dots_and_flash_saveable K1 runs in the forward
+# alone; K8's grouped products are recomputed (a forward gmm pair and the
+# down gmm per layer, twice), their backward is gmm_t and tgmm
+MOE_TRAIN_LAUNCHES = {"flash_fwd": 28, "flash_bwd_dq": 28,
+                      "flash_bwd_dkv": 28, "gmm": 96, "gmm_t": 48,
+                      "tgmm": 48}
+N_PHASES = 22
 # phase 20: LoRA rank 16 on the default targets (wq, wk, wv, wo of the
 # flagship's 32 layers: (131,072 + 81,920 + 81,920 + 131,072) a layer)
 LORA_RANK = 16
@@ -506,6 +550,11 @@ def phase_k1(torch, A):
                1, 32, 8, 4096, 128, True)
     timed_case("xl", "S8192 (K4's streaming role) B1 H8 KVH2 hd128 causal",
                1, 8, 2, 8192, 128, True)
+    # the bench train step's (phase 22): the LLM and the ViT of 8 tiles
+    errs.append(case("bench train B4 H16 KVH8 S2048 hd128 causal", 4, 16, 8,
+                     2048, 128, True)[0])
+    errs.append(case("bench ViT 8 tiles H16 S1152 (pad segment from 1025) "
+                     "hd64", 8, 16, 16, 1152, 64, False, bounds=(1025,))[0])
     # the edges of the 128-row tiling, GQA rep 1/2/4, every head dim
     for name, args, kw in (
             ("S1 rep4 hd128 causal", (1, 4, 1, 1, 128, True), {}),
@@ -853,6 +902,62 @@ def probe_bulk_fault(name, got, ref, tol, plain):
         fail(f"the bf16 check passes a {name} with one tile 10% off")
 
 
+def hold_flash(torch, A, name, q, k, v, do, causal, seg=None, probe=False,
+               v_scale=1.0, plain_floor=False):
+    """K1, then K2/K3 on its (o, lse), against the plain versions on
+    float32 copies of the same operands; a bf16 result is also judged by
+    the per-64-row-tile rule against the plain version on the bf16 values
+    (`verdict`). K1_BF16_ATOL is for unit-normal v: o's tolerance is it
+    times `v_scale` (o mixes v's rows). The max|err| limits are for
+    unit-normal operands; with `plain_floor` (a train step's own
+    operands) a bf16 result's max|err| may also reach NORM_RATIO times
+    the plain version's own on the bf16 values. Returns (max abs errors
+    by tensor, the operands with K1's o and lse)."""
+    dtype = q.dtype
+    o, lse = A.flash_attention_fwd_cuda(q, k, v, causal, seg)
+    got = (o,) + A.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal,
+                                            seg)
+    # the reference: the plain forward and backward on float32 copies,
+    # so that no side uses K1's o and lse
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    o_ref, lse_ref = A.flash_attention_fwd_plain(qf, kf, vf, causal, seg)
+    want = (o_ref,) + A.flash_attention_bwd_plain(
+        qf, kf, vf, o_ref, lse_ref, dof, causal, seg)
+    plain = (None,) * 4
+    if dtype == torch.bfloat16:   # the plain version on the bf16 values
+        o_pl, lse_pl = A.flash_attention_fwd_plain(q, k, v, causal, seg)
+        plain = (o_pl,) + A.flash_attention_bwd_plain(
+            q, k, v, o_pl, lse_pl, do, causal, seg)
+    torch.cuda.synchronize()
+    err_lse = (lse - lse_ref).abs().max().item()
+    ok = err_lse <= K1_LSE_ATOL
+    errs = {}
+    parts = [f"lse max|err| {err_lse:.3e} (atol {K1_LSE_ATOL:g})"]
+    for n, g, w, p in zip(("o", "dq", "dk", "dv"), got, want, plain):
+        if dtype == torch.float32:
+            tol = K1_F32_ATOL if n == "o" else BWD_F32_ATOL
+        else:
+            tol = K1_BF16_ATOL * v_scale if n == "o" else \
+                BWD_BF16_REL * w.abs().max().item()
+        floor = ""
+        if plain_floor and p is not None:
+            p_err = (p.float() - w).abs().max().item()
+            tol = max(tol, NORM_RATIO * p_err)
+            floor = f" (plain max|err| {p_err:.3e})"
+        ok_n, errs[n], text = verdict(g, w, tol, p)
+        ok = ok and ok_n
+        parts.append(f"{n} {text}{floor}")
+    log(f"  {name}: " + "; ".join(parts) + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"flash attention disagrees with its plain version on "
+             f"{name}")
+    for i, n in ((1, "dq"), (3, "dv")) if probe else ():
+        probe_bulk_fault(n, got[i], want[i],
+                         BWD_BF16_REL * want[i].abs().max().item(),
+                         plain[i])
+    return errs, (q, k, v, o, lse, do, causal, seg)
+
+
 def phase_bwd(torch, A):
     """K2/K3 (and K1 at their shapes; at S 8192 they stand for K4-K6)
     against the plain versions; returns (max abs err of dq, of dk/dv, of
@@ -866,43 +971,7 @@ def phase_bwd(torch, A):
     def case(name, b, h, kvh, s, d, causal, dtype, seg=None, probe=False):
         q, do = (normal(b, h, s, d, dtype=dtype) for _ in range(2))
         k, v = (normal(b, kvh, s, d, dtype=dtype) for _ in range(2))
-        o, lse = A.flash_attention_fwd_cuda(q, k, v, causal, seg)
-        got = (o,) + A.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal,
-                                                seg)
-        # the reference: the plain forward and backward on float32 copies,
-        # so that no side uses K1's o and lse
-        qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
-        o_ref, lse_ref = A.flash_attention_fwd_plain(qf, kf, vf, causal, seg)
-        want = (o_ref,) + A.flash_attention_bwd_plain(
-            qf, kf, vf, o_ref, lse_ref, dof, causal, seg)
-        plain = (None,) * 4
-        if dtype == torch.bfloat16:   # the plain version on the bf16 values
-            o_pl, lse_pl = A.flash_attention_fwd_plain(q, k, v, causal, seg)
-            plain = (o_pl,) + A.flash_attention_bwd_plain(
-                q, k, v, o_pl, lse_pl, do, causal, seg)
-        torch.cuda.synchronize()
-        err_lse = (lse - lse_ref).abs().max().item()
-        ok = err_lse <= K1_LSE_ATOL
-        errs = {}
-        parts = [f"lse max|err| {err_lse:.3e} (atol {K1_LSE_ATOL:g})"]
-        for n, g, w, p in zip(("o", "dq", "dk", "dv"), got, want, plain):
-            if dtype == torch.float32:
-                tol = K1_F32_ATOL if n == "o" else BWD_F32_ATOL
-            else:
-                tol = K1_BF16_ATOL if n == "o" else \
-                    BWD_BF16_REL * w.abs().max().item()
-            ok_n, errs[n], text = verdict(g, w, tol, p)
-            ok = ok and ok_n
-            parts.append(f"{n} {text}")
-        log(f"  {name}: " + "; ".join(parts) + f" {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"flash attention disagrees with its plain version on "
-                 f"{name}")
-        for i, n in ((1, "dq"), (3, "dv")) if probe else ():
-            probe_bulk_fault(n, got[i], want[i],
-                             BWD_BF16_REL * want[i].abs().max().item(),
-                             plain[i])
-        return errs, (q, k, v, o, lse, do, causal, seg)
+        return hold_flash(torch, A, name, q, k, v, do, causal, seg, probe)
 
     vit_seg = torch.zeros(6, 1152, dtype=torch.int32, device=dev)
     vit_seg[:, 1025:] = 1
@@ -923,6 +992,12 @@ def phase_bwd(torch, A):
              1, 192, 64, False, torch.float32,
              torch.tensor([[1] * 100 + [2] * 60 + [0] * 32], device=dev,
                           dtype=torch.int32)),
+        # the bench train step's (phase 22): the LLM, the ViT of 8 tiles
+        case("K2/K3 bench train B4 H16 KVH8 S2048 hd128 causal bf16",
+             4, 16, 8, 2048, 128, True, bf, probe=True),
+        case("K2/K3 bench ViT 8 tiles H16 S1152 (pad from 1025) hd64 bf16",
+             8, 16, 16, 1152, 64, False, bf,
+             vit_seg[:1].expand(8, -1).contiguous()),
     ]
     err_dq = max(r[0]["dq"] for r in results)
     err_dkv = max(max(r[0]["dk"], r[0]["dv"]) for r in results)
@@ -1947,7 +2022,7 @@ def realscale_visibility(torch, np, V, scene, dtype, card):
         f"dispatch(es), peak {peak / 2**30:.3f} GiB over the allocated "
         f"base, {peak / pairs:.1f} bytes a padded pair "
         f"({i_pad} x {n_pad}); {card}")
-    return vis, {"cold_s": cold, "steady_s": min(steady),
+    return vis, {"cold_s": cold, "steady_s": min(steady), "steady": steady,
                  "mtests_per_s": tests / min(steady) / 1e6,
                  "device_ms": device_ms,
                  "dispatches": dispatches, "peak_bytes": peak,
@@ -1967,12 +2042,14 @@ def compare_relations(np, card_t, cpu_t):
     for c in ("scene_id", "image_id1", "image_id2"):
         if card_t[c].tolist() != cpu_t[c].tolist():
             fail(f"relations: column {c} differs card vs CPU")
+    # ulps of the columns' own dtype (float32 under the hybrid dtype)
+    angle = cpu_t["yaw"].dtype.type
     limits = {
         "overlap": np.zeros(len(cpu_t["overlap"])),
         "distance": DIST_ULP * np.spacing(np.abs(cpu_t["distance"])),
-        "yaw": 2 * ANGLE_ULP * np.spacing(180.0) * np.ones(
+        "yaw": 2 * ANGLE_ULP * np.spacing(angle(180.0)) * np.ones(
             len(cpu_t["yaw"])),
-        "pitch": 2 * ANGLE_ULP * np.spacing(90.0) * np.ones(
+        "pitch": 2 * ANGLE_ULP * np.spacing(angle(90.0)) * np.ones(
             len(cpu_t["pitch"])),
     }
     worst = {}
@@ -2005,11 +2082,7 @@ def demo_card_vs_cpu(np, cli, root, card):
     their limits, every file under qa/ (JSONL, frames and annotated JPEGs,
     the object-movement engines' included) and every pickle under indices/
     byte-equal."""
-    from multi_spatialmllm_tpu_torch.core.scene import SceneStore
-    from multi_spatialmllm_tpu_torch.pipeline import (
-        PipelineConfig,
-        SpatialEnginePipeline,
-    )
+    from multi_spatialmllm_tpu_torch.pipeline import PipelineConfig
 
     roots = {}
     for dev in ("cuda", "cpu"):
@@ -2018,6 +2091,18 @@ def demo_card_vs_cpu(np, cli, root, card):
         cli.main(["demo", "--device", dev, "--output", roots[dev],
                   *DEMO_ARGS])
         log(f"  demo on {dev}: {time.perf_counter() - t0:.2f} s")
+    return pipeline_roots_equal(
+        np, roots, PipelineConfig(overlap_min=0.1, overlap_max=100.0,
+                                  interval=5.0), "demo", card)
+
+
+def pipeline_roots_equal(np, roots, config, label, card):
+    """A `run_all` tree of the card (`roots["cuda"]`) against the CPU's:
+    visibility.npz equal, relation columns within their limits, every
+    file under qa/ and every pickle under indices/ byte-equal."""
+    from multi_spatialmllm_tpu_torch.core.scene import SceneStore
+    from multi_spatialmllm_tpu_torch.pipeline import SpatialEnginePipeline
+
     npz = {d: np.load(os.path.join(r, "indices", "visibility.npz"))
            for d, r in roots.items()}
     if sorted(npz["cuda"].files) != sorted(npz["cpu"].files):
@@ -2031,9 +2116,7 @@ def demo_card_vs_cpu(np, cli, root, card):
     tables = {}
     for dev, r in roots.items():
         pipe = SpatialEnginePipeline(
-            SceneStore(os.path.join(r, "scenes")), r,
-            PipelineConfig(overlap_min=0.1, overlap_max=100.0, interval=5.0),
-            device=dev)
+            SceneStore(os.path.join(r, "scenes")), r, config, device=dev)
         tables[dev] = pipe.frame_relations()
     worst = compare_relations(np, tables["cuda"], tables["cpu"])
     counts = {"jsonl": 0, "jpg": 0, "pkl": 0, "object_movement": 0}
@@ -2060,14 +2143,14 @@ def demo_card_vs_cpu(np, cli, root, card):
             ext = rel.rsplit(".", 1)[-1]
             counts[ext] = counts.get(ext, 0) + 1
             counts["object_movement"] += "object_movement_" in rel
-    log(f"  demo card vs CPU: visibility.npz equal, {len(tables['cpu']['overlap'])} "
+    log(f"  {label} card vs CPU: visibility.npz equal, {len(tables['cpu']['overlap'])} "
         f"relation rows (overlap equal; largest gaps {worst}), byte-equal: "
         f"{counts['jsonl']} JSONL, {counts['jpg']} JPEG and {counts['pkl']} "
         f"index pickles ({counts['object_movement']} of the files from the "
         f"object-movement engines); {card}")
     if not (counts["jsonl"] and counts["jpg"] and counts["pkl"] == 4
             and counts["object_movement"]):
-        fail(f"demo card vs CPU compared too little: {counts}")
+        fail(f"{label} card vs CPU compared too little: {counts}")
     return {**worst, "files": counts}
 
 
@@ -4028,7 +4111,8 @@ def lora_train_cli(torch, cli, kernels, label, config_flags, cfg, init,
     (the CLI's seeded weights when None). The loss must fall at every
     update after the first (lr 0); K1 must launch once a ViT layer and
     twice an LLM layer a step (the LLM's layers recomputed in the
-    backward), K2 and K3 once an LLM layer (the frozen ViT takes no
+    backward; once where the remat policy keeps the flash forward's
+    outputs), K2 and K3 once an LLM layer (the frozen ViT takes no
     backward). Returns (launches, summary, peak GiB, trainable, the
     CLI's stderr)."""
     import gc
@@ -4060,7 +4144,11 @@ def lora_train_cli(torch, cli, kernels, label, config_flags, cfg, init,
     if summary["steps"] != REPEAT_STEPS or not all(
             b < a for a, b in zip(losses[1:], losses[2:])):
         fail(f"{label}: the loss did not fall on a repeated batch: {losses}")
-    want = {"flash_fwd": cfg.vit.num_layers + 2 * cfg.llm.num_layers,
+    # the LLM's K1 runs again in the backward unless its remat policy
+    # keeps the flash forward's outputs (the bench MoE's)
+    again = cfg.llm.remat_policy != "dots_and_flash_saveable"
+    want = {"flash_fwd": cfg.vit.num_layers
+            + (1 + again) * cfg.llm.num_layers,
             "flash_bwd_dq": cfg.llm.num_layers,
             "flash_bwd_dkv": cfg.llm.num_layers}
     if any(per_step[k] != v for k, v in want.items()):
@@ -4120,6 +4208,510 @@ def phase_lora(torch, cli, M, K, T, tok, card, kernels, moe_kernels,
         out.update(phase20_train(torch, M, cli, pt, kernels, moe_kernels))
         log(f"  (d) took {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# phase 21: bench.py's split_projection_val shape (:690-731: seeds 20-25,
+# real-scale scenes, hybrid visibility and float32 relations a scene) with
+# PROJ_SCENES of its 6 scenes, to stay in time; the val split's 312 scenes
+PROJ_SCENES = 3
+VAL_SCENES = 312
+HYBRID_PASSES = 3        # bench.py's visibility_hybrid_realscale passes
+
+
+def visibility_golden():
+    """scripts/gen_visibility_golden.py (its scene, `packed_digest`) and
+    the stored digests of the JAX package's labels."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "gen_visibility_golden.py")
+    spec = importlib.util.spec_from_file_location("gen_visibility_golden",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, mod.load()
+
+
+def bench_entry(times, unit="s/scene"):
+    """A bench.py stage entry (`time_entry`'s value: the median)."""
+    return {"value": median(times), "unit": unit,
+            "times": [round(t, 4) for t in times]}
+
+
+def hybrid_realscale(torch, np, V, real, card):
+    """The hybrid stage over the real-scale scene: cold and steady
+    seconds, the device program alone (CUDA events, inputs resident), the
+    flagged share, the host fix-up's seconds (dispatch, wait for the
+    device, then finalize), peak device bytes a padded pair."""
+    pts, pvalid = real.padded_points(np.float32)
+    ext, depth, ivalid = real.padded_images(np.float32)
+    i_pad, n_pad = ext.shape[0], pts.shape[0]
+    t0 = time.perf_counter()
+    V.compute_scene_visibility_hybrid(real)
+    cold = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    steady = []
+    for _ in range(HYBRID_PASSES):
+        t0 = time.perf_counter()
+        vis = V.compute_scene_visibility_hybrid(real)
+        steady.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    handles = V._hybrid_dispatch(real)
+    handles.ready.synchronize()
+    t1 = time.perf_counter()
+    again = V._hybrid_finalize(real, handles)
+    fixup = time.perf_counter() - t1
+    flagged = sum(int(np.unpackbits(nr.numpy()).sum())
+                  for _, nr in handles.chunks)
+    if not np.array_equal(again, vis):
+        fail("real-scale hybrid: two calls differ")
+    dev = torch.device("cuda")
+    args = [torch.from_numpy(a).to(dev) for a in (
+        pts, real.intrinsic.astype(np.float32), ext, depth.astype(np.int32),
+        ivalid, pvalid)]
+
+    def program():
+        v, n = V.G.visibility_and_borderline(*args[:4], real.image_hw,
+                                             *args[4:])
+        return V._packbits(v), V._packbits(n)
+
+    device_ms = cuda_ms(torch, program, iters=5, warmup=1)
+    del args
+    pairs = real.num_images * real.num_points
+    out = {"cold_s": cold, "steady": steady, "steady_s": min(steady),
+           "device_ms": device_ms, "wait_s": t1 - t0, "fixup_s": fixup,
+           "chunks": len(handles.chunks), "flagged": flagged,
+           "flagged_share": flagged / pairs, "peak_bytes": peak,
+           "bytes_per_pair": peak / (i_pad * n_pad)}
+    log(f"  real-scale visibility hybrid: cold {cold:.3f} s, steady "
+        f"{min(steady):.3f} s ({[round(t, 4) for t in steady]}), the device "
+        f"program alone {device_ms:.3f} ms (CUDA events), "
+        f"{out['chunks']} chunk(s); flagged {flagged} of {pairs} pairs "
+        f"({100 * out['flagged_share']:.3f}%); dispatch and wait "
+        f"{t1 - t0:.3f} s, host fix-up {fixup:.3f} s; peak "
+        f"{peak / 2**30:.3f} GiB over the allocated base, "
+        f"{out['bytes_per_pair']:.1f} bytes a padded pair ({i_pad} x "
+        f"{n_pad}); {card}")
+    return vis, out
+
+
+def split_projection(torch, np, V, FR, make_scene, card):
+    """bench.py's split_projection_val on PROJ_SCENES real-scale scenes:
+    the sequential loop (hybrid visibility, then float32 relations, a
+    scene at a time) and `project_scenes_pipelined`, which must give the
+    same bytes; s/scene of each and the val split's minutes."""
+    t0 = time.perf_counter()
+    scenes = [make_scene(**dict(REAL_SCENE, scene_id=f"proj{i:04d}_00",
+                                seed=20 + i)) for i in range(PROJ_SCENES)]
+    log(f"  split projection: {PROJ_SCENES} real-scale scenes made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for _ in FR.project_scenes_pipelined(scenes[:1]):     # warm
+        pass
+    torch.cuda.synchronize()
+    runs, secs = {}, {}
+    for name in ("sequential", "pipelined", "sequential_2", "pipelined_2"):
+        t0 = time.perf_counter()
+        if name.startswith("sequential"):
+            got = []
+            for sc in scenes:
+                v = V.compute_scene_visibility_hybrid(sc)
+                got.append((sc, v, FR.compute_scene_relations(
+                    sc, vis=v, dtype=np.float32)))
+        else:
+            got = list(FR.project_scenes_pipelined(scenes, dtype=np.float32))
+        secs.setdefault(name.split("_")[0], []).append(
+            (time.perf_counter() - t0) / PROJ_SCENES)
+        runs[name] = got
+    seq, pipe = runs["sequential"], runs["pipelined"]
+    if [sc.scene_id for sc, _, _ in pipe] != [sc.scene_id for sc in scenes]:
+        fail("pipelined projection: scenes out of order")
+    for (sc, v1, r1), (_, v2, r2) in zip(seq, pipe):
+        if v1.tobytes() != v2.tobytes():
+            fail(f"pipelined projection: {sc.scene_id} visibility differs "
+                 f"from the sequential loop's")
+        if sorted(r1) != sorted(r2) or any(
+                r1[k].dtype != r2[k].dtype or r1[k].tobytes()
+                != r2[k].tobytes() for k in r1):
+            fail(f"pipelined projection: {sc.scene_id} relations differ "
+                 f"from the sequential loop's")
+    out = {k: {"s_per_scene": min(v), "passes": v} for k, v in secs.items()}
+    log(f"  split projection, {PROJ_SCENES} scenes (bench.py runs 6): "
+        f"sequential {[round(t, 4) for t in secs['sequential']]} s/scene, "
+        f"pipelined {[round(t, 4) for t in secs['pipelined']]} s/scene; "
+        f"vis and relations byte-equal; the {VAL_SCENES}-scene val split "
+        f"projected in {min(secs['sequential']) * VAL_SCENES / 60:.2f} min "
+        f"(sequential), {min(secs['pipelined']) * VAL_SCENES / 60:.2f} min "
+        f"(pipelined); {card}")
+    return out, {"split_projection_val": bench_entry(
+        [t * VAL_SCENES / 60 for t in secs["sequential"]],
+        unit="min/val-split")}
+
+
+def hybrid_run_all(np, tmp, card):
+    """`run_all` (the demo's scenes and TAPVid records) through
+    `SpatialEnginePipeline` with `PipelineConfig(dtype="hybrid")` on the
+    card and on the CPU: the trees equal file for file."""
+    from multi_spatialmllm_tpu_torch.core.scene import SceneStore
+    from multi_spatialmllm_tpu_torch.core.synthetic import (
+        make_scene,
+        make_tapvid_npz,
+    )
+    from multi_spatialmllm_tpu_torch.pipeline import (
+        PipelineConfig,
+        SpatialEnginePipeline,
+    )
+
+    config = PipelineConfig(dtype="hybrid", overlap_min=0.1,
+                            overlap_max=100.0, interval=5.0)
+    roots = {}
+    for dev in ("cuda", "cpu"):
+        roots[dev] = os.path.join(tmp, f"hybrid_{dev}")
+        t0 = time.perf_counter()
+        store = SceneStore.write(
+            [make_scene(scene_id=f"demo{i:04d}_00", seed=i, n_images=12,
+                        n_background=4000) for i in range(2)],
+            os.path.join(roots[dev], "scenes"))
+        SpatialEnginePipeline(store, roots[dev], config, device=dev).run_all(
+            tapvid_records={f"demo_seq{i}": make_tapvid_npz(seed=50 + i)
+                            for i in range(2)})
+        log(f"  hybrid run_all on {dev}: {time.perf_counter() - t0:.2f} s")
+    return pipeline_roots_equal(np, roots, config, "hybrid run_all", card)
+
+
+def phase_hybrid(torch, card):
+    """Phase 21: the float64 and hybrid labels of the real-scale scene
+    against the JAX package's digest, the split projection sequential
+    and pipelined, and a hybrid `run_all` card vs CPU."""
+    import tempfile
+
+    import numpy as np
+
+    from multi_spatialmllm_tpu_torch.core.synthetic import make_scene
+    from multi_spatialmllm_tpu_torch.stages import frame_relations as FR
+    from multi_spatialmllm_tpu_torch.stages import visibility as V
+
+    gen, golden = visibility_golden()
+    want_scene = {k: list(v) if isinstance(v, tuple) else v
+                  for k, v in REAL_SCENE.items()}
+    if golden["scene"] != want_scene or gen.REAL_SCENE != REAL_SCENE:
+        fail(f"the stored digests are of another scene: {golden['scene']}")
+    if golden["float64_packed_sha256"] != golden["hybrid_packed_sha256"]:
+        fail("the stored JAX float64 and hybrid digests differ")
+    want = golden["float64_packed_sha256"]
+    real = make_scene(**REAL_SCENE)
+    vis64, f64 = realscale_visibility(torch, np, V, real, np.float64, card)
+    hyb, hybrid = hybrid_realscale(torch, np, V, real, card)
+    got = {"float64": gen.packed_digest(vis64),
+           "hybrid": gen.packed_digest(hyb)}
+    for name, digest in got.items():
+        if digest != want:
+            fail(f"real-scale {name} labels: digest {digest} is not the JAX "
+                 f"CPU float64 digest {want}")
+    log(f"  real-scale float64 and hybrid labels equal the JAX CPU float64 "
+        f"labels (SHA-256 {want[:16]}..., {golden['visible']} visible of "
+        f"{real.num_images * real.num_points}); float64 call "
+        f"{f64['steady_s']:.3f} s with a {f64['device_ms']:.3f} ms device "
+        f"program, hybrid call {hybrid['steady_s']:.3f} s with a "
+        f"{hybrid['device_ms']:.3f} ms device program, "
+        f"{100 * hybrid['flagged_share']:.3f}% flagged, host fix-up "
+        f"{hybrid['fixup_s']:.3f} s; {card}")
+    rates = {"visibility_f64_realscale": bench_entry(f64["steady"]),
+             "visibility_hybrid_realscale": bench_entry(hybrid["steady"])}
+    del real, vis64, hyb
+    torch.cuda.empty_cache()
+    proj, proj_rate = split_projection(torch, np, V, FR, make_scene, card)
+    rates.update(proj_rate)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_all = hybrid_run_all(np, tmp, card)
+    log(f"  rates under bench.py's keys: {json.dumps(rates)}; {card}")
+    return {"f64": f64, "hybrid": hybrid, "projection": proj,
+            "run_all": run_all, "rates": rates}
+
+
+# phase 22: bench.py's model block (:793-840): bench_1chip_config, batch 4
+# rows of 2,048 tokens with 2 tiles each, chains of 8 steps, the best of 3
+BENCH_B, BENCH_S, BENCH_TILES, BENCH_CHAIN, BENCH_CHAINS = 4, 2048, 2, 8, 3
+BENCH_POLICIES = (None, "dots_with_no_batch_dims_saveable",
+                  "dots_and_flash_saveable")
+BENCH_LOSS_REL = 1e-3    # the chains' losses across the three policies
+# the harness at the tiny f32 config, CPU vs card: chain length, and each
+# parameter's change held to the CPU's in norm (tests/test_torch_flops.py
+# measures 9.3e-3 against JAX on the CPU, on the ViT qkv biases whose key
+# part has a zero gradient up to rounding)
+BENCH_TINY_CHAIN, BENCH_TINY_UPDATE_REL = 3, 2e-2
+MOE_BENCH_STEPS = 2
+
+
+GEMM_MARKERS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
+
+
+def device_by_kind(torch, fn):
+    """Device milliseconds of `fn()` under torch.profiler, by kind (the
+    flash forward K1, the flash backward K2/K3, K8, matrix products, the
+    rest), and its host-clock milliseconds under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kinds = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        low = e.key.lower()
+        kind = ("K1" if "flash_fwd" in low else "K2/K3" if "flash_bwd" in low
+                else "K8" if "gmm_" in low
+                else "matrix products" if any(m in low for m in GEMM_MARKERS)
+                else "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+    return kinds, wall * 1e3
+
+
+def bench_train(torch, M, T, F, cfg, kernels, label, chain, chains,
+                capture=contextlib.nullcontext):
+    """`make_chained_train_step` on `make_example_batch` at the bench
+    shape: a warm chain (its losses returned) under `capture()`, then
+    `chains` timed chains (host clock, one fetch of the losses a chain);
+    step ms, tokens/s, MFU, peak GiB and launches a step of the timed
+    chains."""
+    import gc
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = M.MultiFrameMLLM(cfg, device=dev, param_dtype=torch.float32)
+    M.init_random_weights(model, SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = T.AdamW(list(model.named_parameters()),
+                  T.TrainConfig(warmup_steps=10))
+    batch = M.make_example_batch(cfg, batch=BENCH_B, n_tiles=BENCH_TILES,
+                                 seq_len=BENCH_S, seed=0, device=dev)
+    run = T.make_chained_train_step(model, opt, chain)
+    with capture():
+        warm = run(batch).tolist()
+    log(f"  {label}: init and warm chain {time.perf_counter() - t0:.1f} s, "
+        f"{n_params / 1e6:.1f} M params, warm losses "
+        f"{[round(x, 5) for x in warm]}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    times = []
+    for _ in range(chains):
+        t0 = time.perf_counter()
+        losses = run(batch)
+        losses[-1].item()          # the one fetch a chain
+        times.append((time.perf_counter() - t0) / chain)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k.name: k.launches for k in kernels}
+    per_step = {k: n / (chain * chains) for k, n in launches.items()}
+    step = min(times)
+    # one more step under the profiler: the device's time a step by kind,
+    # against the unprofiled host-clock step (the rest is the device idle)
+    one = T.make_chained_train_step(model, opt, 1)
+    kinds, prof_wall = device_by_kind(torch, lambda: one(batch)[-1].item())
+    device_ms = sum(kinds.values()) if kinds else None
+    peak_flops = F.device_peak_flops(dev)
+    flops = F.mllm_train_flops(cfg, BENCH_B, BENCH_S, BENCH_TILES)
+    mfu = flops / step / peak_flops if peak_flops else None
+    out = {"warm_losses": warm, "step_ms": step * 1e3,
+           "step_ms_passes": [t * 1e3 for t in times],
+           "tokens_per_s": BENCH_B * BENCH_S / step, "mfu": mfu,
+           "peak_gib": peak, "launches": launches,
+           "launches_per_step": per_step,
+           "params_m": n_params / 1e6, "flops_per_step": flops,
+           "device_ms": device_ms,
+           "device_ms_by_kind": kinds,
+           "busy_share": device_ms / (step * 1e3) if kinds else None}
+    log(f"  {label}: step {step * 1e3:.2f} ms "
+        f"({[round(t * 1e3, 2) for t in times]}), "
+        f"{out['tokens_per_s']:,.0f} tokens/s, MFU "
+        + (f"{100 * mfu:.2f}% of {peak_flops / 1e12:.1f} TFLOP/s"
+           if mfu else "not measured (no peak for this card)")
+        + f" ({flops / 1e12:.3f} TFLOP a step), peak {peak:.3f} GiB, "
+        f"launches a step {per_step}; device time a step by torch.profiler "
+        + (f"{device_ms:.2f} ms ({100 * out['busy_share']:.1f}% of the step; "
+           + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+               kinds.items(), key=lambda kv: -kv[1])) + ")"
+           if kinds else "not measured (the trace holds no device event)")
+        + f", the profiled step {prof_wall:.2f} ms on the host clock; "
+        f"{card_name_and_power_limit()}")
+    del run, one, opt, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def flash_bwd_operands(A, got):
+    """While the block runs, keep into `got` the operands of the first
+    flash backward (K2/K3) call of each head dim: those of the LLM (hd
+    128) and of the ViT (hd 64), as the train step hands them over."""
+    bwd = A.flash_attention_bwd_cuda
+
+    def keep(q, k, v, o, lse, do, causal, segment_ids=None):
+        label = f"hd{q.shape[-1]}"
+        if label not in got:
+            got[label] = tuple(
+                t if t is None or isinstance(t, bool) else t.clone()
+                for t in (q, k, v, do, causal, segment_ids))
+        return bwd(q, k, v, o, lse, do, causal, segment_ids)
+
+    A.flash_attention_bwd_cuda = keep
+    try:
+        yield got
+    finally:
+        A.flash_attention_bwd_cuda = bwd
+
+
+def flash_on_bench_operands(torch, A, got):
+    """K1 and K2/K3 against their plain versions (`hold_flash`, the
+    per-64-row-tile rule, max|err| within the unit-normal limit or twice
+    the plain version's own) on the operands a bench step gave the flash
+    backward (`flash_bwd_operands`); returns the largest max|err| by
+    tensor."""
+    worst = {}
+    for label, (q, k, v, do, causal, seg) in sorted(got.items()):
+        scale = max(1.0, v.float().abs().max().item())
+        errs, _ = hold_flash(
+            torch, A, f"K1/K2/K3 on the bench step's {label} operands, q "
+            f"{tuple(q.shape)} kv {tuple(k.shape)}, dO max|x| "
+            f"{do.float().abs().max().item():.3e}", q, k, v, do, causal,
+            seg, v_scale=scale, plain_floor=True)
+        for n, e in errs.items():
+            worst[n] = max(worst.get(n, 0.0), e)
+    return worst
+
+
+def tiny_chain_card_vs_cpu(torch, M, T, policy):
+    """The bench harness at the tiny f32 config with both towers
+    rematerialised under `policy`: `make_example_batch` and
+    BENCH_TINY_CHAIN chained steps on the CPU (plain versions) and on the
+    card from the same weights; the losses and the first step's gradients
+    must agree within TRAIN_REL, and each parameter's change over the
+    chain within BENCH_TINY_UPDATE_REL of the CPU's, in norm."""
+    import dataclasses
+
+    base = M.with_dtype(M.tiny_config(), "float32")
+    cfg = dataclasses.replace(
+        base, vit=dataclasses.replace(base.vit, remat=True,
+                                      remat_policy=policy),
+        llm=dataclasses.replace(base.llm, remat=True, remat_policy=policy))
+    batch = M.make_example_batch(cfg, batch=2, n_tiles=2, seq_len=128,
+                                 seed=1, device="cpu")
+    tcfg = T.TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                         total_steps=BENCH_TINY_CHAIN)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = M.MultiFrameMLLM(cfg, device=dev, param_dtype=torch.float32)
+        if dev == "cpu":
+            M.init_random_weights(model, SEED)
+            init = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(init)
+        opt = T.AdamW(list(model.named_parameters()), tcfg)
+        first, update = [], opt.update
+
+        def keep_first(grads, first=first, update=update):
+            if not first:
+                first.extend(g.detach().cpu().clone() for g in grads)
+            return update(grads)
+
+        opt.update = keep_first
+        losses = T.make_chained_train_step(model, opt, BENCH_TINY_CHAIN)(
+            {k: v.to(dev) for k, v in batch.items()})
+        runs[dev] = (losses.cpu(), first, {
+            k: v.detach().cpu() - init[k]
+            for k, v in model.state_dict().items()})
+    (l_c, g_c, d_c), (l_g, g_g, d_g) = runs["cpu"], runs["cuda"]
+    loss = ((l_g - l_c).abs() / l_c.abs()).max().item()
+    grads = max(((a - b).abs().max() / a.abs().max().clamp_min(1e-30)).item()
+                for a, b in zip(g_c, g_g))
+    update = max(((d_g[k] - d_c[k]).norm() / d_c[k].norm()).item()
+                 for k in d_c if d_c[k].norm() > 0)
+    log(f"  tiny f32 under {policy}, {BENCH_TINY_CHAIN} chained steps, CPU "
+        f"vs card: losses CPU {[round(x, 6) for x in l_c.tolist()]}; worst "
+        f"relative difference: loss {loss:.3e}, first-step gradients "
+        f"{grads:.3e} (tol {TRAIN_REL:g}), a parameter's change "
+        f"{update:.3e} (tol {BENCH_TINY_UPDATE_REL:g})")
+    if max(loss, grads) > TRAIN_REL or update > BENCH_TINY_UPDATE_REL:
+        fail(f"the tiny chained steps under {policy} differ between the CPU "
+             f"and the card")
+    return {"loss": loss, "grads": grads, "update": update}
+
+
+def phase_bench_train(torch, M, T, A, G, card):
+    """Phase 22: the bench train step under the three remat policies, its
+    K1 launches against the forward's attention calls, the chains' losses
+    across policies, and the bench MoE (ragged, K8) under its policy."""
+    import dataclasses
+
+    from multi_spatialmllm_tpu_torch.utils import flops as F
+
+    flash = [A.FLASH_FWD, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV]
+    base = M.bench_1chip_config()
+    attn_calls = base.vit.num_layers + base.llm.num_layers
+    runs, operands = {}, {}
+    for policy in BENCH_POLICIES:
+        cfg = dataclasses.replace(
+            base, vit=dataclasses.replace(base.vit, remat_policy=policy),
+            llm=dataclasses.replace(base.llm, remat_policy=policy))
+        capture = contextlib.nullcontext
+        if policy == base.llm.remat_policy:
+            def capture():
+                return flash_bwd_operands(A, operands)
+        runs[policy] = bench_train(torch, M, T, F, cfg, flash,
+                                   f"bench, remat_policy {policy}",
+                                   BENCH_CHAIN, BENCH_CHAINS, capture)
+        k1 = runs[policy]["launches_per_step"]["flash_fwd"]
+        want = attn_calls * (1 if policy == "dots_and_flash_saveable" else 2)
+        if k1 != want:
+            fail(f"bench under {policy}: K1 launches a step {k1}, expected "
+                 f"{want} ({attn_calls} attention calls a forward)")
+        for k in ("flash_bwd_dq", "flash_bwd_dkv"):
+            if runs[policy]["launches_per_step"][k] != attn_calls:
+                fail(f"bench under {policy}: {k} launches a step "
+                     f"{runs[policy]['launches_per_step'][k]}")
+    ref = runs[None]["warm_losses"]
+    gap = max(abs(a - b) / abs(b) for r in runs.values()
+              for a, b in zip(r["warm_losses"], ref))
+    log(f"  the chains' losses across the three policies: largest relative "
+        f"difference {gap:.3g} (limit {BENCH_LOSS_REL:g})")
+    if not gap <= BENCH_LOSS_REL:
+        fail(f"the policies' losses differ by {gap:.3g} relative")
+    if sorted(operands) != ["hd128", "hd64"]:
+        fail(f"the bench step's flash backward operands: {sorted(operands)}")
+    flash_errs = flash_on_bench_operands(torch, A, operands)
+    del operands
+    torch.cuda.empty_cache()
+    tiny = tiny_chain_card_vs_cpu(torch, M, T, base.llm.remat_policy)
+    own = runs["dots_and_flash_saveable"]
+    model_block = {"train_tokens_per_s": round(own["tokens_per_s"], 1),
+                   "train_step_ms": round(own["step_ms"], 1),
+                   "mfu": round(own["mfu"], 4) if own["mfu"] else None,
+                   "params_m": round(own["params_m"])}
+    log(f"  model block under bench.py's names (bench_1chip_config, its "
+        f"dots_and_flash_saveable): {json.dumps(model_block)}; {card}")
+    moe_cfg = M.bench_1chip_moe_config(impl="ragged", kernel="pallas")
+    moe = bench_train(torch, M, T, F, moe_cfg,
+                      flash + [G.GMM, G.GMM_T, G.TGMM],
+                      f"bench MoE ragged/K8, remat_policy "
+                      f"{moe_cfg.llm.remat_policy}", 1, MOE_BENCH_STEPS)
+    if moe["launches_per_step"]["flash_fwd"] != attn_calls or min(
+            moe["launches_per_step"][k] for k in ("gmm", "gmm_t",
+                                                 "tgmm")) <= 0:
+        fail(f"bench MoE launches a step {moe['launches_per_step']}")
+    return {"runs": {str(k): v for k, v in runs.items()}, "moe": moe,
+            "loss_gap": gap, "model": model_block, "flash_errs": flash_errs,
+            "tiny": tiny}
 
 
 def kernel_entry(name, source, replaces, launches_by_path, err, timing,
@@ -4259,10 +4851,12 @@ def main(argv=None):
              G.TGMM], base=moe_config(cli), layers=None,
             max_tiles=MOE_MAX_TILES, tiles_per_image=MOE_TILES_PER_IMAGE)
         steps = res["moe_train"][1]["steps"]
-        log(f"  K8 launches a step (remat on; expected 96 gmm, 48 gmm_t, 48 "
-            f"tgmm): " + ", ".join(
-                f"{k} {res['moe_train'][0][k] / steps:g}"
-                for k in ("gmm", "gmm_t", "tgmm")))
+        per_step = {k: v / steps for k, v in res["moe_train"][0].items()}
+        log(f"  launches a step (remat under dots_and_flash_saveable; "
+            f"expected {MOE_TRAIN_LAUNCHES}): {per_step}")
+        if per_step != MOE_TRAIN_LAUNCHES:
+            fail(f"MoE train launches a step {per_step}, expected "
+                 f"{MOE_TRAIN_LAUNCHES}")
         torch.cuda.empty_cache()
     if 14 in phases:
         head(14, "MoE serve at full width (bench, 4 experts, ragged, K8; "
@@ -4329,6 +4923,22 @@ def main(argv=None):
             [A.FLASH_FWD, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV],
             [G.GMM, G.GMM_T, G.TGMM], [A.FLASH_FWD, P.PAGED_DECODE])
         log(f"  phase 20 took {time.perf_counter() - t0:.1f} s; {card}")
+        torch.cuda.empty_cache()
+    if 21 in phases:
+        head(21, "data engine, hybrid and pipelined: the real-scale float64 "
+                 "and hybrid labels against the JAX digest, the split "
+                 "projection sequential vs pipelined, a hybrid run_all "
+                 "card vs CPU")
+        t0 = time.perf_counter()
+        res["hybrid"] = phase_hybrid(torch, card)
+        log(f"  phase 21 took {time.perf_counter() - t0:.1f} s; {card}")
+        torch.cuda.empty_cache()
+    if 22 in phases:
+        head(22, "the bench train step (bench.py's model block) under three "
+                 "remat policies, and the bench MoE under its policy")
+        t0 = time.perf_counter()
+        res["bench_train"] = phase_bench_train(torch, M, T, A, G, card)
+        log(f"  phase 22 took {time.perf_counter() - t0:.1f} s; {card}")
     log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     if phases != set(range(3, N_PHASES + 1)):
@@ -4350,29 +4960,37 @@ def main(argv=None):
     frames = res["real_inputs"]["serve"]
     ev = res["eval"]
     lo = res["lora"]
+    bench = res["bench_train"]["runs"]["dots_and_flash_saveable"]["launches"]
+    bench_moe = res["bench_train"]["moe"]["launches"]
+    bench_errs = res["bench_train"]["flash_errs"]
     flash = dict(serve=res["serve"], train=train, moe_serve=moe_serve,
                  moe_train=moe_train, frames_serve=frames,
                  eval_paged=ev["eval_paged"], eval_batched=ev["eval_batched"],
                  moe_eval=ev["moe_eval"], lora_serve=lo["serve"],
-                 lora_train=lo["train"], moe_lora_train=lo["moe_train"])
+                 lora_train=lo["train"], moe_lora_train=lo["moe_train"],
+                 bench_train=bench, bench_moe_train=bench_moe)
     kernels = [
         kernel_entry("flash_fwd", "flash_fwd.cu",
                      f"{jax_attn}:92 (K1); :483 (K4, streaming)",
                      by_path("flash_fwd", **flash),
-                     max(k1_err, err_fwd, ev["k1_err"]),
+                     max(k1_err, err_fwd, ev["k1_err"], bench_errs["o"]),
                      (k1["prefill"][0], k1["prefill"][1], k1["prefill"][3]),
                      k1["prefill"][2]),
         kernel_entry("flash_bwd_dq", "flash_bwd.cu",
                      f"{jax_attn}:269 (K2); :592 (K5, streaming)",
                      by_path("flash_bwd_dq", train=train,
                              moe_train=moe_train, lora_train=lo["train"],
-                             moe_lora_train=lo["moe_train"]), err_dq,
+                             moe_lora_train=lo["moe_train"],
+                             bench_train=bench, bench_moe_train=bench_moe),
+                     max(err_dq, bench_errs["dq"]),
                      (tr["dq"][0], tr["plain"], tr["dq"][1]), tr["lib_bwd"]),
         kernel_entry("flash_bwd_dkv", "flash_bwd.cu",
                      f"{jax_attn}:324 (K3); :645 (K6, streaming)",
                      by_path("flash_bwd_dkv", train=train,
                              moe_train=moe_train, lora_train=lo["train"],
-                             moe_lora_train=lo["moe_train"]), err_dkv,
+                             moe_lora_train=lo["moe_train"],
+                             bench_train=bench, bench_moe_train=bench_moe),
+                     max(err_dkv, bench_errs["dk"], bench_errs["dv"]),
                      (tr["dkv"][0], tr["plain"], tr["dkv"][1]),
                      tr["lib_bwd"]),
         kernel_entry("paged_decode", "paged_decode.cu",
@@ -4392,11 +5010,13 @@ def main(argv=None):
     for name, replaces, paths in (
             ("gmm", f"{jax_moe}:133 (_pallas_gmm: megablox gmm)",
              dict(moe_train=moe_train, moe_serve=moe_serve,
-                  moe_eval=ev["moe_eval"], moe_lora_train=lo["moe_train"])),
+                  moe_eval=ev["moe_eval"], moe_lora_train=lo["moe_train"],
+                  bench_moe_train=bench_moe)),
             ("gmm_t", f"{jax_moe}:146-165 (VJP: gmm, transpose_rhs)",
-             dict(moe_train=moe_train, moe_lora_train=lo["moe_train"])),
+             dict(moe_train=moe_train, moe_lora_train=lo["moe_train"],
+                  bench_moe_train=bench_moe)),
             ("tgmm", f"{jax_moe}:146-165 (VJP: megablox tgmm)",
-             dict(moe_train=moe_train))):
+             dict(moe_train=moe_train, bench_moe_train=bench_moe))):
         t_k, t_p, t_l, bound, _ = k8[(name, "train gate/up")]
         kernels.append(kernel_entry(name, "grouped_matmul.cu", replaces,
                                     by_path(name, **paths), k8_err[name],

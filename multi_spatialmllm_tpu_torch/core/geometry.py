@@ -184,18 +184,27 @@ def _occlusion(x: Tensor, y: Tensor, depth: Tensor, depth_map: Tensor,
                image_hw, depth_value_scale: float) -> Tensor:
     hd, wd = depth_map.shape[-2], depth_map.shape[-1]
     h, w = image_hw[0], image_hw[1]
+    depth_values = _depth_values(x * (wd / w), y * (hd / h), depth,
+                                 depth_map, depth_value_scale)
+    return (depth > 0) & (depth < depth_values)
+
+
+def _depth_values(ux: Tensor, uy: Tensor, depth: Tensor, depth_map: Tensor,
+                  depth_value_scale: float) -> Tensor:
+    """The z-buffer value (meters, in `depth`'s dtype) at coordinates
+    already scaled to the depth map, rounded half to even and clipped."""
+    hd, wd = depth_map.shape[-2], depth_map.shape[-1]
     # out-of-range and NaN coordinates convert to some int32; the clip
     # keeps the gather inside the map, and such points fail the bounds
     # test anyway
-    dx = torch.round(x * (wd / w)).to(torch.int32).clamp_(0, wd - 1)
-    dy = torch.round(y * (hd / h)).to(torch.int32).clamp_(0, hd - 1)
+    dx = torch.round(ux).to(torch.int32).clamp_(0, wd - 1)
+    dy = torch.round(uy).to(torch.int32).clamp_(0, hd - 1)
     flat = depth_map.reshape(depth_map.shape[:-2] + (hd * wd,))
     idx = (dy * wd + dx).reshape(flat.shape[:-1] + (-1,)).long()
     del dx, dy
     gathered = torch.gather(flat, -1, idx).reshape(depth.shape)
     del idx
-    depth_values = gathered.to(depth.dtype) * depth_value_scale
-    return (depth > 0) & (depth < depth_values)
+    return gathered.to(depth.dtype) * depth_value_scale
 
 
 def point_visibility_mask(xy: Tensor, depth: Tensor, depth_map: Tensor,
@@ -234,6 +243,55 @@ def visibility_matrix(points: Tensor, K: Tensor, E_c2w: Tensor,
     if point_valid is not None:
         vis &= point_valid[..., None, :]
     return vis
+
+
+def visibility_and_borderline(points: Tensor, K: Tensor, E_c2w: Tensor,
+                              depth_maps: Tensor, image_hw,
+                              image_valid: Tensor | None = None,
+                              point_valid: Tensor | None = None,
+                              depth_value_scale: float = 0.001,
+                              tol_px: float = 0.01, tol_idx: float = 0.005,
+                              tol_depth: float = 1e-4
+                              ) -> tuple[Tensor, Tensor]:
+    """float32 visibility matrix and a conservative borderline mask, the
+    `[..., I, N]` pair `(vis, near)` of the hybrid stage
+    (stages/visibility.compute_scene_visibility_hybrid).
+
+    `vis` is `visibility_matrix` in the inputs' dtype (float32); `near`
+    flags every pair whose decision sits within float32 rounding distance
+    of a comparison boundary: pixel coordinates within `tol_px` pixels of
+    the image bounds, depth-map coordinates within `tol_idx` pixels of a
+    round-half-to-even boundary, camera depth within `tol_depth` meters of
+    zero or of the z-buffer value. The bands assume true float32: the
+    projection is elementwise (`_row_dot`), so no TF32 or reduced-precision
+    matmul enters it, and separate ops never contract into FMAs."""
+    (x, y), depth = _project(points[..., None, :, :], K[..., None, :, :],
+                             E_c2w)
+    h, w = image_hw[0], image_hw[1]
+    hd, wd = depth_maps.shape[-2], depth_maps.shape[-1]
+    vis = _in_bounds(x, y, image_hw)
+    near = x.abs() <= tol_px
+    near |= (x - w).abs() <= tol_px
+    near |= y.abs() <= tol_px
+    near |= (y - h).abs() <= tol_px
+    ux = x * (wd / w)
+    del x
+    uy = y * (hd / h)
+    del y
+    near |= (ux - ux.floor() - 0.5).abs() <= tol_idx
+    near |= (uy - uy.floor() - 0.5).abs() <= tol_idx
+    dv = _depth_values(ux, uy, depth, depth_maps, depth_value_scale)
+    del ux, uy
+    vis &= (depth > 0) & (depth < dv)
+    near |= depth.abs() <= tol_depth
+    near |= (depth - dv).abs() <= tol_depth
+    if image_valid is not None:
+        vis &= image_valid[..., :, None]
+        near &= image_valid[..., :, None]
+    if point_valid is not None:
+        vis &= point_valid[..., None, :]
+        near &= point_valid[..., None, :]
+    return vis, near
 
 
 # ---------------------------------------------------------------------------

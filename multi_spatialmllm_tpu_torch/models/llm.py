@@ -33,8 +33,10 @@ dtype at use, as Flax `Dense`/`Embed` cast their float32 params, so a model
 may hold float32 master weights (training), weights already in the
 compute dtype (serving, where the casts are no-ops) or int8 weights with
 their scales (models/quantize.py, dequantised to float32 at use); norm
-scales stay float32. `remat` checkpoints each whole layer
-(`torch.utils.checkpoint`).
+scales stay float32. `remat` checkpoints each layer
+(`torch.utils.checkpoint`); the config's `remat_policy` names what a
+checkpointed layer keeps from its forward (the JAX config's names, see
+`remat_layer()`): None recomputes the whole layer.
 """
 
 from __future__ import annotations
@@ -44,9 +46,14 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..ops.attention import (
+    FLASH_FWD_OP,
     trainable_flash_attention,
     trainable_flash_attention_packed,
 )
@@ -75,6 +82,9 @@ class LLMConfig:
     max_seq_len: int = 8192
     dtype: str = "bfloat16"
     remat: bool = False  # recompute each layer's activations in backward
+    # what a rematerialised layer saves (`remat_policy`); None saves only
+    # its inputs
+    remat_policy: str | None = None
     # routed MoE FFN (models/moe.py); 0 keeps the dense SwiGLU
     moe_experts: int = 0
     moe_top_k: int = 2
@@ -86,6 +96,58 @@ class LLMConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+
+# unbatched matrix products: every Linear (`F.linear` runs `mm`, or `addmm`
+# with a bias). The batched ones (`bmm`, `baddbmm`: attention einsums, the
+# MoE's dispatch and combine) and K8's grouped products are recomputed, as
+# JAX's `dots_with_no_batch_dims_saveable` recomputes dots with batch
+# dimensions and the megablox `pallas_call`.
+_UNBATCHED_DOTS = frozenset({torch.ops.aten.mm.default,
+                             torch.ops.aten.addmm.default})
+# the ops whose outputs each selective policy saves
+REMAT_POLICIES = {
+    "nothing_saveable": frozenset(),
+    "dots_with_no_batch_dims_saveable": _UNBATCHED_DOTS,
+    # the above plus the flash forward's (o, lse): the backward of a
+    # rematerialised layer re-runs only elementwise ops, never a matmul or
+    # a forward attention kernel (JAX's `_dots_and_flash_policy`)
+    "dots_and_flash_saveable": _UNBATCHED_DOTS | {FLASH_FWD_OP},
+}
+# saves every activation, so it runs no checkpoint at all (a cache of every
+# op's output would also hold buffers that later ops write in place, which
+# selective checkpointing refuses)
+EVERYTHING_SAVEABLE = "everything_saveable"
+
+
+def check_remat_policy(cfg):
+    """Raise `ValueError` unless `cfg.remat_policy` (LLMConfig or
+    ViTConfig) is None, `everything_saveable` or a REMAT_POLICIES name."""
+    names = (EVERYTHING_SAVEABLE, *REMAT_POLICIES)
+    if cfg.remat_policy is not None and cfg.remat_policy not in names:
+        raise ValueError(f"remat_policy {cfg.remat_policy!r} is not one of "
+                         f"{sorted(names)}")
+
+
+def remat_layer(layer, cfg, *args):
+    """`layer(*args)` checkpointed under `cfg.remat_policy`: None
+    recomputes the whole layer in the backward, `everything_saveable` runs
+    no checkpoint, and a REMAT_POLICIES name checkpoints selectively,
+    saving the outputs of the ops it names."""
+    name = cfg.remat_policy
+    if name == EVERYTHING_SAVEABLE:
+        return layer(*args)
+    kw = {}
+    if name is not None:
+        keep = REMAT_POLICIES[name]
+
+        def policy(ctx, op, *a, **k):
+            return (CheckpointPolicy.MUST_SAVE if op in keep
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            policy)
+    return checkpoint(layer, *args, use_reentrant=False, **kw)
 
 
 def rope_frequencies(head_dim: int, theta: float,
@@ -348,6 +410,7 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg: LLMConfig, device=None):
         super().__init__()
+        check_remat_policy(cfg)
         self.cfg = cfg
         dtype = DTYPES[cfg.dtype]
         self.embed = Embedding(cfg.vocab_size, cfg.hidden_size,
@@ -378,9 +441,8 @@ class DecoderLM(nn.Module):
                 layer_lora = {"scale": lora["scale"], "idx": lora["idx"],
                               "tables": lora["layers"][i]}
             if remat:
-                x, kv, aux = checkpoint(layer, x, rope, None, segment_ids,
-                                        inference, layer_lora,
-                                        use_reentrant=False)
+                x, kv, aux = remat_layer(layer, self.cfg, x, rope, None,
+                                         segment_ids, inference, layer_lora)
             else:
                 x, kv, aux = layer(x, rope,
                                    None if caches is None else caches[i],

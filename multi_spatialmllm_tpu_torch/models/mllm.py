@@ -152,6 +152,32 @@ def loss_fn(model: MultiFrameMLLM, batch: dict):
     return cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:])
 
 
+def make_example_batch(cfg: MLLMConfig, batch: int = 1, n_tiles: int = 2,
+                       seq_len: int = 512, seed: int = 0,
+                       device="cuda") -> dict:
+    """The JAX package's synthetic batch (`make_example_batch`) as
+    bench.py's `model` block draws it (x64 off), from the same key, on
+    `device`: `input_ids` of `jax.random.randint(key(seed), (batch,
+    seq_len), 10, vocab)` with IMG_CONTEXT at positions 1 .. the tiles'
+    tokens, `tiles` of `jax.random.normal(key(seed), ...)` in float32 (the
+    same key: JAX draws both from it), `labels` the ids with -100 at
+    IMG_CONTEXT. The ids are equal to JAX's; the tiles within the few ulp
+    of `prng.normal`."""
+    from . import prng
+
+    key = prng.key(seed, device=device)
+    t_img = cfg.tokens_per_tile * n_tiles
+    if seq_len <= t_img + 2:
+        raise ValueError(f"seq_len {seq_len} leaves no text beside "
+                         f"{t_img} image tokens")
+    ids = prng.randint(key, (batch, seq_len), 10, cfg.llm.vocab_size)
+    ids[:, 1:1 + t_img] = cfg.img_context_id
+    size = cfg.vit.image_size
+    tiles = prng.normal(key, (batch, n_tiles, size, size, 3))
+    labels = torch.where(ids == cfg.img_context_id, -100, ids)
+    return {"input_ids": ids, "tiles": tiles, "labels": labels}
+
+
 def fan_in(module: nn.Module, leaf: str, p: torch.Tensor) -> int:
     """The true fan-in of a weight, keyed on its module and name: a
     `Linear` `[out, in]` -> in, a convolution `[O, C, kh, kw]` -> C*kh*kw,
@@ -204,13 +230,18 @@ def tiny_moe_config(num_experts: int = 4, **overrides) -> MLLMConfig:
 
 def bench_1chip_config() -> MLLMConfig:
     """The JAX package's `bench` config: flagship-shaped, ~700M params
-    (GQA 2:1, SwiGLU, hd 128), remat on (whole layers here; the JAX
-    config's selective policy is not ported)."""
+    (GQA 2:1, SwiGLU, hd 128), remat on with the JAX config's selective
+    policy, `dots_and_flash_saveable`: a layer's backward keeps its matrix
+    products and its flash forward's (o, lse), and recomputes only
+    elementwise ops (models/llm.remat_layer). This is the config behind
+    bench.py's `model` block (train tokens/s and MFU)."""
+    pol = "dots_and_flash_saveable"
     vit = ViTConfig(image_size=448, patch_size=14, hidden_size=1024,
-                    num_layers=6, num_heads=16, remat=True)
+                    num_layers=6, num_heads=16, remat=True,
+                    remat_policy=pol)
     llm = LLMConfig(vocab_size=32000, hidden_size=2048, num_layers=8,
                     num_heads=16, num_kv_heads=8, ffn_size=8192,
-                    max_seq_len=4096, remat=True)
+                    max_seq_len=4096, remat=True, remat_policy=pol)
     return MLLMConfig(vit=vit, llm=llm)
 
 
@@ -219,13 +250,16 @@ def bench_1chip_moe_config(num_experts: int = 4, impl: str = "einsum",
     """The JAX package's `bench_1chip_moe_config`: the bench config with
     every decoder MLP swapped for a top-2 routed MoE at the same total
     parameter count (FFN 8192/E per expert), GShard groups of 256 tokens
-    for the einsum impl's training. Remat recomputes whole layers (the
-    JAX config's selective policy for the ragged impl is not ported)."""
+    for the einsum impl's training. The ragged impl keeps the bench
+    config's policy (K8's grouped products are recomputed under it); the
+    einsum impl recomputes whole layers, as in JAX, where saving the
+    dispatch and combine outputs of 8 layers did not fit one chip."""
     base = bench_1chip_config()
+    pol = base.llm.remat_policy if impl == "ragged" else None
     return dataclasses.replace(base, llm=dataclasses.replace(
         base.llm, moe_experts=num_experts,
         ffn_size=base.llm.ffn_size // num_experts, moe_group=256,
-        moe_impl=impl, moe_kernel=kernel))
+        moe_impl=impl, moe_kernel=kernel, remat_policy=pol))
 
 
 def flagship_config() -> MLLMConfig:

@@ -15,7 +15,8 @@ is not. Everything runs on the device of its inputs.
   the 64-bit rule, as JAX does with x64 on; an int32 tensor takes JAX's
   32-bit rule (high word 0, as a batcher's int32 seed slots give), so
   seeds 0 to 2**31 - 1 agree either way.
-* `fold_in`, `split`, `bits` and `uniform` are bit for bit JAX's.
+* `fold_in`, `split`, `bits`, `uniform` and `randint` are bit for bit
+  JAX's.
 * `gumbel` is `-log(-log(u))` of JAX's uniform `u`, computed in float64
   and rounded once to float32: the same on the CPU and the card, and
   within a few float32 ulp of JAX's float32 logs (which are not correctly
@@ -109,6 +110,27 @@ def bits(k: torch.Tensor, shape) -> torch.Tensor:
     or a batch of keys `[..., 2]` (result `k.shape[:-1] + shape`)."""
     y0, y1 = _hash_counts(k, tuple(shape))
     return y0 ^ y1
+
+
+def randint(k: torch.Tensor, shape, minval: int, maxval: int
+            ) -> torch.Tensor:
+    """`jax.random.randint(k, shape, minval, maxval, int32)` (JAX's default
+    dtype with x64 off, as bench.py's model path runs), as int64 values:
+    two 32-bit draws from the two halves of `split(k)`, each reduced
+    modulo the span, combined as JAX combines them (`hi % span *
+    ((2**16 % span)**2 % span) + lo % span` in uint32 arithmetic), and
+    reduced again. Python int bounds with `0 < maxval - minval < 2**31`."""
+    span = maxval - minval
+    if not 0 < span < 2**31:
+        raise ValueError(f"randint: span {span} not supported")
+    halves = split(k)
+    hi, lo = bits(halves[0], shape), bits(halves[1], shape)
+    # JAX squares 2**16 % span in uint32: past a span of 2**16 the square
+    # wraps to 0, and the high draw drops out
+    mult = ((2**16 % span) ** 2 & MASK) % span
+    off = ((hi % span) * mult) & MASK
+    off = (off + lo % span) & MASK
+    return minval + off % span
 
 
 def uniform(k: torch.Tensor, shape, minval: float = 0.0,

@@ -6,7 +6,8 @@ package. Attention goes through the trainable flash op (forward K1,
 backward K2/K3) with the token count (1 + grid^2 = 1025 at 448/14) padded
 to a multiple of 128 and the pads in their own segment, so they are masked
 exactly and the kernels skip their tiles. Weights are cast to the config
-dtype at use (see models/llm.py); `remat` checkpoints each block.
+dtype at use (see models/llm.py); `remat` checkpoints each block, under
+`remat_policy` (models/llm.remat_layer).
 """
 
 from __future__ import annotations
@@ -16,10 +17,9 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import trainable_flash_attention_packed
-from .llm import DTYPES, Linear
+from .llm import DTYPES, Linear, check_remat_policy, remat_layer
 from .quantize import dequantized
 
 
@@ -34,6 +34,7 @@ class ViTConfig:
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
     remat: bool = False  # recompute each block's activations in backward
+    remat_policy: str | None = None  # see LLMConfig.remat_policy
 
     @property
     def num_patches(self) -> int:
@@ -107,6 +108,7 @@ class ViTBlock(nn.Module):
 class VisionTransformer(nn.Module):
     def __init__(self, cfg: ViTConfig, device=None):
         super().__init__()
+        check_remat_policy(cfg)
         self.cfg = cfg
         dtype = DTYPES[cfg.dtype]
         d, p = cfg.hidden_size, cfg.patch_size
@@ -134,6 +136,5 @@ class VisionTransformer(nn.Module):
         x = x + dequantized(self, "pos_embed").to(dtype)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = checkpoint(block, x, use_reentrant=False) if remat \
-                else block(x)
+            x = remat_layer(block, self.cfg, x) if remat else block(x)
         return x

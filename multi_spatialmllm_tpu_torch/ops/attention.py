@@ -9,9 +9,15 @@ fused dk/dv; they replace `_flash_bwd_dq_kernel`/`_flash_bwd_dq_xl_kernel`
 and `_flash_bwd_dkv_kernel`/`_flash_bwd_dkv_xl_kernel`). Each op launches
 its kernels when its tensors lie on a CUDA device and runs its plain
 version when they lie on the CPU. That device is the only switch.
-`trainable_flash_attention` and `trainable_flash_attention_packed` are the
-`torch.autograd.Function` over the pair, as the JAX package's custom-VJP
-functions of the same names are.
+
+`trainable_flash_attention` and `trainable_flash_attention_packed` go
+through `FLASH_FWD_OP`, a `torch.library` custom op whose outputs are
+`(o, lse)` and whose autograd formula is the backward pair, as the JAX
+package's custom-VJP functions of the same names are. Being an op of its
+own, the forward is visible to torch's selective checkpointing (the
+counterpart of JAX's `defvjp(..., optimize_remat=True)`): a remat policy
+can save its outputs, so a rematerialised layer's backward never launches
+the forward kernel again (models/llm.remat_layer).
 """
 
 from __future__ import annotations
@@ -233,33 +239,49 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal, segment_ids=None):
     raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Forward through `flash_attention_fwd`, saving `(q, k, v, o, lse)`;
-    backward through `flash_attention_bwd` (no forward recompute)."""
+@torch.library.custom_op("msmllm_torch::flash_attention_fwd",
+                         mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  segment_ids: torch.Tensor | None,
+                  causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention_fwd(q, k, v, causal, segment_ids)
 
-    @staticmethod
-    def forward(ctx, q, k, v, segment_ids, causal):
-        o, lse = flash_attention_fwd(q, k, v, causal, segment_ids)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.segment_ids, ctx.causal = segment_ids, causal
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
-                                         ctx.segment_ids)
-        return dq, dk, dv, None, None
+@_flash_fwd_op.register_fake
+def _(q, k, v, segment_ids, causal):
+    b, h, s, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, s), dtype=torch.float32)
+
+
+def _flash_setup_context(ctx, inputs, output):
+    q, k, v, segment_ids, causal = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.segment_ids, ctx.causal = segment_ids, causal
+
+
+def _flash_backward(ctx, do, dlse):
+    """The backward pair from the saved `(o, lse)` (no forward recompute);
+    `lse` feeds no loss, so its gradient is not read."""
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
+                                     ctx.segment_ids)
+    return dq, dk, dv, None, None
+
+
+_flash_fwd_op.register_autograd(_flash_backward,
+                                setup_context=_flash_setup_context)
+FLASH_FWD_OP = torch.ops.msmllm_torch.flash_attention_fwd.default
 
 
 def trainable_flash_attention(q, k, v, causal=True):
     """Differentiable flash attention: q `[B, H, S, hd]`, k/v
     `[B, KVH, S, hd]` (GQA native; dk/dv come back at KVH heads)."""
-    return _FlashAttention.apply(q, k, v, None, causal)
+    return _flash_fwd_op(q, k, v, None, causal)[0]
 
 
 def trainable_flash_attention_packed(q, k, v, segment_ids, causal):
     """`trainable_flash_attention` with a block-diagonal segment mask:
     queries see only keys of the same id in `segment_ids` `[B, S]`
     (packed training rows; the ViT's pad segment with `causal=False`)."""
-    return _FlashAttention.apply(q, k, v, segment_ids, causal)
+    return _flash_fwd_op(q, k, v, segment_ids, causal)[0]

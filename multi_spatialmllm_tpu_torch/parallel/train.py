@@ -44,6 +44,7 @@ from typing import Callable
 import torch
 
 from ..models.llm import cross_entropy_sum
+from ..models.mllm import loss_fn
 
 ADAM_EPS = 1e-8             # optax.adamw's default
 MOE_AUX_WEIGHT = 0.01       # the JAX make_train_step's default
@@ -93,9 +94,12 @@ class AdamW:
         clipping."""
         cfg = self.cfg
         norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
-        if not float(norm) < cfg.grad_clip:
-            for g in grads:
-                g.div_(norm).mul_(cfg.grad_clip)
+        # optax's select(norm < clip, g, (g / norm) * clip) on the device,
+        # as g / den * scale in place: den = scale = 1 under the clip (the
+        # same bits as g), no host read of the norm and no temporaries
+        keep = norm < cfg.grad_clip
+        torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
+        torch._foreach_mul_(grads, torch.where(keep, 1.0, cfg.grad_clip))
         lr = learning_rate(cfg, self.count)
         self.count += 1
         bc1 = 1 - cfg.b1 ** self.count
@@ -178,6 +182,35 @@ def make_train_step(model, optimizer: AdamW, accum_steps: int = 1
         return {"loss": nll / denom, "grad_norm": grad_norm}
 
     return step
+
+
+def make_chained_train_step(model, optimizer: AdamW, n_steps: int
+                            ) -> Callable[[dict], torch.Tensor]:
+    """`run(batch) -> losses [n_steps]`: `n_steps` full train steps on one
+    batch (forward, backward, clip and AdamW update of the parameters in
+    place), each step's work `make_train_step`'s with one microbatch: the
+    JAX package's `make_chained_train_step`, the harness behind bench.py's
+    `model` block. As there, the loss is the masked mean cross entropy
+    alone (no MoE load-balance term). The losses stay on the device,
+    stacked, for one fetch by the caller; nothing in the chain reads the
+    device from the host."""
+    params = optimizer.params
+
+    def run(batch: dict) -> torch.Tensor:
+        losses = []
+        for _ in range(n_steps):
+            for p in params:
+                p.grad = None
+            loss = loss_fn(model, batch)
+            loss.backward()
+            optimizer.update([torch.zeros_like(p) if p.grad is None
+                              else p.grad for p in params])
+            losses.append(loss.detach())
+        for p in params:
+            p.grad = None
+        return torch.stack(losses)
+
+    return run
 
 
 def _payload(params, optimizer: AdamW | None, step: int) -> dict:

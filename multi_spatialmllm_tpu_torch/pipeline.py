@@ -18,8 +18,6 @@ The stages run on `device` (the card unless the caller asks otherwise).
 Where pandas or pyarrow is missing, the relations parquet is not written:
 the manifest unit records `"parquet": null` and events.jsonl says why;
 the QA output does not depend on it.
-
-Still to come (ROADMAP.md): the hybrid visibility dtype.
 """
 
 from __future__ import annotations
@@ -35,7 +33,11 @@ from .stages import coverage as cov
 from .stages.frame_relations import build_frame_relations, parquet_unavailable
 from .stages.manifest import Manifest, config_hash
 from .stages.object_visibility import build_object_visibility
-from .stages.visibility import VisibilityIndex, compute_scene_visibility
+from .stages.visibility import (
+    VisibilityIndex,
+    compute_scene_visibility,
+    compute_scene_visibility_hybrid,
+)
 from .utils.logging import StageLogger
 
 
@@ -67,8 +69,10 @@ def _records_fingerprint(scene_records: dict) -> str:
 
 @dataclasses.dataclass
 class PipelineConfig:
-    # "float64" (labels bit-equal to the JAX pipeline's), "float32" (speed
-    # opt-in, ~5% boundary flips) or "hybrid" (not ported yet: raises)
+    # "float64" (labels bit-equal to the JAX pipeline's), "hybrid" (a
+    # float32 device pass and a host float64 fix-up of the borderline
+    # pairs: the float64 labels; the later stages run in float32) or
+    # "float32" (speed opt-in, ~5% boundary flips)
     dtype: str = "float64"
     write_reference_parquet: bool = False
     overlap_min: float = 6.0
@@ -96,10 +100,6 @@ class SpatialEnginePipeline:
     # ------------------------------------------------------------------
 
     def _dtype(self):
-        if self.config.dtype == "hybrid":
-            raise NotImplementedError(
-                "the hybrid visibility dtype is not ported yet (ROADMAP.md, "
-                "queue 1): use float64, which is bit-exact on the card")
         return np.float64 if self.config.dtype == "float64" else np.float32
 
     def visibility(self) -> VisibilityIndex:
@@ -114,10 +114,14 @@ class SpatialEnginePipeline:
             self._vis = VisibilityIndex.load_npz(path)
             log.event("loaded_cached", path=path)
             return self._vis
-        dtype = self._dtype()
         index = VisibilityIndex()
         for scene in self.store:
-            vis = compute_scene_visibility(scene, dtype, device=self.device)
+            if self.config.dtype == "hybrid":
+                vis = compute_scene_visibility_hybrid(scene,
+                                                      device=self.device)
+            else:
+                vis = compute_scene_visibility(scene, self._dtype(),
+                                               device=self.device)
             index.add_scene(scene.scene_id, scene.image_ids, vis)
             log.count("scenes")
         index.save_npz(path)

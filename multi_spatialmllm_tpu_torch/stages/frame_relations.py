@@ -16,8 +16,11 @@ over valid-pose images in sorted id order. The parquet file and its
 the write, as the JAX stage writes them; `parquet_unavailable()` says
 whether this host can.
 
-Not ported yet (ROADMAP.md, queue 1): `project_scenes_pipelined` and the
-scene-parallel multi-device stage.
+`project_scenes_pipelined` runs the hybrid visibility and the relations of
+many scenes as a software pipeline: scene k+1's upload and device work are
+queued before the host finalizes scene k.
+
+Not ported yet (ROADMAP.md): the scene-parallel multi-device stage.
 """
 
 from __future__ import annotations
@@ -30,7 +33,14 @@ import torch
 from ..core import geometry as G
 from ..core.io import WarningSink, write_parquet
 from ..core.scene import Scene
-from .visibility import compute_scene_visibility
+from .visibility import (
+    _fetch_async,
+    _hybrid_dispatch,
+    _hybrid_finalize,
+    _ready,
+    _upload,
+    compute_scene_visibility,
+)
 
 COLUMNS = ("scene_id", "image_id1", "image_id2", "overlap", "distance",
            "yaw", "pitch")
@@ -44,16 +54,52 @@ def _unpack_bits(packed: torch.Tensor, n: int) -> torch.Tensor:
     return bits.reshape(*packed.shape[:-1], -1)[..., :n].to(torch.bool)
 
 
+def _relations_dispatch(packed: np.ndarray, extrinsics: np.ndarray,
+                        image_valid: np.ndarray, n: int, device,
+                        stream=None):
+    """Upload a packed `[..., I, n/8]` visibility block and its poses
+    (through `stream`, see visibility._upload), queue the relations on
+    `device` and their copies to the host; returns what `_relations_fetch`
+    reads."""
+    dev = torch.device(device)
+    packed_d, ext_d, iv_d = _upload([packed, extrinsics, image_valid], dev,
+                                    stream)
+    rel = G.pairwise_frame_relations(_unpack_bits(packed_d, n), ext_d, iv_d)
+    return {k: _fetch_async(v) for k, v in rel.items()}, _ready(dev)
+
+
+def _relations_fetch(pending) -> dict[str, np.ndarray]:
+    """`{relation: [..., I, I]}` of a `_relations_dispatch`, once there."""
+    rel, ready = pending
+    if ready is not None:
+        ready.synchronize()
+    return {k: v.numpy() for k, v in rel.items()}
+
+
 def _relations(packed: np.ndarray, extrinsics: np.ndarray,
                image_valid: np.ndarray, n: int, device):
-    """Upload a packed `[..., I, n/8]` visibility block and its poses, run
-    the relations on `device` and fetch `{relation: [..., I, I]}`."""
-    dev = torch.device(device)
-    vis = _unpack_bits(torch.from_numpy(packed).to(dev), n)
-    rel = G.pairwise_frame_relations(
-        vis, torch.from_numpy(extrinsics).to(dev),
-        torch.from_numpy(image_valid).to(dev))
-    return {k: v.cpu().numpy() for k, v in rel.items()}
+    """Run the relations of a packed visibility block on `device` and
+    fetch `{relation: [..., I, I]}`."""
+    return _relations_fetch(_relations_dispatch(packed, extrinsics,
+                                                image_valid, n, device))
+
+
+def _dispatch_scene_relations(scene: Scene, vis: np.ndarray, dtype, device,
+                              stream=None):
+    """Queue one scene's relations; shared by `compute_scene_relations`
+    and `project_scenes_pipelined`, so the two cannot drift (padding,
+    bit packing)."""
+    ext, _, ivalid = scene.padded_images(dtype)
+    i_pad = ext.shape[0]
+    vis_pad = np.zeros((i_pad, vis.shape[1]), dtype=bool)
+    vis_pad[: vis.shape[0]] = vis
+    return _relations_dispatch(np.packbits(vis_pad, axis=1), ext, ivalid,
+                               vis.shape[1], device, stream)
+
+
+def _scene_relations_fetch(scene: Scene, pending) -> dict[str, np.ndarray]:
+    n = scene.num_images
+    return {k: v[:n, :n] for k, v in _relations_fetch(pending).items()}
 
 
 def compute_scene_relations(
@@ -66,14 +112,48 @@ def compute_scene_relations(
     scene.image_ids), computed on `device`."""
     if vis is None:
         vis = compute_scene_visibility(scene, dtype, device=device)
-    ext, _, ivalid = scene.padded_images(dtype)
-    i_pad = ext.shape[0]
-    vis_pad = np.zeros((i_pad, vis.shape[1]), dtype=bool)
-    vis_pad[: vis.shape[0]] = vis
-    rel = _relations(np.packbits(vis_pad, axis=1), ext, ivalid,
-                     vis.shape[1], device)
-    n = scene.num_images
-    return {k: v[:n, :n] for k, v in rel.items()}
+    return _scene_relations_fetch(
+        scene, _dispatch_scene_relations(scene, vis, dtype, device))
+
+
+def project_scenes_pipelined(scenes: "list[Scene]", dtype=np.float32,
+                             with_relations: bool = True, device="cuda"):
+    """Hybrid visibility and frame relations over many scenes as a
+    software pipeline; yields `(scene, vis, rel)` in input order (`rel`
+    None when `with_relations` is False), equal to the sequential loop of
+    `compute_scene_visibility_hybrid` and `compute_scene_relations`.
+
+    Scene k+1's upload and hybrid chunks are queued before scene k is
+    finalized, so the host's fetch and float64 fix-up of scene k overlap
+    the device's work on scene k+1; a scene's relations are queued after
+    its finalize and fetched one scene later, after the next scene's
+    chunks. On a CUDA device the uploads go through pinned memory on a
+    side stream that the compute stream waits for by an event, and every
+    fetch is a non-blocking copy into pinned memory behind an event, so
+    the host never waits on the stream to queue more. On the CPU the same
+    code runs in sequence."""
+    dev = torch.device(device)
+    stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    hyb_pending = None   # (scene, hybrid handles)
+    rel_pending = None   # (scene, vis, queued relations)
+    for scene in [*scenes, None]:      # None: drain the pipeline
+        dispatched = None if scene is None else (
+            scene, _hybrid_dispatch(scene, device=dev, stream=stream))
+        if hyb_pending is not None:
+            s0, h0 = hyb_pending
+            vis0 = _hybrid_finalize(s0, h0)
+            if not with_relations:
+                yield s0, vis0, None
+            else:
+                if rel_pending is not None:
+                    s1, v1, r1 = rel_pending
+                    yield s1, v1, _scene_relations_fetch(s1, r1)
+                rel_pending = (s0, vis0, _dispatch_scene_relations(
+                    s0, vis0, dtype, dev, stream))
+        hyb_pending = dispatched
+    if rel_pending is not None:
+        s1, v1, r1 = rel_pending
+        yield s1, v1, _scene_relations_fetch(s1, r1)
 
 
 def scene_relation_records(

@@ -6,17 +6,19 @@ device by torch ops (core/geometry.visibility_matrix) and bit-packed there,
 so the host fetch moves one bit a pair; the inverse `point_to_images` map
 is its transpose. float64 gives labels bit-equal to the JAX stage (CUDA's
 f64 arithmetic is IEEE, and the ops never contract into FMAs); float32 is
-a speed option, as in the JAX package.
+a speed option, as in the JAX package. The hybrid
+(`compute_scene_visibility_hybrid`) runs a true-float32 pass with a
+conservative borderline mask on the device and recomputes the flagged
+pairs on the host in numpy float64, the reference's own arithmetic: its
+labels equal the float64 stage's.
 
-Not ported yet (ROADMAP.md, queue 1): the hybrid f32 pass with its host
-f64 fix-up (`compute_scene_visibility_hybrid`), which exists for the TPU's
-emulated f64, and the scene-parallel multi-device stage.
+Not ported yet (ROADMAP.md): the scene-parallel multi-device stage.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Callable, Iterable
+from typing import Callable, Iterable, NamedTuple
 
 import numpy as np
 import torch
@@ -24,6 +26,7 @@ import torch
 from ..core import geometry as G
 from ..core.io import WarningSink, write_parquet
 from ..core.scene import Scene
+from ..core.synthetic import np_project_points
 
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
 
@@ -124,6 +127,162 @@ def compute_scene_visibility(
     rows = [p.cpu().numpy() for p in packed]
     vis = _unpackbits(np.concatenate(rows), n_pad)
     return vis[: scene.num_images, : scene.num_points]
+
+
+# The hybrid pass's peak device bytes per padded pair (the float32 pass,
+# the borderline mask, both packings and the scene's upload), measured as
+# the float32 and float64 ones were: 40.1 over the real-scale scene in one
+# dispatch on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 21, PERF.md).
+# The budget is the same 32 GB of intermediates, 32e9 / 40.1 = 798M pairs,
+# and a scene dispatches in chunks of half of it, so the host fix-up of
+# one chunk overlaps the next chunk's upload and compute.
+_HYBRID_BYTES_PER_PAIR = 40.1
+_PAIR_BUDGET_HYBRID = 798_000_000
+
+
+def _fetch_async(t: torch.Tensor) -> torch.Tensor:
+    """Start the copy of `t` to the host: into pinned memory, not waiting,
+    for a CUDA tensor (read it once `_ready` says the stream got there);
+    a CPU tensor is its own copy."""
+    if not t.is_cuda:
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
+def _ready(device: torch.device):
+    """An event recorded on the current stream of a CUDA `device` (None on
+    the CPU): what the host waits for before it reads `_fetch_async`'s
+    copies made so far."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record()
+    return ev
+
+
+def _upload(arrays, device: torch.device, stream=None) -> list:
+    """Host arrays to `device`. On a CUDA device with a side `stream`, each
+    array goes through pinned memory and is copied on that stream without
+    blocking the host; the current stream then waits for the copies (an
+    event), and each tensor is marked as used there, so the allocator
+    keeps its block until that stream is done with it."""
+    if device.type != "cuda" or stream is None:
+        return [torch.from_numpy(a).to(device) for a in arrays]
+    main = torch.cuda.current_stream(device)
+    out = []
+    with torch.cuda.stream(stream):
+        for a in arrays:
+            src = torch.from_numpy(np.ascontiguousarray(a))
+            host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            host.copy_(src)
+            t = torch.empty(src.shape, dtype=src.dtype, device=device)
+            t.copy_(host, non_blocking=True)
+            out.append(t)
+    main.wait_stream(stream)
+    for t in out:
+        t.record_stream(main)
+    return out
+
+
+class HybridHandles(NamedTuple):
+    """One scene's dispatched hybrid chunks: each chunk's packed `vis` and
+    `near` bits on their way to the host (`chunk` images and `n_pad`
+    points each), and the event after the last (None on the CPU)."""
+    chunks: list
+    chunk: int
+    n_pad: int
+    ready: object
+
+
+def _hybrid_dispatch(scene: Scene, image_chunk: int | None = None,
+                     device="cuda", stream=None) -> HybridHandles:
+    """Upload the scene and queue every hybrid chunk, and each chunk's
+    fetch, on `device` without waiting for any: the caller can start the
+    next scene, or the host fix-up of an earlier chunk, while these run.
+    Chunks hold half the hybrid pair budget's pairs unless `image_chunk`
+    is given. `stream`: a side CUDA stream for the uploads (see
+    `_upload`)."""
+    dev = torch.device(device)
+    pts, pvalid = scene.padded_points(np.float32)
+    ext, depth, ivalid = scene.padded_images(np.float32)
+    i_pad, n_pad = ext.shape[0], pts.shape[0]
+    budget = _PAIR_BUDGET_HYBRID // 2
+    if image_chunk is None and i_pad * n_pad > budget:
+        image_chunk = max(8, (budget // n_pad) // 8 * 8)
+    chunk = image_chunk if image_chunk and image_chunk < i_pad else i_pad
+    tot = -(-i_pad // chunk) * chunk
+    if tot > i_pad:  # pad the image axis up to a chunk multiple
+        ext = np.concatenate(
+            [ext, np.tile(np.eye(4, dtype=ext.dtype), (tot - i_pad, 1, 1))])
+        depth = np.concatenate(
+            [depth, np.zeros((tot - i_pad,) + depth.shape[1:],
+                             dtype=depth.dtype)])
+        ivalid = np.concatenate([ivalid, np.zeros(tot - i_pad, dtype=bool)])
+    pts_d, K_d, pv_d, ext_d, depth_d, iv_d = _upload(
+        [pts, scene.intrinsic.astype(np.float32), pvalid, ext,
+         depth.astype(np.int32), ivalid], dev, stream)
+    chunks = []
+    for lo in range(0, tot, chunk):
+        vis, near = G.visibility_and_borderline(
+            pts_d, K_d, ext_d[lo: lo + chunk], depth_d[lo: lo + chunk],
+            scene.image_hw, iv_d[lo: lo + chunk], pv_d)
+        chunks.append((_fetch_async(_packbits(vis)),
+                       _fetch_async(_packbits(near))))
+        del vis, near
+    return HybridHandles(chunks, chunk, n_pad, _ready(dev))
+
+
+def _hybrid_finalize(scene: Scene, handles: HybridHandles) -> np.ndarray:
+    """Wait for the fetched chunks and recompute the flagged pairs exactly:
+    numpy float64 on the host, the reference's arithmetic (the JAX
+    stage's fix-up line for line)."""
+    if handles.ready is not None:
+        handles.ready.synchronize()
+    n_pad = handles.n_pad
+    h, w = scene.image_hw
+    hd, wd = scene.depth_hw
+    vis_rows = []
+    for ci, (v, nr) in enumerate(handles.chunks):
+        base = ci * handles.chunk
+        n_rows = min(handles.chunk, scene.num_images - base)
+        if n_rows <= 0:
+            break
+        vis_c = _unpackbits(v.numpy(), n_pad)[:n_rows, : scene.num_points]
+        near_c = _unpackbits(nr.numpy(), n_pad)[:n_rows, : scene.num_points]
+        # exact f64 host fix-up of the flagged bits, grouped per image
+        for r in np.where(near_c.any(axis=1))[0]:
+            i = base + int(r)
+            cols = np.where(near_c[r])[0]
+            E = scene.extrinsic_align(i)
+            xy, d = np_project_points(
+                scene.points_aligned[cols, :3], scene.intrinsic, E)
+            x, y = xy[:, 0], xy[:, 1]
+            inb = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+            # x * (wd/w) order matters at exact .5 boundaries (see
+            # engines/depth_perception._project_many)
+            sx, sy = wd / w, hd / h
+            dxi = np.clip(np.round(x * sx), 0, wd - 1).astype(np.int64)
+            dyi = np.clip(np.round(y * sy), 0, hd - 1).astype(np.int64)
+            dv = scene.depth_maps[i][dyi, dxi] * 0.001
+            vis_c[r, cols] = inb & (d > 0) & (d < dv)
+        vis_rows.append(vis_c)
+    return np.concatenate(vis_rows)
+
+
+def compute_scene_visibility_hybrid(scene: Scene,
+                                    image_chunk: int | None = None,
+                                    device="cuda") -> np.ndarray:
+    """Dense `[num_images, num_points]` bool visibility with the float64
+    stage's labels from a float32 pass: `visibility_and_borderline` on
+    `device` (core/geometry.py), then the flagged pairs (within float32
+    rounding distance of a comparison boundary, ~2%) recomputed on the
+    host in numpy float64, chunk by chunk as the chunks arrive. Equal to
+    `compute_scene_visibility(scene, np.float64)` and to the numpy oracle
+    bit for bit."""
+    return _hybrid_finalize(scene, _hybrid_dispatch(scene, image_chunk,
+                                                    device))
 
 
 def compute_visibility_batch(

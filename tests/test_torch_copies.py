@@ -73,6 +73,13 @@ EDITED = {
         (79, 79),    # scene_from_sens: the frame size from the first
         (87, 89),    # JPEG's headers (IMREAD_COLOR's size), no decode
     ],
+    "utils/flops.py": [
+        (13, 17),    # the module docstring names the port's train step
+                     # (and no reference path)
+        (26, 44),    # PEAK_BF16 holds the H100's dense bf16 peak keyed by
+                     # torch.cuda.get_device_name; device_peak_flops takes
+                     # a torch device (None for the CPU or an unknown card)
+    ],
     "utils/profiling.py": [
         (4, 5),      # the module docstring names torch.profiler
         (45, 55),    # device_trace: a torch.profiler trace (CPU and CUDA

@@ -39,6 +39,7 @@ PORT_MODULES = [
     "multi_spatialmllm_tpu_torch",
     "multi_spatialmllm_tpu_torch.__main__",
     "multi_spatialmllm_tpu_torch.core",
+    "multi_spatialmllm_tpu_torch.core.boxes",
     "multi_spatialmllm_tpu_torch.core.geometry",
     "multi_spatialmllm_tpu_torch.core.io",
     "multi_spatialmllm_tpu_torch.core.rng",
@@ -77,6 +78,7 @@ PORT_MODULES = [
     "multi_spatialmllm_tpu_torch.stages.manifest",
     "multi_spatialmllm_tpu_torch.stages.object_visibility",
     "multi_spatialmllm_tpu_torch.stages.visibility",
+    "multi_spatialmllm_tpu_torch.utils.flops",
     "multi_spatialmllm_tpu_torch.utils.logging",
     "multi_spatialmllm_tpu_torch.utils.profiling",
     "multi_spatialmllm_tpu_torch.ops._build",

@@ -169,11 +169,63 @@ def test_resume_without_rerunning_a_unit(runs):
     assert len(_manifest(root)) == len(lines) + 1
 
 
-def test_hybrid_dtype_raises(runs, tmp_path):
-    pipe = TPipe(TStore(runs["store"]), str(tmp_path),
-                 TConfig(dtype="hybrid"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pipe.visibility()
+def test_hybrid_visibility_equals_jax(runs, tmp_path):
+    """`PipelineConfig(dtype="hybrid")` runs the hybrid stage: its
+    visibility index is the JAX hybrid pipeline's file byte for byte and
+    holds the float64 run's matrices, and its manifest line (the config
+    hash included) is the JAX pipeline's."""
+    from multi_spatialmllm_tpu_torch.stages.visibility import VisibilityIndex
+
+    jroot, troot = str(tmp_path / "jax"), str(tmp_path / "port")
+    JPipe(JStore(runs["store"]), jroot, JConfig(dtype="hybrid")).visibility()
+    got = TPipe(TStore(runs["store"]), troot, TConfig(dtype="hybrid"),
+                device="cpu").visibility()
+    f64 = VisibilityIndex.load_npz(
+        os.path.join(runs["troot"], "indices", "visibility.npz"))
+    assert got.scene_ids() == f64.scene_ids()
+    for sid in f64.scene_ids():
+        np.testing.assert_array_equal(got.matrix(sid), f64.matrix(sid))
+    path = os.path.join("indices", "visibility.npz")
+    with open(os.path.join(troot, path), "rb") as f, \
+            open(os.path.join(jroot, path), "rb") as g:
+        assert f.read() == g.read()
+    assert _manifest(troot) == _manifest(jroot)
+
+
+def test_hybrid_run_all_equals_jax(runs, tmp_path):
+    """The whole `run_all` under `dtype="hybrid"` (visibility from the
+    hybrid stage, the later stages in float32) writes the JAX hybrid
+    pipeline's files: the qa/ tree, the index pickles and visibility.npz
+    byte-equal, the relation columns equal (pitch within its float32 ulp
+    limit), the manifests equal."""
+    jroot, troot = str(tmp_path / "jax"), str(tmp_path / "port")
+    jres = JPipe(JStore(runs["store"]), jroot,
+                 JConfig(dtype="hybrid", **DEMO)).run_all()
+    tres = TPipe(TStore(runs["store"]), troot,
+                 TConfig(dtype="hybrid", **DEMO), device="cpu").run_all()
+    assert _counts(tres) == _counts(jres)
+    tree = _assert_trees_equal(os.path.join(troot, "qa"),
+                               os.path.join(jroot, "qa"))
+    assert sum(rel.endswith(".jpg") for rel in tree) > 100
+    for name in ("visibility.npz", "object_visibility.pkl",
+                 "coverage_height.pkl", "coverage_length.pkl",
+                 "coverage_width.pkl"):
+        with open(os.path.join(troot, "indices", name), "rb") as f, \
+                open(os.path.join(jroot, "indices", name), "rb") as g:
+            assert f.read() == g.read(), name
+    rel = os.path.join("indices", "frame_relations.parquet")
+    t = pd.read_parquet(os.path.join(troot, rel))
+    j = pd.read_parquet(os.path.join(jroot, rel))
+    assert dict(t.dtypes) == dict(j.dtypes) and len(t) == len(j) > 0
+    assert t["yaw"].dtype == np.float32
+    for c in ("scene_id", "image_id1", "image_id2", "overlap", "distance",
+              "yaw"):
+        np.testing.assert_array_equal(np.asarray(t[c]), np.asarray(j[c]),
+                                      err_msg=c)
+    np.testing.assert_allclose(
+        np.asarray(t["pitch"]), np.asarray(j["pitch"]), rtol=0,
+        atol=2 * PITCH_ULP * np.spacing(np.float32(90.0)))
+    assert _manifest(troot) == _manifest(jroot)
 
 
 def test_no_parquet_writer_recorded_not_pretended(runs, tmp_path,
