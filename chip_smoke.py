@@ -271,6 +271,33 @@ result line):
    for MOE_BENCH_STEPS steps under its policy: launches a step and peak
    GiB.
 
+23. The data axis (torch.distributed; no kernel of its own on the stages,
+   K1/K2/K3 and K8 on the train steps): (a) the four scene-parallel
+   stages (`compute_visibility_multichip`, `compute_relations_multichip`,
+   `object_visibility_multichip`, `coverage_intervals_multichip` through
+   `build_object_coverage(mesh=...)`) on the bench corpus (40 scenes of 96
+   images) and the real-scale scene, in this process over NCCL at world
+   size 1 (the launcher's environment set as `python -m
+   torch.distributed.run --nproc-per-node 1` sets it) and in two gloo
+   processes sharing the card (`dryrun.run_world`): every scene's results
+   byte-equal to the single-device stages' in this phase (per-scene
+   SHA-256 of each stage's output), the real-scale labels equal to the
+   JAX CPU float64 digest of phase 21; seconds a scene for each world and
+   the exchange's seconds. (b) `train --data-parallel 1` in this process
+   under that group, at phase 9's configuration (flagship widths, 8 of 32
+   LLM layers, packed 4096-token rows, 2 microbatches) for DP_STEPS steps:
+   every loss within DP_LOSS_REL of the same command without a group
+   (the difference printed), K1/K2/K3 launched; then the bench MoE
+   (`--moe-experts 4 --moe-impl ragged --moe-kernel pallas`), whose
+   load-balance statistic is all-reduced over the group, the same way:
+   DP_STEPS steps within DP_LOSS_REL of the command without a group,
+   K1/K2/K3 and gmm/gmm_t/tgmm launched. (c) `scripts/torch_volume_drill.py --scale smoke` on the
+   card: killed after 8 units, resumed, no unit run again, and every file
+   equal to the CPU campaign's stored digests
+   (scripts/_torch_volume_drill_golden.json, made by
+   scripts/gen_drill_golden.py; the relation parquets by their columns,
+   distance and angles within phase 15's card-vs-CPU ulp limits).
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -309,7 +336,7 @@ MOE_MAX_TILES, MOE_TILES_PER_IMAGE = 14, 6
 MOE_TRAIN_LAUNCHES = {"flash_fwd": 28, "flash_bwd_dq": 28,
                       "flash_bwd_dkv": 28, "gmm": 96, "gmm_t": 48,
                       "tgmm": 48}
-N_PHASES = 22
+N_PHASES = 23
 # phase 20: LoRA rank 16 on the default targets (wq, wk, wv, wo of the
 # flagship's 32 layers: (131,072 + 81,920 + 81,920 + 131,072) a layer)
 LORA_RANK = 16
@@ -4714,6 +4741,377 @@ def phase_bench_train(torch, M, T, A, G, card):
             "tiny": tiny}
 
 
+# phase 23: the data axis
+DP_STEPS = 3             # the third step's loss follows an update
+DP_LOSS_REL = 1e-6       # world 1 against the same run without a group
+STAGE_PDB = 4            # the scene-parallel stages' per_device_batch
+
+
+def phase23_scenes(make_scene, n_corpus, real):
+    """The bench corpus (`n_corpus` scenes) and, last, the real-scale
+    scene (`real`, make_scene's arguments)."""
+    return ([corpus_scene(make_scene, i) for i in range(n_corpus)]
+            + [make_scene(**real)])
+
+
+@contextlib.contextmanager
+def timed_exchange(seconds):
+    """Within the block every scene-parallel stage's exchange appends its
+    seconds to `seconds`."""
+    from multi_spatialmllm_tpu_torch.stages import frame_relations, visibility
+
+    mods = (visibility, frame_relations)
+    inner = visibility.exchange
+
+    def wrapped(payload, group):
+        t0 = time.perf_counter()
+        out = inner(payload, group)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    for m in mods:
+        m.exchange = wrapped
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.exchange = inner
+
+
+def stage_digests(scenes, mesh, device, real_id=REAL_SCENE["scene_id"]):
+    """The four data-engine stages over `scenes` on `device`: scene-
+    parallel over `mesh`'s data axis, or the single-device stages when
+    `mesh` is None. Returns ({scene_id: SHA-256 of its visibility,
+    relations, object visibility, coverage intervals and coverage search},
+    seconds by stage, the real-scale scene's packed-label digest)."""
+    import hashlib
+
+    import numpy as np
+
+    from multi_spatialmllm_tpu_torch.stages import coverage as COV
+    from multi_spatialmllm_tpu_torch.stages import frame_relations as FR
+    from multi_spatialmllm_tpu_torch.stages import object_visibility as OV
+    from multi_spatialmllm_tpu_torch.stages import visibility as V
+
+    import torch
+
+    gen, _ = visibility_golden()
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    kw = dict(per_device_batch=STAGE_PDB, device=device)
+    if mesh is None:
+        vis = timed("visibility", lambda: {
+            s.scene_id: V.compute_scene_visibility(s, device=device)
+            for s in scenes})
+        rel = timed("relations", lambda: {
+            s.scene_id: FR.compute_scene_relations(
+                s, vis=vis[s.scene_id], device=device) for s in scenes})
+        ovis = timed("object_visibility", lambda: OV.build_object_visibility(
+            scenes, visibility=vis, device=device))
+        intervals = timed("coverage_intervals", lambda: {
+            s.scene_id: COV.object_coverage_intervals(
+                s, vis[s.scene_id], device=device) for s in scenes})
+        cov = timed("coverage", lambda: COV.build_object_coverage(
+            scenes, ovis, visibility=vis, device=device))
+    else:
+        vis = timed("visibility", lambda: V.compute_visibility_multichip(
+            scenes, mesh, **kw))
+        rel = timed("relations", lambda: FR.compute_relations_multichip(
+            scenes, mesh, vis, **kw))
+        ovis = timed("object_visibility",
+                     lambda: OV.object_visibility_multichip(
+                         scenes, mesh, vis, **kw))
+        intervals = timed("coverage_intervals",
+                          lambda: COV.coverage_intervals_multichip(
+                              scenes, mesh, vis, **kw))
+        cov = timed("coverage", lambda: COV.build_object_coverage(
+            scenes, ovis, visibility=vis, device=device, mesh=mesh))
+    def feed(h, obj):
+        # values, types and order; not object identity, which a pickle's
+        # memo would record (an exchanged array holds its own dtype)
+        if isinstance(obj, np.ndarray):
+            h.update(f"array {obj.dtype} {obj.shape}:".encode())
+            h.update(np.ascontiguousarray(obj).tobytes())
+        elif isinstance(obj, dict):
+            h.update(f"dict {len(obj)}:".encode())
+            for k, v in obj.items():
+                feed(h, k)
+                feed(h, v)
+        elif isinstance(obj, (list, tuple)):
+            h.update(f"{type(obj).__name__} {len(obj)}:".encode())
+            for v in obj:
+                feed(h, v)
+        else:
+            h.update(f"{type(obj).__name__} {obj!r};".encode())
+
+    digests = {}
+    for s in scenes:
+        sid = s.scene_id
+        h = hashlib.sha256()
+        feed(h, (vis[sid], sorted(rel[sid].items()), ovis[sid],
+                 intervals[sid], tuple(c[sid] for c in cov)))
+        digests[sid] = h.hexdigest()
+    real = gen.packed_digest(vis[real_id])
+    return digests, secs, real
+
+
+def stage_world(device, n_corpus, real):
+    """One process of the gloo world of phase 23 (a): the scene-parallel
+    stages over the world's mesh on `device` (`phase23_scenes`'
+    arguments); per-scene digests, seconds by stage, the exchanges'
+    seconds."""
+    from multi_spatialmllm_tpu_torch.core.synthetic import make_scene
+    from multi_spatialmllm_tpu_torch.parallel.mesh import make_mesh
+
+    scenes = phase23_scenes(make_scene, n_corpus, real)
+    mesh = make_mesh()
+    seconds = []
+    with timed_exchange(seconds):
+        digests, secs, real = stage_digests(scenes, mesh, device)
+    return dict(digests=digests, secs=secs, real=real,
+                exchange_s=sum(seconds), exchanges=len(seconds))
+
+
+@contextlib.contextmanager
+def flagship_cut_to(M, layers):
+    """The CLI's `flagship` config with its LLM cut to `layers` layers."""
+    import dataclasses
+
+    full = M.CONFIGS["flagship"]
+    M.CONFIGS["flagship"] = lambda: dataclasses.replace(
+        full(), llm=dataclasses.replace(full().llm, num_layers=layers))
+    try:
+        yield
+    finally:
+        M.CONFIGS["flagship"] = full
+
+
+@contextlib.contextmanager
+def launcher_env(port):
+    """The environment `python -m torch.distributed.run --nproc-per-node
+    1` gives its one worker."""
+    env = dict(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+               MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def check_stage_world(name, got, want, want_real, golden_real, n):
+    bad = [sid for sid, d in want.items() if got["digests"].get(sid) != d]
+    if bad or set(got["digests"]) != set(want):
+        fail(f"{name}: scene-parallel results differ from the "
+             f"single-device stages' for {bad[:5]} ({len(bad)} scenes)")
+    if got["real"] != want_real or got["real"] != golden_real:
+        fail(f"{name}: real-scale labels {got['real']} are not the JAX "
+             f"CPU float64 digest {golden_real}")
+    total = sum(got["secs"].values())
+    log(f"  {name}: {n} scenes byte-equal to the single-device stages, "
+        f"real-scale labels = the JAX digest; "
+        f"{ {k: round(v, 3) for k, v in got['secs'].items()} } s, "
+        f"{total / n:.4f} s a scene; {got['exchanges']} exchanges "
+        f"{got['exchange_s']:.3f} s")
+    return {"secs": got["secs"], "s_per_scene": total / n,
+            "exchange_s": got["exchange_s"], "exchanges": got["exchanges"]}
+
+
+def dp_train_argv(meta, moe):
+    """The train CLI's flags for phase 23 (b): phase 9's configuration
+    (flagship widths, the CLI's flagship cut by `flagship_cut_to`), or
+    phase 13's bench MoE."""
+    common = ["--meta", meta, "--packed", "--seq-len", "4096",
+              "--batch-size", "2", "--accum", "2", "--log-every", "1",
+              "--seed", str(SEED), "--device", "cuda"]
+    if moe:
+        return [*common, "--config", "bench", "--moe-experts", "4",
+                "--moe-impl", "ragged", "--moe-kernel", "pallas", "--steps",
+                str(DP_STEPS), "--max-tiles", str(MOE_MAX_TILES),
+                "--tiles-per-image", str(MOE_TILES_PER_IMAGE)]
+    return [*common, "--config", "flagship", "--steps", str(DP_STEPS),
+            "--max-tiles", "6", "--tiles-per-image", "6"]
+
+
+def dp_train(torch, cli, M, argv, kernels, label):
+    """`train` through the CLI in this process (a group, when the caller
+    holds one, is the data axis); every loss finite and every kernel of
+    `kernels` launched. Returns (summary, launches, history)."""
+    import gc
+
+    t0 = time.perf_counter()
+    with flagship_cut_to(M, TRAIN_LAYERS):
+        summary, _, seen, _ = train_cli(torch, cli, argv, kernels)
+    wall = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    history, launches = seen["history"], seen["launches"]
+    losses = [h["loss"] for h in history]
+    log(f"  {label}: {summary} in {wall:.1f} s; losses {losses}; step "
+        f"seconds {[round(h['step_s'], 4) for h in history]}; peak "
+        f"{seen['peak']:.3f} GiB; launches {launches}; "
+        f"{card_name_and_power_limit()}")
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        fail(f"{label}: a loss is not finite: {losses}")
+    if min(launches.values()) <= 0:
+        fail(f"{label}: a kernel never launched: {launches}")
+    return summary, launches, history
+
+
+def phase_data_axis(torch, cli, M, card, kernels, moe_kernels):
+    """Phase 23: the scene-parallel stages at world 1 (NCCL, this
+    process) and 2 (gloo, two processes), data-parallel training through
+    the CLI at world 1, and the drill at smoke scale."""
+    import importlib.util
+    import tempfile
+
+    import torch.distributed as dist
+
+    from multi_spatialmllm_tpu_torch.core.synthetic import make_scene
+    from multi_spatialmllm_tpu_torch.dryrun import free_port, run_world
+    from multi_spatialmllm_tpu_torch.parallel.distributed import (
+        initialize_multihost,
+    )
+    from multi_spatialmllm_tpu_torch.parallel.mesh import make_mesh
+
+    _, golden = visibility_golden()
+    golden_real = golden["float64_packed_sha256"]
+    t0 = time.perf_counter()
+    scenes = phase23_scenes(make_scene, N_CORPUS, REAL_SCENE)
+    n = len(scenes)
+    log(f"  {n} scenes (the bench corpus and the real-scale scene) made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    want, single_secs, want_real = stage_digests(scenes, None, "cuda")
+    if want_real != golden_real:
+        fail(f"single-device real-scale labels {want_real} are not the JAX "
+             f"CPU float64 digest {golden_real}")
+    single_total = sum(single_secs.values())
+    log(f"  single-device stages: "
+        f"{ {k: round(v, 3) for k, v in single_secs.items()} } s, "
+        f"{single_total / n:.4f} s a scene; {card}")
+    out = {"single": {"secs": single_secs, "s_per_scene": single_total / n}}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        meta = write_repeat_mixture(os.path.join(tmp, "dense"), 64)
+        ref, _, ref_hist = dp_train(torch, cli, M, dp_train_argv(meta, False),
+                                    kernels, "train, no group")
+        moe_ref, _, moe_ref_hist = dp_train(
+            torch, cli, M, dp_train_argv(meta, True), kernels + moe_kernels,
+            "bench MoE train, no group")
+        with launcher_env(free_port()):
+            initialize_multihost(device="cuda")
+            try:
+                if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+                    fail(f"world 1: backend {dist.get_backend()}, size "
+                         f"{dist.get_world_size()}")
+                mesh = make_mesh()
+                seconds = []
+                with timed_exchange(seconds):
+                    digests, secs, real = stage_digests(scenes, mesh, "cuda")
+                out["world1"] = check_stage_world(
+                    "scene-parallel, world 1 (NCCL)",
+                    dict(digests=digests, secs=secs, real=real,
+                         exchange_s=sum(seconds), exchanges=len(seconds)),
+                    want, want_real, golden_real, n)
+                dp, dp_launches, dp_hist = dp_train(
+                    torch, cli, M,
+                    [*dp_train_argv(meta, False), "--data-parallel", "1"],
+                    kernels, "train --data-parallel 1 (NCCL)")
+                moe, moe_launches, moe_hist = dp_train(
+                    torch, cli, M,
+                    [*dp_train_argv(meta, True), "--data-parallel", "1"],
+                    kernels + moe_kernels,
+                    "bench MoE train --data-parallel 1 (NCCL)")
+            finally:
+                dist.destroy_process_group()
+    loss_diffs = {}
+    for label, run, hist, ref_h in (
+            ("train", dp, dp_hist, ref_hist),
+            ("bench MoE train", moe, moe_hist, moe_ref_hist)):
+        if run["mesh"] != {"data": 1, "model": 1} or run["devices"] != 1:
+            fail(f"{label} --data-parallel 1: mesh {run['mesh']}, devices "
+                 f"{run['devices']}")
+        diffs = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                 for a, b in zip(hist, ref_h)]
+        log(f"  {label} --data-parallel 1 against no group: losses "
+            f"{[h['loss'] for h in hist]} vs {[h['loss'] for h in ref_h]}, "
+            f"relative differences {diffs} (limit {DP_LOSS_REL:g}); "
+            f"summary mesh {run['mesh']}, devices {run['devices']}")
+        if len(diffs) != DP_STEPS or max(diffs) > DP_LOSS_REL:
+            fail(f"{label} --data-parallel 1: losses {diffs} relative from "
+                 f"the run without a group")
+        if ref_h[-1]["loss"] == ref_h[0]["loss"]:
+            fail(f"{label}: the last loss equals the first, so no update "
+                 f"was seen: {[h['loss'] for h in ref_h]}")
+        loss_diffs[label] = diffs
+    out.update(dp_launches=dp_launches, moe_launches=moe_launches,
+               loss_diffs=loss_diffs, dp_summary=dp, ref_summary=ref,
+               moe_summary=moe, moe_ref_summary=moe_ref)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_world(2, "chip_smoke:stage_world",
+                      ("cuda", N_CORPUS, REAL_SCENE), device="cpu",
+                      timeout=600)
+    wall = time.perf_counter() - t0
+    got = max(ranks, key=lambda r: sum(r["secs"].values()))
+    for r, res in enumerate(ranks):
+        if res["digests"] != ranks[0]["digests"]:
+            fail(f"world 2: rank {r}'s results differ from rank 0's")
+    out["world2"] = check_stage_world(
+        "scene-parallel, world 2 (gloo, two processes on the card)", got,
+        want, want_real, golden_real, n)
+    out["world2"]["wall_s"] = wall
+    log(f"  world 2: the two processes started, ran and ended in "
+        f"{wall:.1f} s; {card}")
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "gen_drill_golden.py")
+    spec = importlib.util.spec_from_file_location("gen_drill_golden", path)
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "drill")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, gen.DRILL, "--scale", "smoke", "--root", root],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"the drill failed: {proc.stdout[-2000:]}"
+                 f"{proc.stderr[-2000:]}")
+        with open(os.path.join(root, "torch_volume_drill.json")) as f:
+            report = json.load(f)
+        diff = gen.differences(gen.summary(root), gen.load())
+    brief = {k: v for k, v in report.items()
+             if k not in ("per_engine", "units_at_kill", "digests")}
+    log(f"  drill at smoke scale on the card in "
+        f"{time.perf_counter() - t0:.1f} s: {brief}")
+    if not report["killed_mid_run"] or report["units_rerun"]:
+        fail(f"the drill: killed {report['killed_mid_run']}, re-run "
+             f"{report['rerun']}")
+    if diff:
+        fail(f"the drill's files differ from the CPU campaign's: "
+             f"{diff[:10]} ({len(diff)})")
+    log(f"  drill: {len(report['digests'])} files equal to the CPU "
+        f"campaign's stored digests (the relation parquets by column, "
+        f"distance and angles within phase 15's ulp limits); {card}")
+    out["drill"] = brief
+    return out
+
+
 def kernel_entry(name, source, replaces, launches_by_path, err, timing,
                  library_ms):
     """One entry of the `kernels` line: `timing` is (ms, plain ms,
@@ -4939,6 +5337,18 @@ def main(argv=None):
         t0 = time.perf_counter()
         res["bench_train"] = phase_bench_train(torch, M, T, A, G, card)
         log(f"  phase 22 took {time.perf_counter() - t0:.1f} s; {card}")
+        torch.cuda.empty_cache()
+    if 23 in phases:
+        head(23, "the data axis: the scene-parallel stages at world 1 "
+                 "(NCCL) and 2 (gloo), train --data-parallel 1 against the "
+                 "run without a group, the bench MoE, the drill at smoke "
+                 "scale against the CPU's digests")
+        t0 = time.perf_counter()
+        res["data_axis"] = phase_data_axis(
+            torch, cli, M, card,
+            [A.FLASH_FWD, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV],
+            [G.GMM, G.GMM_T, G.TGMM])
+        log(f"  phase 23 took {time.perf_counter() - t0:.1f} s; {card}")
     log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     if phases != set(range(3, N_PHASES + 1)):
@@ -4963,12 +5373,15 @@ def main(argv=None):
     bench = res["bench_train"]["runs"]["dots_and_flash_saveable"]["launches"]
     bench_moe = res["bench_train"]["moe"]["launches"]
     bench_errs = res["bench_train"]["flash_errs"]
+    dp_train = res["data_axis"]["dp_launches"]
+    dp_moe_train = res["data_axis"]["moe_launches"]
     flash = dict(serve=res["serve"], train=train, moe_serve=moe_serve,
                  moe_train=moe_train, frames_serve=frames,
                  eval_paged=ev["eval_paged"], eval_batched=ev["eval_batched"],
                  moe_eval=ev["moe_eval"], lora_serve=lo["serve"],
                  lora_train=lo["train"], moe_lora_train=lo["moe_train"],
-                 bench_train=bench, bench_moe_train=bench_moe)
+                 bench_train=bench, bench_moe_train=bench_moe,
+                 dp_train=dp_train, dp_moe_train=dp_moe_train)
     kernels = [
         kernel_entry("flash_fwd", "flash_fwd.cu",
                      f"{jax_attn}:92 (K1); :483 (K4, streaming)",
@@ -4981,7 +5394,8 @@ def main(argv=None):
                      by_path("flash_bwd_dq", train=train,
                              moe_train=moe_train, lora_train=lo["train"],
                              moe_lora_train=lo["moe_train"],
-                             bench_train=bench, bench_moe_train=bench_moe),
+                             bench_train=bench, bench_moe_train=bench_moe,
+                             dp_train=dp_train, dp_moe_train=dp_moe_train),
                      max(err_dq, bench_errs["dq"]),
                      (tr["dq"][0], tr["plain"], tr["dq"][1]), tr["lib_bwd"]),
         kernel_entry("flash_bwd_dkv", "flash_bwd.cu",
@@ -4989,7 +5403,8 @@ def main(argv=None):
                      by_path("flash_bwd_dkv", train=train,
                              moe_train=moe_train, lora_train=lo["train"],
                              moe_lora_train=lo["moe_train"],
-                             bench_train=bench, bench_moe_train=bench_moe),
+                             bench_train=bench, bench_moe_train=bench_moe,
+                             dp_train=dp_train, dp_moe_train=dp_moe_train),
                      max(err_dkv, bench_errs["dk"], bench_errs["dv"]),
                      (tr["dkv"][0], tr["plain"], tr["dkv"][1]),
                      tr["lib_bwd"]),
@@ -5011,12 +5426,13 @@ def main(argv=None):
             ("gmm", f"{jax_moe}:133 (_pallas_gmm: megablox gmm)",
              dict(moe_train=moe_train, moe_serve=moe_serve,
                   moe_eval=ev["moe_eval"], moe_lora_train=lo["moe_train"],
-                  bench_moe_train=bench_moe)),
+                  bench_moe_train=bench_moe, dp_moe_train=dp_moe_train)),
             ("gmm_t", f"{jax_moe}:146-165 (VJP: gmm, transpose_rhs)",
              dict(moe_train=moe_train, moe_lora_train=lo["moe_train"],
-                  bench_moe_train=bench_moe)),
+                  bench_moe_train=bench_moe, dp_moe_train=dp_moe_train)),
             ("tgmm", f"{jax_moe}:146-165 (VJP: megablox tgmm)",
-             dict(moe_train=moe_train, bench_moe_train=bench_moe))):
+             dict(moe_train=moe_train, bench_moe_train=bench_moe,
+                  dp_moe_train=dp_moe_train))):
         t_k, t_p, t_l, bound, _ = k8[(name, "train gate/up")]
         kernels.append(kernel_entry(name, "grouped_matmul.cu", replaces,
                                     by_path(name, **paths), k8_err[name],

@@ -394,7 +394,8 @@ def _load_params(path: str, device):
 def train_steps(step_fn: Callable, batches: Iterable[dict], steps: int,
                 device, start_step: int = 0, log_every: int = 10,
                 log: Callable = log_event,
-                after_step: Callable[[int], None] | None = None):
+                after_step: Callable[[int], None] | None = None,
+                world: int = 1):
     """Run `step_fn` (parallel/train.make_train_step) over numpy `batches`
     from step `start_step` until step `steps`, moving each batch to
     `device`. Returns `(summary, history)`: the JAX `train` summary's
@@ -402,7 +403,9 @@ def train_steps(step_fn: Callable, batches: Iterable[dict], steps: int,
     `steps_per_s` / `tokens_per_s` that leave out the first step and the
     time spent in `after_step`, counting padded tokens as the JAX CLI
     does) and one `{"loss", "grad_norm", "step_s"}` per step taken.
-    `after_step(n)` runs after the n-th step (checkpoints)."""
+    `after_step(n)` runs after the n-th step (checkpoints). Under data
+    parallelism each batch is this process's 1/`world` of the global
+    batch's rows, and the tokens counted are the global batch's."""
     import torch
 
     def to_device(batch):
@@ -425,7 +428,7 @@ def train_steps(step_fn: Callable, batches: Iterable[dict], steps: int,
         if len(history) == 1:            # the first step paid the warm-up
             steady_t0 = now
         else:
-            steady_tokens += int(np.prod(batch["input_ids"].shape))
+            steady_tokens += world * int(np.prod(batch["input_ids"].shape))
             steady_steps += 1
         if step % log_every == 0 or step == steps - 1:
             log("step", step=step, loss=round(loss, 6),
@@ -453,13 +456,34 @@ def _refuse_unported_train_flags(args) -> None:
         "--model-parallel > 1": args.model_parallel > 1,
         "--seq-parallel > 1": args.seq_parallel > 1,
         "--expert-parallel > 1": args.expert_parallel > 1,
-        "--data-parallel > 1": args.data_parallel > 1,
         "--fsdp": args.fsdp}
     asked = [flag for flag, val in unported.items() if val]
     if asked:
         raise NotImplementedError(
-            f"train {', '.join(asked)}: not ported yet (the port trains on "
-            f"one device; see ROADMAP.md)")
+            f"train {', '.join(asked)}: not ported yet (the port trains "
+            f"over the data axis alone; see ROADMAP.md, item 17)")
+
+
+def _launched_world() -> int:
+    """The processes this one runs among: its group's size, else the
+    launcher's `WORLD_SIZE`, else 1."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE") or 1)
+
+
+def _check_data_parallel(args) -> None:
+    """`--data-parallel n` must be the number of processes launched (the
+    JAX CLI takes n of its chips; here each process is one)."""
+    world = _launched_world()
+    if args.data_parallel and args.data_parallel != world:
+        raise ValueError(
+            f"--data-parallel {args.data_parallel} does not match the "
+            f"{world} process(es) launched: start one process a device, "
+            f"e.g. python -m torch.distributed.run --nproc-per-node "
+            f"{args.data_parallel} -m multi_spatialmllm_tpu_torch train ...")
 
 
 def _train_config(args):
@@ -486,10 +510,22 @@ def cmd_train(args) -> None:
     frozen base (parallel/lora.py) and saves merged weights; `--eval-*`
     scores held-out records on the (merged) weights; `--async-save` writes
     checkpoints on a background thread. Prints the JAX CLI's summary
-    line."""
+    line.
+
+    Data parallelism: launched as `n` processes (`python -m
+    torch.distributed.run --nproc-per-node n -m multi_spatialmllm_tpu_torch
+    train ...`), the command joins their group (NCCL on the card, gloo with
+    `--device cpu`) and trains over a mesh whose data axis is the group
+    (`--data-parallel`, when given, must equal `n`). Every process builds
+    the same global batches from the mixture and the seed, and keeps its
+    rows of each (`parallel/train.local_rows`); process 0 alone logs,
+    evaluates, saves and prints the summary, and the others wait for it at
+    a barrier."""
     _refuse_unported_train_flags(args)
+    _check_data_parallel(args)
     cfg = _train_config(args)
     import torch
+    import torch.distributed as dist
 
     from .models import mllm as M
     from .models.data import DataConfig, prefetch_iterator
@@ -501,10 +537,13 @@ def cmd_train(args) -> None:
     )
     from .models.preprocess import PreprocessConfig
     from .models.tokenizer import load_tokenizer
+    from .parallel.distributed import initialize_multihost
+    from .parallel.mesh import make_mesh
     from .parallel.train import (
         AdamW,
         AsyncRollingSaver,
         TrainConfig,
+        local_rows,
         make_train_step,
         restore_checkpoint,
         save_checkpoint_rolling,
@@ -526,8 +565,8 @@ def cmd_train(args) -> None:
         raise ValueError("--resume needs --init-checkpoint")
 
     entries = load_meta(args.meta)
-    log_event("mixture", **mixture_stats(entries))
     if args.validate_only:
+        log_event("mixture", **mixture_stats(entries))
         report = validate_mixture(entries, image_loader=_read_image,
                                   sample=args.validate_sample,
                                   seed=args.seed)
@@ -535,6 +574,22 @@ def cmd_train(args) -> None:
         if not report["ok"]:
             raise SystemExit(1)
         return
+    owns_group = not dist.is_initialized()
+    initialize_multihost(device=args.device)
+    grouped = dist.is_initialized()
+    mesh = make_mesh(n_data=args.data_parallel or None) if grouped else None
+    world, first = (dist.get_world_size(), dist.get_rank() == 0) \
+        if grouped else (1, True)
+
+    def log(kind, **fields):
+        if first:
+            log_event(kind, **fields)
+
+    def together():
+        if grouped:
+            dist.barrier()
+
+    log("mixture", **mixture_stats(entries))
 
     data_cfg = DataConfig(
         max_seq_len=args.seq_len, max_tiles=args.max_tiles,
@@ -565,8 +620,8 @@ def cmd_train(args) -> None:
             start_step = int(state["step"])
         else:
             model.load_state_dict(_load_params(args.init_checkpoint, device))
-        log_event("restored", path=os.path.abspath(args.init_checkpoint),
-                  step=start_step)
+        log("restored", path=os.path.abspath(args.init_checkpoint),
+            step=start_step)
     lora = lcfg = None
     if args.lora_rank:
         from .models import prng
@@ -582,14 +637,14 @@ def cmd_train(args) -> None:
                   file=sys.stderr)
         lora = L.init_lora(model, lcfg, prng.key(args.seed + 1))
         opt = AdamW(L.lora_named_tensors(lora), train_cfg)
-        step_fn = L.make_lora_train_step(model, opt, lcfg)
-        log_event("lora", rank=lcfg.rank,
-                  trainable=L.lora_param_count(lora))
+        step_fn = L.make_lora_train_step(model, opt, lcfg, mesh=mesh)
+        log("lora", rank=lcfg.rank, trainable=L.lora_param_count(lora))
     else:
         opt = AdamW(list(model.named_parameters()), train_cfg)
         if opt_state is not None:
             opt.load_state_dict(opt_state)
-        step_fn = make_train_step(model, opt, accum_steps=args.accum)
+        step_fn = make_train_step(model, opt, accum_steps=args.accum,
+                                  mesh=mesh)
 
     eval_samples: list = []
     if args.eval_jsonl:
@@ -614,15 +669,20 @@ def cmd_train(args) -> None:
                 EvalRunConfig(max_new_tokens=args.eval_max_new_tokens,
                               mc_logprob=args.mc_logprob, data=data_cfg),
                 batch_size=min(len(eval_samples), args.batch_size))
-        log_event("eval", step=step, accuracy=round(rep["accuracy"], 4),
-                  count=rep["count"])
+        log("eval", step=step, accuracy=round(rep["accuracy"], 4),
+            count=rep["count"])
         eval_done[step] = rep["accuracy"]
         return rep["accuracy"]
 
     saver = AsyncRollingSaver(os.path.abspath(args.output), keep=args.keep) \
-        if args.async_save and args.output else None
+        if args.async_save and args.output and first else None
 
     def save(step):
+        if first:
+            write(step)
+        together()
+
+    def write(step):
         if lora is not None:            # merged weights, no optimizer state
             from .parallel.lora import merge_lora
 
@@ -635,33 +695,48 @@ def cmd_train(args) -> None:
             where = save_checkpoint_rolling(os.path.abspath(args.output),
                                             params, state, step=step,
                                             keep=args.keep)
-        log_event("checkpoint", path=where, step=step)
+        log("checkpoint", path=where, step=step)
+
+    def evaluate(step):
+        acc = run_eval_now(step) if first else None
+        together()
+        return acc
 
     def after_step(n):
         if args.save_every and n % args.save_every == 0:
             save(n)
         if eval_samples and args.eval_every and n % args.eval_every == 0:
-            run_eval_now(n)
+            evaluate(n)
 
     if start_step:
         # the mixture replays deterministically: skip the trained batches
         for _ in itertools.islice(batches, start_step):
             pass
+    if mesh is not None:
+        accum = 1 if lora is not None else args.accum
+        batches = (local_rows(b, accum, mesh) for b in batches)
     from .utils.profiling import device_trace
 
-    with device_trace(args.trace_dir):
+    # process 0's steps stand for the others' in the trace
+    with device_trace(args.trace_dir if first else None):
         summary, history = train_steps(step_fn, batches, args.steps, device,
                                        start_step=start_step,
-                                       log_every=args.log_every,
-                                       after_step=after_step)
+                                       log_every=args.log_every, log=log,
+                                       after_step=after_step, world=world)
     if args.output:
         save(start_step + len(history))
         if saver is not None:
             saver.wait()                # the final save is durable
     if eval_samples:
-        summary = {**summary, "eval_accuracy": run_eval_now(
+        summary = {**summary, "eval_accuracy": evaluate(
             start_step + len(history))}
-    print(json.dumps({**summary, "devices": 1, "device": str(device)}))
+    mesh_shape = dict(zip(mesh.mesh_dim_names, mesh.shape)) if grouped \
+        else {"data": 1, "model": 1}
+    if first:
+        print(json.dumps({**summary, "devices": world, "mesh": mesh_shape,
+                          "device": str(device)}))
+    if owns_group and grouped:
+        dist.destroy_process_group()
 
 
 _DTYPE_NAMES = ("bfloat16", "float32")

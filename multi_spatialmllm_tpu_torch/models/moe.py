@@ -19,7 +19,9 @@ design). Two implementations, chosen by `cfg.moe_impl`:
 Padding tokens (`valid` False) take no capacity and leave the load-balance
 statistic. The statistic (aux) is returned beside the output, not stored
 on the module, so a layer recomputed under `torch.utils.checkpoint` still
-reports it once.
+reports it once. Under data parallelism (`data_parallel`) the statistic is
+the whole global batch's, as the JAX step computes it over the batch it
+shards: each process returns its share of it (see `_topk_select`).
 
 Parameters keep the JAX layouts and names: `router` `[D, E]` (float32),
 `wi_gate`/`wi_up` `[E, D, F]` and `wo` `[E, F, D]`; they are cast to the
@@ -28,9 +30,11 @@ compute dtype at use, as the Flax module casts its float32 params.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -58,12 +62,22 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _topk_select(logits: torch.Tensor, top_k: int,
-                 vmask: torch.Tensor | None):
+                 vmask: torch.Tensor | None, group=None):
     """Per-token top-k selection: logits `[N, E]` (f32), vmask `[N]` f32
     or None -> (idx `[N, k]` int32, gates `[N, k]` f32 renormalised to sum
     to 1 and zeroed on pads, aux: the load-balance statistic over real
     tokens). The gate is a max (`amax` shares its gradient among ties, as
-    `jnp.max` does); `argmax` picks the first maximum, as `jnp.argmax`."""
+    `jnp.max` does); `argmax` picks the first maximum, as `jnp.argmax`.
+
+    With a process `group` the statistic is over the tokens of all its
+    processes: the first-choice counts and the real-token count are
+    summed over the group (no gradient flows through either), and this
+    process's probability sums are divided by the global count. The aux
+    returned is this process's share, `e * sum(route_frac *
+    local prob sum / global count)`: the shares add up to the global
+    statistic, and each share's gradient is the global statistic's
+    gradient with respect to this process's tokens, so a sum of the
+    processes' losses and gradients is the global batch's."""
     e = logits.shape[1]
     probs = torch.softmax(logits.float(), dim=-1)
     masked = probs
@@ -77,27 +91,34 @@ def _topk_select(logits: torch.Tensor, top_k: int,
     gate_mat = torch.stack([g / denom for g in gates], dim=1)
 
     oh0 = _one_hot(idxs[0], e)
-    if vmask is None:
+    if vmask is None and group is None:
         route_frac = oh0.mean(dim=0)
         prob_frac = probs.mean(dim=0)
     else:
-        gate_mat = gate_mat * vmask[:, None]
-        n_valid = vmask.sum().clamp_min(1.0)
-        route_frac = (oh0 * vmask[:, None]).sum(dim=0) / n_valid
-        prob_frac = (probs * vmask[:, None]).sum(dim=0) / n_valid
+        weights = probs.new_ones(probs.shape[0]) if vmask is None else vmask
+        if vmask is not None:
+            gate_mat = gate_mat * vmask[:, None]
+        with torch.no_grad():
+            stats = torch.cat([(oh0 * weights[:, None]).sum(dim=0),
+                               weights.sum().reshape(1)])
+            if group is not None:
+                dist.all_reduce(stats, group=group)
+        n_valid = stats[e].clamp_min(1.0)
+        route_frac = stats[:e] / n_valid
+        prob_frac = (probs * weights[:, None]).sum(dim=0) / n_valid
     aux = (route_frac * prob_frac).sum() * e
     return torch.stack(idxs, dim=1), gate_mat, aux
 
 
 def top_k_routing(logits: torch.Tensor, top_k: int, capacity: int,
-                  valid: torch.Tensor | None = None):
+                  valid: torch.Tensor | None = None, group=None):
     """GShard dispatch: logits `[B, T, E]` (f32), optional `valid` `[B, T]`
     -> (dispatch `[B, T, E, C]` 0/1 f32, combine (gate-weighted dispatch),
     aux). k-th choices queue after the (k-1)-th, cumsum along T."""
     b, t, e = logits.shape
     vflat = None if valid is None else valid.reshape(b * t).float()
     idx, gate_mat, aux = _topk_select(logits.reshape(b * t, e), top_k,
-                                      vflat)
+                                      vflat, group)
     idx = idx.reshape(b, t, top_k)
     gate_mat = gate_mat.reshape(b, t, top_k)
     vmask = None if valid is None else valid.float()[..., None]
@@ -149,7 +170,7 @@ def _grouped_dot(xs, w, group_sizes, kernel: str = "xla"):
 
 
 def ragged_moe(cfg, x, router, wi_gate, wi_up, wo,
-               valid: torch.Tensor | None = None):
+               valid: torch.Tensor | None = None, group=None):
     """Dropless sorted-gather MoE: x `[B, T, D]` -> (y `[B, T, D]`, aux).
     The stable sort keeps (token, k) order within an expert, so outputs do
     not depend on how tokens are batched or chunked."""
@@ -161,7 +182,7 @@ def ragged_moe(cfg, x, router, wi_gate, wi_up, wo,
     vmask = None if valid is None else valid.reshape(n).float()
 
     logits = xf.float() @ router.float()
-    idx, gates, aux = _topk_select(logits, k, vmask)
+    idx, gates, aux = _topk_select(logits, k, vmask, group)
 
     ei = idx.reshape(n * k).long()
     order = torch.argsort(ei, stable=True)
@@ -182,11 +203,14 @@ def ragged_moe(cfg, x, router, wi_gate, wi_up, wo,
 
 class MoEMLP(nn.Module):
     """Drop-in replacement for `llm.MLP` when `cfg.moe_experts > 0`;
-    `forward` returns `(y, aux)`."""
+    `forward` returns `(y, aux)`. `group`: the process group whose batch
+    the load-balance statistic is taken over (`data_parallel`), None for
+    this process's batch alone."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
         self.cfg = cfg
+        self.group = None
         d, e, f = cfg.hidden_size, cfg.moe_experts, cfg.ffn_size
         dtype = getattr(torch, cfg.dtype)
         self.router = nn.Parameter(
@@ -212,7 +236,7 @@ class MoEMLP(nn.Module):
                                       ("router", "wi_gate", "wi_up", "wo"))
         if cfg.moe_impl == "ragged":
             return ragged_moe(cfg, x, router, wi_gate, wi_up,
-                              wo, valid=valid)
+                              wo, valid=valid, group=self.group)
         dtype = getattr(torch, cfg.dtype)
         b, t, d = x.shape
         # GShard groups (training only); inference routes whole chunks
@@ -229,7 +253,7 @@ class MoEMLP(nn.Module):
         cap = moe_capacity(cfg, xr.shape[1], inference=inference)
         logits = torch.einsum("btd,de->bte", xr.float(), router.float())
         dispatch, combine, aux = top_k_routing(logits, cfg.moe_top_k, cap,
-                                               valid=vr)
+                                               valid=vr, group=self.group)
         xin = torch.einsum("btec,btd->ebcd", dispatch.to(dtype),
                            xr.to(dtype))
         gate = torch.einsum("ebcd,edf->ebcf", xin, wi_gate.to(dtype))
@@ -238,3 +262,20 @@ class MoEMLP(nn.Module):
                            wo.to(dtype))
         y = torch.einsum("btec,ebcd->btd", combine.to(dtype), out)
         return y.reshape(b, t, d).to(dtype), aux
+
+
+@contextlib.contextmanager
+def data_parallel(model: nn.Module, group):
+    """Within the block every routed FFN of `model` takes its load-balance
+    statistic over the global batch of `group`'s processes (each returns
+    its share of it); a no-op when `group` is None. The train steps hold
+    it around the forward and the backward, so a recomputed layer sees the
+    same group."""
+    mods = [m for m in model.modules() if isinstance(m, MoEMLP)]
+    for m in mods:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.group = None

@@ -34,8 +34,10 @@ from typing import Callable
 
 import torch
 
-from ..models.llm import Linear, cross_entropy_loss, merge_adapter
+from ..models.llm import Linear, merge_adapter
 from ..models.prng import normal, split
+from .mesh import data_axis
+from .train import all_reduce_grads, global_sum, masked_nll
 
 # target name -> number of leading JAX kernel dims that are fan-in
 _FAN_IN_DIMS = {
@@ -189,14 +191,20 @@ def attach(model: torch.nn.Module, lora: dict, scale: float) -> None:
             mod.adapter = None if ad is None else (ad, scale)
 
 
-def make_lora_train_step(model, optimizer, cfg: LoRAConfig
+def make_lora_train_step(model, optimizer, cfg: LoRAConfig, mesh=None
                          ) -> Callable[[dict], dict]:
     """`step(batch) -> {"loss", "grad_norm"}` (0-d tensors): the masked
     next-token loss of the merged model, its gradients with respect to the
     adapters alone, and one update of `optimizer` (parallel/train.AdamW
     over `lora_named_tensors`). The base is frozen (`requires_grad_(False)`,
     so no gradient or moment is kept for it, and a tower with no adapter
-    takes no backward); the adapters ride on the model (`attach`)."""
+    takes no backward); the adapters ride on the model (`attach`).
+
+    With a `mesh` the step is data-parallel over its data axis, as
+    `parallel/train.make_train_step` is: `batch` holds this process's rows
+    of the global batch, the loss is the global nll sum over the global
+    token count, and only the adapters' gradients are summed over the
+    processes (the frozen base is the same replica on each)."""
     model.requires_grad_(False)
     lora = lora_from_optimizer(optimizer)
     for ad in lora.values():
@@ -204,21 +212,22 @@ def make_lora_train_step(model, optimizer, cfg: LoRAConfig
             t.requires_grad_(True)
     attach(model, lora, cfg.scale)
     params = optimizer.params
+    group = data_axis(mesh)[0]
 
     def step(batch: dict) -> dict:
         for p in params:
             p.grad = None
-        logits = model(batch["input_ids"], batch["tiles"],
-                       positions=batch.get("positions"),
-                       segment_ids=batch.get("segment_ids"))
-        loss = cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:])
-        del logits
+        denom = global_sum((batch["labels"][:, 1:] != -100).sum(),
+                           group).clamp_min(1).float()
+        loss = masked_nll(model, batch) / denom
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
+        all_reduce_grads(grads, group)
         grad_norm = optimizer.update(grads)
         for p in params:
             p.grad = None
-        return {"loss": loss.detach(), "grad_norm": grad_norm}
+        return {"loss": global_sum(loss.detach(), group),
+                "grad_norm": grad_norm}
 
     return step

@@ -1,5 +1,6 @@
-"""Training step for the multi-frame MLLM on one device (the port of
-multi_spatialmllm_tpu/parallel/train.py, without its mesh).
+"""Training step for the multi-frame MLLM (the port of
+multi_spatialmllm_tpu/parallel/train.py), on one device or data-parallel
+over a mesh's data axis.
 
 The optimizer is the JAX package's optax chain, written out:
 `clip_by_global_norm(grad_clip)` then `adamw(warmup_cosine_decay_schedule(
@@ -17,6 +18,19 @@ and a stock PyTorch optimizer would change:
 With a routed-MoE decoder the loss adds `MOE_AUX_WEIGHT` times the mean of
 the layers' load-balance statistics, weighted by each microbatch's token
 count as the JAX step's `loss_sum_of` does.
+
+Data parallelism (`mesh=`, parallel/mesh.py): each process of the data
+axis holds a full replica and its own rows of the global batch. The JAX
+step shards that batch over the axis and XLA computes every reduction over
+the global batch; here the step computes the same two global quantities
+with collectives. The token nll is `sum nll / global token count`: the
+count is summed over the processes before the division, each process's
+loss is its nll sum over it, and the gradients are summed over the
+processes once a step, before the clip, so the global norm and the update
+are the same on every process. A MoE decoder's load-balance statistic is
+the global batch's (`models/moe.data_parallel`). With one process in the
+axis the collectives leave every value as it is, and the step is the
+single-device step.
 
 Parameters, gradients and both moments are float32 (the model holds float32
 master weights, `MultiFrameMLLM(..., param_dtype=torch.float32)`). Unlike
@@ -41,10 +55,13 @@ import shutil
 import threading
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..models.llm import cross_entropy_sum
-from ..models.mllm import loss_fn
+from ..models.moe import data_parallel
+from .distributed import global_batch_slice
+from .mesh import data_axis
 
 ADAM_EPS = 1e-8             # optax.adamw's default
 MOE_AUX_WEIGHT = 0.01       # the JAX make_train_step's default
@@ -132,12 +149,38 @@ def moe_aux_mean(auxes: list) -> torch.Tensor | float:
     return sum(vals) / max(len(vals), 1)
 
 
-def make_train_step(model, optimizer: AdamW, accum_steps: int = 1
-                    ) -> Callable[[dict], dict]:
+def all_reduce_grads(grads: list[torch.Tensor], group) -> None:
+    """Sum each gradient over `group`'s processes, in place (nothing
+    without a group)."""
+    if group is None:
+        return
+    import torch.distributed as dist
+
+    for g in grads:
+        dist.all_reduce(g, group=group)
+
+
+def global_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """`t` summed over `group`'s processes (a copy; `t` itself without a
+    group)."""
+    if group is None:
+        return t
+    import torch.distributed as dist
+
+    t = t.clone()
+    dist.all_reduce(t, group=group)
+    return t
+
+
+def make_train_step(model, optimizer: AdamW, accum_steps: int = 1,
+                    mesh=None) -> Callable[[dict], dict]:
     """`step(batch) -> {"loss", "grad_norm"}` (0-d tensors on the model's
     device); `batch` is a dict of tensors leading with the batch dim
     (`input_ids`, `labels`, `tiles`, and `positions`/`segment_ids` for
-    packed rows).
+    packed rows). With a `mesh`, `batch` holds this process's rows of the
+    global batch (for microbatch i, its `global_batch_slice` of the global
+    microbatch i, as the JAX step shards each one), and the loss and
+    grad norm returned are the global batch's, on every process.
 
     `accum_steps > 1` runs the batch as that many microbatches of
     consecutive rows before the one update. As in the JAX step, the loss
@@ -150,42 +193,67 @@ def make_train_step(model, optimizer: AdamW, accum_steps: int = 1
     """
     params = optimizer.params
     use_moe = model.cfg.llm.moe_experts > 0
+    group = data_axis(mesh)[0]
 
     def step(batch: dict) -> dict:
         n = batch["input_ids"].shape[0]
         if n % accum_steps:
             raise ValueError(f"batch {n} not divisible by accum {accum_steps}")
         mb = n // accum_steps
-        denom = (batch["labels"][:, 1:] != -100).sum().clamp_min(1).float()
+        denom = global_sum((batch["labels"][:, 1:] != -100).sum(),
+                           group).clamp_min(1).float()
         for p in params:
             p.grad = None
         nll = torch.zeros((), device=denom.device)
-        for i in range(accum_steps):
-            sub = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            logits, auxes = model(sub["input_ids"], sub["tiles"],
-                                  positions=sub.get("positions"),
-                                  segment_ids=sub.get("segment_ids"),
-                                  with_aux=True)
-            mb_nll, count = cross_entropy_sum(logits[:, :-1],
-                                              sub["labels"][:, 1:])
-            del logits
-            if use_moe:
-                mb_nll = mb_nll + (MOE_AUX_WEIGHT * moe_aux_mean(auxes)
-                                   * count.to(mb_nll.dtype))
-            (mb_nll / denom).backward()
-            nll += mb_nll.detach()
+        with data_parallel(model, group):
+            for i in range(accum_steps):
+                sub = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                logits, auxes = model(sub["input_ids"], sub["tiles"],
+                                      positions=sub.get("positions"),
+                                      segment_ids=sub.get("segment_ids"),
+                                      with_aux=True)
+                mb_nll, count = cross_entropy_sum(logits[:, :-1],
+                                                  sub["labels"][:, 1:])
+                del logits
+                if use_moe:
+                    # the global microbatch's count weighs this process's
+                    # share of its statistic
+                    mb_nll = mb_nll + (
+                        MOE_AUX_WEIGHT * moe_aux_mean(auxes)
+                        * global_sum(count, group).to(mb_nll.dtype))
+                (mb_nll / denom).backward()
+                nll += mb_nll.detach()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
+        all_reduce_grads(grads, group)
         grad_norm = optimizer.update(grads)
         for p in params:
             p.grad = None
-        return {"loss": nll / denom, "grad_norm": grad_norm}
+        return {"loss": global_sum(nll, group) / denom,
+                "grad_norm": grad_norm}
 
     return step
 
 
-def make_chained_train_step(model, optimizer: AdamW, n_steps: int
-                            ) -> Callable[[dict], torch.Tensor]:
+def local_rows(batch: dict, accum_steps: int, mesh) -> dict:
+    """This process's rows of a global batch (numpy arrays or tensors
+    leading with the batch dim), as `make_train_step` takes them: the JAX
+    step splits the global batch into `accum_steps` microbatches of
+    consecutive rows and shards each over the data axis, so the process
+    keeps, of each microbatch, the rows `global_batch_slice` gives it."""
+    _, rank, size = data_axis(mesh)
+    n = len(batch["input_ids"])
+    if n % accum_steps:
+        raise ValueError(f"batch {n} not divisible by accum {accum_steps}")
+    mb = n // accum_steps
+    start, per = global_batch_slice(mb, rank, size)
+    idx = np.concatenate([np.arange(i * mb + start, i * mb + start + per)
+                          for i in range(accum_steps)])
+    return {k: v[idx] for k, v in batch.items()}
+
+
+def make_chained_train_step(model, optimizer: AdamW, n_steps: int,
+                            mesh=None) -> Callable[[dict], torch.Tensor]:
     """`run(batch) -> losses [n_steps]`: `n_steps` full train steps on one
     batch (forward, backward, clip and AdamW update of the parameters in
     place), each step's work `make_train_step`'s with one microbatch: the
@@ -193,24 +261,40 @@ def make_chained_train_step(model, optimizer: AdamW, n_steps: int
     `model` block. As there, the loss is the masked mean cross entropy
     alone (no MoE load-balance term). The losses stay on the device,
     stacked, for one fetch by the caller; nothing in the chain reads the
-    device from the host."""
+    device from the host. With a `mesh`, `batch` is this process's rows of
+    the global batch, as for `make_train_step`, and the losses are the
+    global batch's."""
     params = optimizer.params
+    group = data_axis(mesh)[0]
 
     def run(batch: dict) -> torch.Tensor:
+        denom = global_sum((batch["labels"][:, 1:] != -100).sum(),
+                           group).clamp_min(1).float()
         losses = []
         for _ in range(n_steps):
             for p in params:
                 p.grad = None
-            loss = loss_fn(model, batch)
+            loss = masked_nll(model, batch) / denom
             loss.backward()
-            optimizer.update([torch.zeros_like(p) if p.grad is None
-                              else p.grad for p in params])
-            losses.append(loss.detach())
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in params]
+            all_reduce_grads(grads, group)
+            optimizer.update(grads)
+            losses.append(global_sum(loss.detach(), group))
         for p in params:
             p.grad = None
         return torch.stack(losses)
 
     return run
+
+
+def masked_nll(model, batch: dict) -> torch.Tensor:
+    """The summed next-token nll of `batch` under `model` (no MoE term):
+    `models/mllm.loss_fn`'s numerator."""
+    logits = model(batch["input_ids"], batch["tiles"],
+                   positions=batch.get("positions"),
+                   segment_ids=batch.get("segment_ids"))
+    return cross_entropy_sum(logits[:, :-1], batch["labels"][:, 1:])[0]
 
 
 def _payload(params, optimizer: AdamW | None, step: int) -> dict:

@@ -24,8 +24,12 @@ satisfy the ±tolerance window), superset-of-minimal pruning (:131-140),
 expansion only by first-layer singletons with larger index (:198-210), and
 a 5000-combination cap per level via random sample (:212-214).
 
-The interval precompute runs as torch ops on the device. Not ported yet
-(ROADMAP.md, queue 1): the scene-parallel multi-device stage.
+The interval precompute runs as torch ops on the device.
+`coverage_intervals_multichip` runs it scene-parallel over a mesh's data
+axis: each process computes its share of each chunk of scenes, and the
+processes exchange the `(mins, maxs, counts)` arrays so that every one
+holds every scene's; `build_object_coverage(mesh=...)` then runs the host
+search on them, with results equal to the single-device run.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from ..core.io import dump_pickle
 from ..core.rng import stream
 from ..core.scene import Scene
 from .frame_relations import _unpack_bits
-from .visibility import compute_scene_visibility
+from .visibility import compute_scene_visibility, scene_parallel_map
 
 TOLERANCE = 0.1
 MAX_IMAGES = 5
@@ -98,6 +102,25 @@ def object_coverage_intervals(scene: Scene, vis: np.ndarray, device="cuda"):
             scene.points_aligned[:, :3], dtype=np.float64)).to(dev),
         vis.shape[1], scene.num_objects + 1)
     return tuple(t.cpu().numpy() for t in out)
+
+
+def coverage_intervals_multichip(
+    scenes: "list[Scene]",
+    mesh,
+    visibility: "dict[str, np.ndarray]",
+    per_device_batch: int = 4,
+    device="cuda",
+) -> dict:
+    """Scene-parallel device precompute for the coverage search over the
+    mesh's data axis: `{scene_id: (mins, maxs, counts)}` for every scene
+    on every process, equal to `object_coverage_intervals` scene by scene.
+    Each process runs `object_coverage_intervals` on `device` for its
+    share of each padded-shape chunk and the processes exchange the arrays
+    (`visibility.scene_parallel_map`). `{}` for no scenes."""
+    return scene_parallel_map(
+        scenes, mesh, per_device_batch,
+        lambda s: object_coverage_intervals(s, visibility[s.scene_id],
+                                            device))
 
 
 def _covers(lo: float, hi: float, target: float, tolerance: float) -> bool:
@@ -223,22 +246,46 @@ def build_object_coverage(
     seed: int = 0,
     tolerance: float = TOLERANCE,
     device="cuda",
+    mesh=None,
 ):
     """Run the coverage stage; returns (height, length, width) dicts with
     the reference's nested schema
     `{scene_id: {object_id: {k: [image-tuples]}}}` and optionally writes the
     three pkls (process_split_objects, single_object_coverage_finder.py
-    :287-338). The interval precompute runs on `device`."""
+    :287-338). The interval precompute runs on `device`; with `mesh`, it
+    runs scene-parallel over the mesh's data axis
+    (`coverage_intervals_multichip`), every process searches every scene,
+    results are identical, and only the axis's first process writes the
+    pkls."""
     scenes = list(scenes)
+    multichip = None
+    if mesh is not None:
+        vis_all = {}
+        for scene in scenes:
+            if scene.scene_id not in object_visibility:
+                continue
+            v = None if visibility is None else visibility.get(
+                scene.scene_id)
+            vis_all[scene.scene_id] = (
+                compute_scene_visibility(scene, device=device) if v is None
+                else v)
+        multichip = coverage_intervals_multichip(
+            [s for s in scenes if s.scene_id in vis_all], mesh, vis_all,
+            device=device)
+        if mesh.get_local_rank(mesh.mesh_dim_names[0]) != 0:
+            output_dir = None
     results = {"height": {}, "length": {}, "width": {}}
     for scene in scenes:
         sid = scene.scene_id
         if sid not in object_visibility:
             continue
-        vis = None if visibility is None else visibility.get(sid)
-        if vis is None:
-            vis = compute_scene_visibility(scene, device=device)
-        mins, maxs, _ = object_coverage_intervals(scene, vis, device)
+        if multichip is not None:
+            mins, maxs, _ = multichip[sid]
+        else:
+            vis = None if visibility is None else visibility.get(sid)
+            if vis is None:
+                vis = compute_scene_visibility(scene, device=device)
+            mins, maxs, _ = object_coverage_intervals(scene, vis, device)
         obj_map = object_visibility[sid]["object_to_images"]
         for dim in results:
             results[dim].setdefault(sid, {})

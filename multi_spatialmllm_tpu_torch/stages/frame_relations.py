@@ -20,7 +20,10 @@ whether this host can.
 many scenes as a software pipeline: scene k+1's upload and device work are
 queued before the host finalizes scene k.
 
-Not ported yet (ROADMAP.md): the scene-parallel multi-device stage.
+`compute_relations_multichip` runs the relations scene-parallel over a
+mesh's data axis: each process runs its share of each chunk of scenes
+through the batched device program, and the processes exchange the
+`[I, I]` relation matrices so that every one returns every scene's.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ from .visibility import (
     _ready,
     _upload,
     compute_scene_visibility,
+    exchange,
+    iter_packed_scene_batches,
 )
 
 COLUMNS = ("scene_id", "image_id1", "image_id2", "overlap", "distance",
@@ -82,6 +87,40 @@ def _relations(packed: np.ndarray, extrinsics: np.ndarray,
     fetch `{relation: [..., I, I]}`."""
     return _relations_fetch(_relations_dispatch(packed, extrinsics,
                                                 image_valid, n, device))
+
+
+def compute_relations_multichip(
+    scenes: "list[Scene]",
+    mesh,
+    visibility: "dict[str, np.ndarray]",
+    dtype=np.float64,
+    per_device_batch: int = 4,
+    device="cuda",
+) -> "dict[str, dict[str, np.ndarray]]":
+    """Scene-parallel frame relations over the mesh's data axis; returns
+    `{scene_id: {relation: [I, I]}}` for every scene on every process,
+    equal to `compute_scene_relations` scene by scene. Each process runs
+    its share of each padded-shape chunk
+    (`visibility.iter_packed_scene_batches`) on `device` in one dispatch,
+    then the processes exchange the matrices (one `all_gather_object` a
+    chunk)."""
+    group = mesh.get_group(mesh.mesh_dim_names[0])
+    out: dict[str, dict[str, np.ndarray]] = {}
+    for i_pad, n_pad, mine, packed in iter_packed_scene_batches(
+            scenes, mesh, visibility, per_device_batch):
+        local = {}
+        if mine:
+            exts = np.empty((len(mine), i_pad, 4, 4), dtype=dtype)
+            ivalid = np.empty((len(mine), i_pad), dtype=bool)
+            for j, scene in enumerate(mine):
+                exts[j], _, ivalid[j] = scene.padded_images(dtype)
+            rel = _relations(packed, exts, ivalid, n_pad, device)
+            for j, scene in enumerate(mine):
+                n = scene.num_images
+                local[scene.scene_id] = {k: v[j, :n, :n]
+                                         for k, v in rel.items()}
+        out.update(exchange(local, group))
+    return out
 
 
 def _dispatch_scene_relations(scene: Scene, vis: np.ndarray, dtype, device,

@@ -16,8 +16,10 @@ Semantics parity:
     `intersection_count` and `visibility` percent (:135-150),
   * iterate images in sorted valid-pose order.
 
-The counts run as torch ops on the device. Not ported yet (ROADMAP.md,
-queue 1): the scene-parallel multi-device stage.
+The counts run as torch ops on the device. `object_visibility_multichip`
+runs them scene-parallel over a mesh's data axis: each process counts its
+share of each chunk of scenes, the processes exchange the `[I, O]` counts,
+and every process assembles every scene's dict on the host.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 from ..core.io import WarningSink, dump_pickle
 from ..core.scene import Scene
 from .frame_relations import _unpack_bits
-from .visibility import compute_scene_visibility
+from .visibility import compute_scene_visibility, scene_parallel_map
 
 NONINFORMATIVE_DESC = {"wall", "object", "floor", "ceiling", "window"}
 
@@ -119,6 +121,33 @@ def compute_object_visibility(
                      "visibility": pct}
                 )
     return result
+
+
+def object_visibility_multichip(
+    scenes: "list[Scene]",
+    mesh,
+    visibility: "dict[str, np.ndarray]",
+    warning_path: str | None = None,
+    per_device_batch: int = 4,
+    device="cuda",
+) -> dict:
+    """Scene-parallel object visibility over the mesh's data axis; returns
+    `{scene_id: reference-schema dict}` for every scene on every process,
+    equal to `build_object_visibility`'s. Each process runs
+    `object_image_counts` on `device` for its share of each padded-shape
+    chunk, the processes exchange the `[I, num_objects]` counts
+    (`visibility.scene_parallel_map`), and each runs the host threshold
+    pass over every scene, in chunk order as the JAX stage does. Only the
+    data axis's first process writes the warnings."""
+    first = mesh.get_local_rank(mesh.mesh_dim_names[0]) == 0
+    sink = WarningSink(warning_path) if first else None
+    by_id = {s.scene_id: s for s in scenes}
+    counts = scene_parallel_map(
+        scenes, mesh, per_device_batch,
+        lambda s: object_image_counts(s, visibility[s.scene_id], device))
+    return {sid: compute_object_visibility(by_id[sid], warning_sink=sink,
+                                           counts=c)
+            for sid, c in counts.items()}
 
 
 def build_object_visibility(

@@ -12,7 +12,14 @@ conservative borderline mask on the device and recomputes the flagged
 pairs on the host in numpy float64, the reference's own arithmetic: its
 labels equal the float64 stage's.
 
-Not ported yet (ROADMAP.md): the scene-parallel multi-device stage.
+`compute_visibility_multichip` runs the stage scene-parallel over a
+mesh's data axis (parallel/mesh.py): every process takes its share of
+each shape group's chunk of scenes, runs `compute_visibility_batch`'s
+device program on its own device, and the processes exchange the packed
+bits (`all_gather_object`), so that every one returns every scene's
+matrix. `iter_packed_scene_batches` is the same split with the
+visibility packed for the relations stage, and `scene_parallel_map` the
+same split for the per-scene object-visibility and coverage stages.
 """
 
 from __future__ import annotations
@@ -285,6 +292,45 @@ def compute_scene_visibility_hybrid(scene: Scene,
                                                     device))
 
 
+def padded_shape(scene: Scene) -> tuple[int, int]:
+    """(i_pad, n_pad): a scene's image count rounded up to 8 rows and its
+    point count to 128 lanes, the padding every batched stage shares."""
+    return (((max(scene.num_images, 1) + 7) // 8) * 8,
+            ((max(scene.num_points, 1) + 127) // 128) * 128)
+
+
+def _shape_groups(scenes, key) -> dict[tuple, list[Scene]]:
+    groups: dict[tuple, list[Scene]] = {}
+    for scene in scenes:
+        groups.setdefault(key(scene), []).append(scene)
+    return groups
+
+
+def _image_key(scene: Scene) -> tuple:
+    return padded_shape(scene) + (scene.depth_hw, scene.image_hw)
+
+
+def _batch_packed(chunk: "list[Scene]", i_pad: int, n_pad: int, depth_hw,
+                  image_hw, dtype, dev: torch.device) -> np.ndarray:
+    """The packed `[s, i_pad, n_pad // 8]` visibility of scenes of one
+    padded shape, in one dispatch on `dev`."""
+    s = len(chunk)
+    pts = np.empty((s, n_pad, 3), dtype=dtype)
+    pvalid = np.empty((s, n_pad), dtype=bool)
+    Ks = np.empty((s, 4, 4), dtype=dtype)
+    exts = np.empty((s, i_pad, 4, 4), dtype=dtype)
+    depths = np.empty((s, i_pad) + depth_hw, dtype=np.int32)
+    ivalid = np.empty((s, i_pad), dtype=bool)
+    for j, scene in enumerate(chunk):
+        pts[j], pvalid[j] = scene.padded_points(dtype)
+        exts[j], depths[j], ivalid[j] = scene.padded_images(dtype)
+        Ks[j] = scene.intrinsic.astype(dtype)
+    return _visibility_packed(
+        *(torch.from_numpy(a).to(dev)
+          for a in (pts, Ks, exts, depths, ivalid, pvalid)),
+        image_hw).cpu().numpy()
+
+
 def compute_visibility_batch(
     scenes: "list[Scene]", dtype=np.float64, batch_size: int = 8,
     device="cuda",
@@ -294,36 +340,120 @@ def compute_visibility_batch(
     one per scene). Returns {scene_id: [I, N] bool}."""
     _check_dtype(dtype)
     dev = torch.device(device)
-    groups: dict[tuple, list[Scene]] = {}
     out: dict[str, np.ndarray] = {}
-    for scene in scenes:
-        n_pad = ((max(scene.num_points, 1) + 127) // 128) * 128
-        i_pad = ((max(scene.num_images, 1) + 7) // 8) * 8
-        key = (i_pad, n_pad, scene.depth_hw, scene.image_hw)
-        groups.setdefault(key, []).append(scene)
-
-    for (i_pad, n_pad, depth_hw, image_hw), members in groups.items():
+    for (i_pad, n_pad, depth_hw, image_hw), members in _shape_groups(
+            scenes, _image_key).items():
         for lo in range(0, len(members), batch_size):
             chunk = members[lo: lo + batch_size]
-            s = len(chunk)
-            pts = np.empty((s, n_pad, 3), dtype=dtype)
-            pvalid = np.empty((s, n_pad), dtype=bool)
-            Ks = np.empty((s, 4, 4), dtype=dtype)
-            exts = np.empty((s, i_pad, 4, 4), dtype=dtype)
-            depths = np.empty((s, i_pad) + depth_hw, dtype=np.int32)
-            ivalid = np.empty((s, i_pad), dtype=bool)
-            for j, scene in enumerate(chunk):
-                pts[j], pvalid[j] = scene.padded_points(dtype)
-                exts[j], depths[j], ivalid[j] = scene.padded_images(dtype)
-                Ks[j] = scene.intrinsic.astype(dtype)
-            packed = _visibility_packed(
-                *(torch.from_numpy(a).to(dev)
-                  for a in (pts, Ks, exts, depths, ivalid, pvalid)),
-                image_hw)
-            vis = _unpackbits(packed.cpu().numpy(), n_pad)
+            vis = _unpackbits(_batch_packed(chunk, i_pad, n_pad, depth_hw,
+                                            image_hw, dtype, dev), n_pad)
             for j, scene in enumerate(chunk):
                 out[scene.scene_id] = vis[
                     j, : scene.num_images, : scene.num_points]
+    return out
+
+
+def exchange(payload: dict, group) -> dict:
+    """Every process's `payload` (a dict keyed by scene id) merged, on
+    every process of `group`: one `all_gather_object` of host objects.
+    Each process of the group must call it the same number of times."""
+    import torch.distributed as dist
+
+    parts: list = [None] * dist.get_world_size(group)
+    dist.all_gather_object(parts, payload, group=group)
+    merged: dict = {}
+    for part in parts:
+        merged.update(part)
+    return merged
+
+
+def _my_chunks(groups: dict, mesh, per_device_batch: int):
+    """For each shape group's chunks of `data size x per_device_batch`
+    scenes (the JAX stages' dispatch batches): (key, this process's share
+    `chunk[r*pdb:(r+1)*pdb]`, possibly empty). Every process walks the same
+    chunks, so each calls `exchange` once a chunk."""
+    from ..parallel.mesh import data_axis
+
+    _, rank, size = data_axis(mesh)
+    batch = size * per_device_batch
+    for key, members in groups.items():
+        for lo in range(0, len(members), batch):
+            chunk = members[lo: lo + batch]
+            yield key, chunk[rank * per_device_batch:
+                             (rank + 1) * per_device_batch]
+
+
+def scene_parallel_map(scenes, mesh, per_device_batch: int, fn) -> dict:
+    """`{scene_id: fn(scene)}` for every scene on every process of the
+    mesh's data axis: each process calls `fn` on its share of each
+    padded-shape chunk (`_my_chunks`) and the processes exchange the
+    results (one `all_gather_object` a chunk), in chunk order. For the
+    stages whose per-scene device program needs no batching (object
+    visibility, coverage)."""
+    group = mesh.get_group(mesh.mesh_dim_names[0])
+    out: dict = {}
+    for _, mine in _my_chunks(_shape_groups(scenes, padded_shape), mesh,
+                              per_device_batch):
+        out.update(exchange({s.scene_id: fn(s) for s in mine}, group))
+    return out
+
+
+def iter_packed_scene_batches(scenes, mesh, visibility: dict,
+                              per_device_batch: int):
+    """Scenes grouped by padded (I, N) shape, split over the mesh's data
+    axis as the JAX scaffolding splits them, with their visibility
+    bit-packed: yields `(i_pad, n_pad, mine, packed)` for every chunk of
+    `data size x per_device_batch` scenes, where `mine` is this process's
+    share (possibly empty) and `packed` its `[len(mine), i_pad, n_pad // 8]`
+    uint8 block, zero past each scene's own rows and columns. The widths
+    come from the group, never from a share, so a scene's device program
+    sees the shape it has on one device. The scene-parallel relations
+    stage batches each share into one dispatch on it."""
+    for (i_pad, n_pad), mine in _my_chunks(
+            _shape_groups(scenes, padded_shape), mesh, per_device_batch):
+        packed = np.zeros((len(mine), i_pad, n_pad // 8), np.uint8)
+        for j, scene in enumerate(mine):
+            vis = visibility[scene.scene_id]
+            vis_pad = np.zeros((i_pad, n_pad), dtype=bool)
+            vis_pad[: vis.shape[0], : vis.shape[1]] = vis
+            packed[j] = np.packbits(vis_pad, axis=1)
+        yield i_pad, n_pad, mine, packed
+
+
+def compute_visibility_multichip(
+    scenes: "list[Scene]",
+    mesh,
+    dtype=np.float64,
+    per_device_batch: int = 4,
+    device="cuda",
+) -> dict[str, np.ndarray]:
+    """Scene-parallel visibility over the mesh's data axis; returns
+    `{scene_id: [I, N] bool}` for every scene on every process, equal to
+    `compute_scene_visibility` scene by scene.
+
+    Scenes are grouped by padded shape `(i_pad, n_pad, depth_hw,
+    image_hw)` and cut into chunks of `data size x per_device_batch`;
+    each process runs its share of a chunk through
+    `compute_visibility_batch`'s device program on `device`, then the
+    processes exchange each scene's packed rows (one `all_gather_object`
+    a chunk) and unpack them."""
+    _check_dtype(dtype)
+    dev = torch.device(device)
+    group = mesh.get_group(mesh.mesh_dim_names[0])
+    out: dict[str, np.ndarray] = {}
+    for (i_pad, n_pad, depth_hw, image_hw), mine in _my_chunks(
+            _shape_groups(scenes, _image_key), mesh, per_device_batch):
+        local = {}
+        if mine:
+            packed = _batch_packed(mine, i_pad, n_pad, depth_hw, image_hw,
+                                   dtype, dev)
+            for j, scene in enumerate(mine):
+                local[scene.scene_id] = (
+                    packed[j, : scene.num_images,
+                           : (scene.num_points + 7) // 8],
+                    scene.num_points)
+        for sid, (bits, n) in exchange(local, group).items():
+            out[sid] = _unpackbits(bits, n)
     return out
 
 

@@ -39,6 +39,7 @@ PORT_MODULES = [
     "multi_spatialmllm_tpu_torch",
     "multi_spatialmllm_tpu_torch.__main__",
     "multi_spatialmllm_tpu_torch.core",
+    "multi_spatialmllm_tpu_torch.dryrun",
     "multi_spatialmllm_tpu_torch.core.boxes",
     "multi_spatialmllm_tpu_torch.core.geometry",
     "multi_spatialmllm_tpu_torch.core.io",
@@ -109,6 +110,7 @@ PORT_MODULES = [
     "multi_spatialmllm_tpu_torch.parallel.distributed",
     "multi_spatialmllm_tpu_torch.parallel.lora",
     "multi_spatialmllm_tpu_torch.parallel.lora_serving",
+    "multi_spatialmllm_tpu_torch.parallel.mesh",
     "multi_spatialmllm_tpu_torch.parallel.train",
 ]
 # the card has neither safetensors nor ml_dtypes: the port reads and writes
@@ -608,6 +610,46 @@ def test_ingest_coverage_pipeline_run_with_the_cards_installation(tmp_path):
 
 def _result_lines(stdout: str):
     return [ln for ln in stdout.splitlines() if '"ok"' in ln]
+
+
+def test_dryrun_and_drill_run_with_the_cards_installation(tmp_path):
+    """`python -m multi_spatialmllm_tpu_torch.dryrun 4 --device cpu` (four
+    gloo processes on the CPU) and
+    `scripts/torch_volume_drill.py --scale smoke --device cpu` (a killed
+    and a resumed campaign process) with jax, the JAX package and cv2
+    unimportable in every process they start: a `sitecustomize` on the
+    path installs the refusing finder, so the children refuse too. pandas
+    and pyarrow stay, as on the card: without them the relation table has
+    no file to resume from, and the resumed campaign computes it again."""
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(
+        _blocker(BLOCKED + ("cv2",), body=""))
+    env = dict(_env(), PYTHONPATH=os.pathsep.join([str(site), REPO]))
+    refused = subprocess.run([sys.executable, "-c", "import jax"], env=env,
+                             capture_output=True, text=True, timeout=60)
+    assert refused.returncode != 0 and "blocked: jax" in refused.stderr
+    proc = subprocess.run(
+        [sys.executable, "-m", "multi_spatialmllm_tpu_torch.dryrun", "4",
+         "--device", "cpu"], env=env,
+        capture_output=True, text=True, timeout=300, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lines = proc.stdout.splitlines()
+    assert len(lines) == 5 and lines[0].startswith(
+        "dryrun_multichip(4): mesh=(4 data x 1 model), gloo/cpu, loss=")
+    assert all(" ok " in ln or ln.endswith(" ok") or "ok (" in ln
+               for ln in lines[1:])
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "scripts",
+                                      "torch_volume_drill.py"),
+         "--scale", "smoke", "--device", "cpu", "--root",
+         str(tmp_path / "drill")], env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    report = json.loads((tmp_path / "drill" /
+                         "torch_volume_drill.json").read_text())
+    assert report["killed_mid_run"] and report["units_rerun"] == 0
+    assert report["records"] > 0 and report["images"] > 0
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -293,3 +293,35 @@ def test_train_config_remats_the_flagship_under_lora(config, lora_rank,
     base = TM.CONFIGS[config]()
     assert dataclasses.replace(cfg.llm, remat=base.llm.remat) == base.llm
     assert cfg.vit == base.vit
+
+
+@pytest.mark.parametrize("flags,error,match", [
+    (["--model-parallel", "2"], NotImplementedError, "item 17"),
+    (["--seq-parallel", "2"], NotImplementedError, "item 17"),
+    (["--expert-parallel", "2"], NotImplementedError, "item 17"),
+    (["--fsdp"], NotImplementedError, "item 17"),
+    (["--data-parallel", "2"], ValueError, "2 does not match the 1"),
+    (["--data-parallel", "3", "--world", "2"], ValueError,
+     "3 does not match the 2"),
+], ids=["model", "seq", "expert", "fsdp", "data-alone", "data-world"])
+def test_train_guards_raise_before_device_work(tmp_path, monkeypatch, flags,
+                                               error, match):
+    """The multi-device flags still refused, and a `--data-parallel` that
+    is not the launched world (alone, or under a launcher's WORLD_SIZE),
+    raise before the mixture is read, a model built or a process group
+    started."""
+    import torch.distributed as dist
+
+    if "--world" in flags:
+        i = flags.index("--world")
+        monkeypatch.setenv("WORLD_SIZE", flags[i + 1])
+        flags = flags[:i]
+    else:
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+    built = []
+    monkeypatch.setattr(TM, "MultiFrameMLLM",
+                        lambda *a, **k: built.append(a))
+    with pytest.raises(error, match=match):
+        tcli.main(["train", "--meta", str(tmp_path / "absent.json"),
+                   "--device", "cpu", *flags])
+    assert not built and not dist.is_initialized()

@@ -251,14 +251,20 @@ PORTED_TRAIN_FLAGS = ("--lora-rank", "--eval-jsonl", "--eval-images-root",
     ["--async-save"]], ids=lambda f: f[0][2:])
 def test_train_cli_refuses_unported_flags(flags):
     """The JAX CLI's training options the port lacks (the multi-device
-    ones) are accepted and raise, before any data is read; the ones ported
-    since (LoRA, train-time eval, async saves) get past that check to the
-    data, absent here."""
+    ones but the data axis) are accepted and raise, before any data is
+    read; `--data-parallel 2` raises there too in a process launched alone;
+    the ones ported since (LoRA, train-time eval, async saves) get past
+    that check to the data, absent here."""
     from multi_spatialmllm_tpu_torch.__main__ import main
 
     argv = ["train", "--meta", "absent.json", "--device", "cpu", *flags]
     if flags[0] in PORTED_TRAIN_FLAGS:
         with pytest.raises(FileNotFoundError, match="absent.json"):
+            main(argv)
+        return
+    if flags[0] == "--data-parallel":
+        # ported: two processes are asked for and one was launched
+        with pytest.raises(ValueError, match="does not match"):
             main(argv)
         return
     with pytest.raises(NotImplementedError, match="not ported"):
