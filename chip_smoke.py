@@ -298,6 +298,37 @@ result line):
    scripts/gen_drill_golden.py; the relation parquets by their columns,
    distance and angles within phase 15's card-vs-CPU ulp limits).
 
+24. The mesh's model, seq and expert axes and FSDP (parallel/sharding.py,
+   ops/ring_attention.py; K1-K3 on head-sharded shapes and as ring
+   blocks, K7 over kv-head-sharded pools, K8 on FFN-sharded expert
+   tables), in ONE world of two gloo processes sharing the card
+   (`dryrun.run_world`, computing on CUDA), each part against the same
+   work in this process without a group: (a) `train` at phase 9's
+   widths and flags, cut to MESH_LAYERS LLM and MESH_VIT_LAYERS ViT
+   layers (gloo carries 0.4-1.1 GB/s between the processes), for
+   MESH_STEPS steps under `--model-parallel 2`, then under `--fsdp
+   --data-parallel 2` (one row a process); (b) the same on unpacked
+   4,096-token rows under `--seq-parallel 2` (ring attention); (c) the
+   bench MoE (`bench_1chip_moe_config`, 4 experts) in float32 on
+   MESH_MOE_BATCH under (1 x
+   1 x 1 x 2 expert) with the einsum impl and under (1 x 2 model) with
+   ragged + K8, each parameter's first gradient within
+   MESH_FIRST_GRAD_REL of the run without a group in norm;
+   MESH_STEPS steps each, so that the last loss follows an update at a
+   nonzero rate (the first update's rate is 0), which the run without a
+   group must show; every loss within MESH_LOSS_REL and every step's
+   gradient norm within MESH_GNORM_REL of the run without a group;
+   launches a step. (d) the flagship in bf16 at full
+   depth served under (1 x 2 model): N_MESH_SERVE requests of
+   MESH_NEW_TOKENS new tokens (two a shared image and prefix) on the paged batcher with the prefix cache and
+   chunked prefill, bf16 and int8 kv; the tokens against the same requests served in this
+   process (equal share) and the teacher-forced agreement of the
+   sharded run's tokens under this process's model, at least
+   MESH_AGREE_MIN of them (bf16 kv; MESH_AGREE_MIN_INT8 int8); decode
+   tokens/s.
+   Each part's seconds, the peak GiB a process and the gloo transport's
+   staged bytes and seconds.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -336,7 +367,7 @@ MOE_MAX_TILES, MOE_TILES_PER_IMAGE = 14, 6
 MOE_TRAIN_LAUNCHES = {"flash_fwd": 28, "flash_bwd_dq": 28,
                       "flash_bwd_dkv": 28, "gmm": 96, "gmm_t": 48,
                       "tgmm": 48}
-N_PHASES = 23
+N_PHASES = 24
 # phase 20: LoRA rank 16 on the default targets (wq, wk, wv, wo of the
 # flagship's 32 layers: (131,072 + 81,920 + 81,920 + 131,072) a layer)
 LORA_RANK = 16
@@ -4742,6 +4773,35 @@ def phase_bench_train(torch, M, T, A, G, card):
 
 
 # phase 23: the data axis
+# phase 24: losses and gradient norms of a mesh run against the run
+# without a group, bf16 compute: TP sums the row-parallel partials in bf16
+# and the ring merges per-block outputs. Sound runs read at most 1.1e-4 on
+# the losses; a dropped or doubled partial sum moves them by more.
+MESH_LOSS_REL = 1e-3
+MESH_GNORM_REL = 1e-2
+MESH_STEPS = 3           # the third step's loss follows an update
+# (c) computes in float32: in bf16 a routing near tie moves a router's
+# gradient by up to 13% and the run parts after the first update, while in
+# float32 every parameter's first gradient holds within 8.7e-6 of the run
+# without a group (scripts/torch_mesh_moe_dtype_check.py); each within
+# MESH_FIRST_GRAD_REL
+MESH_MOE_DTYPE = "float32"
+MESH_FIRST_GRAD_REL = 1e-3
+# (c)'s batch: rows, tiles a row, tokens a row, cut from bench.py's 4, 2,
+# 2,048 for time (float32 products and K8's float32 form are 4-8x the
+# bf16 step's time)
+MESH_MOE_BATCH = (2, 1, 512)
+# (d): the share of the sharded run's tokens that the whole model picks
+# under teacher forcing (bf16 near ties may flip; int8 kv adds its
+# rounding against the bf16-kv model that judges it)
+MESH_AGREE_MIN, MESH_AGREE_MIN_INT8 = 0.9, 0.8
+# (a), (b): the depth phase 9's widths are cut to: gloo carries 0.4-1.1
+# GB/s on the card (scripts/torch_gloo_cuda_probe.py), and FSDP moves the
+# f32 parameters and gradients through it every step
+MESH_LAYERS, MESH_VIT_LAYERS = 2, 6
+# (d): requests (two a shared image and prefix), cut from phase 6's 16 for
+# time, and new tokens a request
+N_MESH_SERVE, MESH_NEW_TOKENS = 8, 32
 DP_STEPS = 3             # the third step's loss follows an update
 DP_LOSS_REL = 1e-6       # world 1 against the same run without a group
 STAGE_PDB = 4            # the scene-parallel stages' per_device_batch
@@ -4881,13 +4941,21 @@ def stage_world(device, n_corpus, real):
 
 
 @contextlib.contextmanager
-def flagship_cut_to(M, layers):
-    """The CLI's `flagship` config with its LLM cut to `layers` layers."""
+def flagship_cut_to(M, layers, vit_layers=None):
+    """The CLI's `flagship` config with its LLM cut to `layers` layers
+    (and its ViT to `vit_layers`, when given)."""
     import dataclasses
 
     full = M.CONFIGS["flagship"]
-    M.CONFIGS["flagship"] = lambda: dataclasses.replace(
-        full(), llm=dataclasses.replace(full().llm, num_layers=layers))
+
+    def cut():
+        cfg = full()
+        return dataclasses.replace(
+            cfg, vit=dataclasses.replace(
+                cfg.vit, num_layers=vit_layers or cfg.vit.num_layers),
+            llm=dataclasses.replace(cfg.llm, num_layers=layers))
+
+    M.CONFIGS["flagship"] = cut
     try:
         yield
     finally:
@@ -5109,6 +5177,372 @@ def phase_data_axis(torch, cli, M, card, kernels, moe_kernels):
         f"campaign's stored digests (the relation parquets by column, "
         f"distance and angles within phase 15's ulp limits); {card}")
     out["drill"] = brief
+    return out
+
+
+def mesh_train_parts(meta):
+    """(key, label, train argv, LLM layers) of phase 24's (a) and (b) and of
+    the runs without a group they are held to: phase 9's flags (the
+    CLI's flagship, packed 4096-token rows, batch 2), with the mesh's."""
+    common = ["--meta", meta, "--seq-len", "4096", "--batch-size", "2",
+              "--log-every", "1", "--seed", str(SEED), "--device", "cuda",
+              "--config", "flagship", "--max-tiles", "6",
+              "--tiles-per-image", "6"]
+    packed = [*common, "--packed", "--steps", str(MESH_STEPS)]
+    seq = [*common, "--steps", str(MESH_STEPS)]
+    return {
+        "ref": ("train, no group", [*packed, "--accum", "2"]),
+        "tp": ("train --model-parallel 2", [*packed, "--accum", "2",
+                                           "--model-parallel", "2"]),
+        "fsdp": ("train --fsdp --data-parallel 2",
+                 [*packed, "--fsdp", "--data-parallel", "2"]),
+        "seq_ref": ("train unpacked, no group", seq),
+        "seq": ("train unpacked --seq-parallel 2",
+                [*seq, "--seq-parallel", "2"])}
+
+
+def mesh_train(torch, cli, M, argv, kernels):
+    """`train` through the CLI in this process at the flagship's widths cut
+    to MESH_LAYERS LLM and MESH_VIT_LAYERS ViT layers -> what the steps
+    did: losses, launches, peak GiB, steady step seconds, the summary
+    (process 0's; None on the others) and the gloo transport's staged
+    bytes and seconds."""
+    import gc
+    import io
+
+    from multi_spatialmllm_tpu_torch.parallel import sharding as S
+
+    S.reset_staged()
+    t0 = time.perf_counter()
+    with flagship_cut_to(M, MESH_LAYERS, MESH_VIT_LAYERS), \
+            watched_train_steps(torch, cli, kernels) as seen:
+        lines = cli_run(cli, ["train", *argv], err=io.StringIO())
+    wall = time.perf_counter() - t0
+    # process 0 alone prints the summary
+    summary = json.loads(lines[-1]) if lines else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=[h["loss"] for h in seen["history"]],
+                grad_norms=[h["grad_norm"] for h in seen["history"]],
+                step_s=[h["step_s"] for h in seen["history"]],
+                launches=seen["launches"], peak=seen["peak"], wall=wall,
+                summary=summary, staged=dict(S.STAGED))
+
+
+def mesh_moe(torch, M, T, impl, mesh_kw, kernels):
+    """The bench MoE (4 experts; `impl` einsum, or ragged with K8; both
+    towers in MESH_MOE_DTYPE) for MESH_STEPS steps of `make_train_step` on
+    bench.py's example batch at MESH_MOE_BATCH (rows, tiles a row, tokens
+    a row), on the mesh `mesh_kw` or without a group. `first_grads`: the norm of each
+    parameter's first gradient, clipped (AdamW's first moment after the
+    first update, whose rate is 0, over 1 - b1), its shards' squares summed
+    over the group that shards it."""
+    import gc
+
+    from multi_spatialmllm_tpu_torch.parallel import sharding as S
+    from multi_spatialmllm_tpu_torch.parallel.mesh import make_mesh
+
+    S.reset_staged()
+    t0 = time.perf_counter()
+    cfg = M.with_dtype(M.bench_1chip_moe_config(
+        impl=impl, kernel="pallas" if impl == "ragged" else "xla"),
+        MESH_MOE_DTYPE)
+    model = M.MultiFrameMLLM(cfg, device="cuda", param_dtype=torch.float32)
+    M.init_random_weights(model, SEED)
+    mesh = make_mesh(**mesh_kw) if mesh_kw else None
+    plan = S.shard_model(model, mesh) if mesh is not None else None
+    opt = T.AdamW(list(model.named_parameters()), T.TrainConfig(
+        learning_rate=1e-5, warmup_steps=1, total_steps=MESH_STEPS))
+    step = T.make_train_step(model, opt, mesh=mesh)
+    rows, tiles, tokens = MESH_MOE_BATCH
+    batch = M.make_example_batch(cfg, batch=rows, n_tiles=tiles,
+                                 seq_len=tokens, device="cuda")
+    if mesh is not None:
+        batch = T.local_rows(batch, 1, mesh)
+    for kern in kernels:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, grad_norms, step_s = [], [], []
+    for _ in range(MESH_STEPS):
+        t1 = time.perf_counter()
+        metrics = step(batch)
+        losses.append(float(metrics["loss"]))
+        grad_norms.append(float(metrics["grad_norm"]))
+        step_s.append(time.perf_counter() - t1)
+        if len(losses) == 1:
+            sq = {n: m.square().sum() for n, m in zip(opt.names, opt.mu)}
+            if plan is not None:
+                for n, v in sq.items():
+                    S.all_reduce_(v, plan.norm_group(n))
+            first = {n: float(v.sqrt()) / (1 - opt.cfg.b1)
+                     for n, v in sq.items()}
+    out = dict(losses=losses, grad_norms=grad_norms, step_s=step_s,
+               first_grads=first,
+               launches={k.name: k.launches for k in kernels},
+               peak=torch.cuda.max_memory_allocated() / 2**30,
+               wall=time.perf_counter() - t0, staged=dict(S.STAGED))
+    del step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve(torch, M, K, reqs, ids, kernels, mesh_kw):
+    """The flagship in bf16 at full depth (seeded weights), on the mesh
+    `mesh_kw` or whole, serving `reqs` on the paged batcher with the
+    prefix cache (and chunked prefill, which resumes a shared prefix whose
+    next page still holds image tokens), bf16 kv then int8 kv -> tokens,
+    launches, stats and
+    decode tokens/s of each, and the model (for the caller's teacher
+    forcing; None on a mesh)."""
+    import gc
+
+    import numpy as np
+
+    from multi_spatialmllm_tpu_torch.parallel import sharding as S
+    from multi_spatialmllm_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    model = M.MultiFrameMLLM(M.flagship_config(), device="cuda")
+    M.init_random_weights(model, SEED)
+    model.eval()
+    if mesh_kw:
+        S.shard_model(model, make_mesh(**mesh_kw))
+    out = {"build_s": time.perf_counter() - t0}
+    for kv in ("native", "int8"):
+        pcfg = K.PagedConfig(slots=8, page_size=64, num_pages=256,
+                             max_prompt_len=2048,
+                             max_new_tokens=MESH_NEW_TOKENS,
+                             prefix_cache=True, prefill_chunk=256,
+                             kv_dtype=kv)
+        batcher = K.PagedBatcher(model, pcfg, pad_id=ids[0], eos_id=ids[1])
+        for kern in kernels:
+            kern.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        tokens = [np.asarray(t).tolist() for t in batcher.generate_all(reqs)]
+        torch.cuda.synchronize()
+        st = dict(batcher.stats)
+        out[kv] = dict(tokens=tokens, wall=time.perf_counter() - t1,
+                       launches={k.name: k.launches for k in kernels},
+                       stats=st, peak=torch.cuda.max_memory_allocated()
+                       / 2**30,
+                       decode_tok_s=st["decode_tokens"]
+                       / max(st["decode_seconds"], 1e-9))
+        del batcher
+        gc.collect()
+        torch.cuda.empty_cache()
+    if mesh_kw:
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = None
+    return out, model
+
+
+def mesh_world(meta, reqs, ids):
+    """One of phase 24's two processes (gloo, both computing on card 0):
+    (a) and (b) through the train CLI, (c) the bench MoE, (d) sharded
+    serving; everything it measured."""
+    import torch
+
+    from multi_spatialmllm_tpu_torch import __main__ as cli
+    from multi_spatialmllm_tpu_torch.models import mllm as M
+    from multi_spatialmllm_tpu_torch.models import paged_kv as K
+    from multi_spatialmllm_tpu_torch.ops import attention as A
+    from multi_spatialmllm_tpu_torch.ops import grouped_matmul as G
+    from multi_spatialmllm_tpu_torch.ops import paged_attention as P
+    from multi_spatialmllm_tpu_torch.parallel import train as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flash = [A.FLASH_FWD, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV]
+    parts = mesh_train_parts(meta)
+    out = {}
+    t0 = time.perf_counter()
+
+    def done(key):       # progress in the process's log
+        log(f"{key} done at {time.perf_counter() - t0:.1f} s: "
+            f"{ {k: v for k, v in out[key].items() if k != 'summary'} }")
+
+    for key in ("tp", "fsdp", "seq"):
+        out[key] = mesh_train(torch, cli, M, parts[key][1], flash)
+        done(key)
+    out["ep_einsum"] = mesh_moe(torch, M, T, "einsum",
+                                dict(n_data=1, n_expert=2), flash)
+    done("ep_einsum")
+    out["tp_ragged"] = mesh_moe(torch, M, T, "ragged",
+                                dict(n_data=1, n_model=2),
+                                flash + [G.GMM, G.GMM_T, G.TGMM])
+    done("tp_ragged")
+    out["serve"], _ = mesh_serve(
+        torch, M, K, reqs, ids,
+        [A.FLASH_FWD, P.PAGED_DECODE, P.PAGED_DECODE_INT8],
+        dict(n_data=1, n_model=2))
+    done("serve")
+    return out
+
+
+def loss_rel(got, want):
+    return [abs(a - b) / abs(b) for a, b in zip(got, want)]
+
+
+def phase_mesh(torch, cli, M, K, T, tok, card, flash, serve_kernels):
+    """Phase 24 (see the module docstring): the references in this
+    process, then one world of two gloo processes on the card."""
+    import gc
+    import tempfile
+
+    from multi_spatialmllm_tpu_torch.dryrun import run_world
+    from multi_spatialmllm_tpu_torch.ops import grouped_matmul as G
+
+    cfg = M.flagship_config()
+    reqs = K.make_serve_requests(cfg, N_MESH_SERVE, seed=SEED + 5,
+                                 questions_per_image=2)
+    ids = (tok.pad_id, tok.eos_id)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        meta = write_repeat_mixture(os.path.join(tmp, "repeat"), 64)
+        parts = mesh_train_parts(meta)
+        t0 = time.perf_counter()
+        ref = {key: mesh_train(torch, cli, M, parts[key][1], flash)
+               for key in ("ref", "seq_ref")}
+        ref["ep_einsum"] = mesh_moe(torch, M, T, "einsum", None, flash)
+        ref["tp_ragged"] = mesh_moe(torch, M, T, "ragged", None,
+                                    flash + [G.GMM, G.GMM_T, G.TGMM])
+        ref["serve"], model = mesh_serve(torch, M, K, reqs, ids,
+                                         serve_kernels, None)
+        log(f"  the runs without a group took {time.perf_counter() - t0:.1f}"
+            f" s")
+        t0 = time.perf_counter()
+        del model        # the world's processes need the card's memory
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = run_world(2, "chip_smoke:mesh_world", (meta, reqs, ids),
+                          device="cpu", timeout=600)
+        out["world_wall"] = time.perf_counter() - t0
+    world = ranks[0]
+    for key, label, against in (
+            ("tp", "(a) --model-parallel 2", "ref"),
+            ("fsdp", "(a) --fsdp --data-parallel 2", "ref"),
+            ("seq", "(b) --seq-parallel 2, unpacked", "seq_ref"),
+            ("ep_einsum", "(c) bench MoE f32 einsum, 2 expert",
+             "ep_einsum"),
+            ("tp_ragged", "(c) bench MoE f32 ragged + K8, 2 model",
+             "tp_ragged")):
+        got, want = world[key], ref[against]
+        diffs = loss_rel(got["losses"], want["losses"])
+        gdiffs = loss_rel(got["grad_norms"], want["grad_norms"])
+        steps = len(got["losses"])
+        per_step = {k: v / steps for k, v in got["launches"].items()}
+        log(f"  {label}: losses {got['losses']} vs {want['losses']} "
+            f"without a group, relative {diffs} (limit {MESH_LOSS_REL:g}); "
+            f"grad norms {got['grad_norms']} vs {want['grad_norms']}, "
+            f"relative {gdiffs} (limit {MESH_GNORM_REL:g}); "
+            f"step s {[round(x, 4) for x in got['step_s']]} vs "
+            f"{[round(x, 4) for x in want['step_s']]}; launches a step "
+            f"{per_step} (no group: "
+            f"{ {k: v / steps for k, v in want['launches'].items()} }); "
+            f"peak {[round(r[key]['peak'], 3) for r in ranks]} GiB a "
+            f"process (no group {want['peak']:.3f}); staged "
+            f"{got['staged']}; part {got['wall']:.1f} s; {card}")
+        if any(r[key]["losses"] != got["losses"]
+               or r[key]["grad_norms"] != got["grad_norms"] for r in ranks):
+            fail(f"{label}: the processes' losses or grad norms differ")
+        if want["losses"][-1] == want["losses"][0]:
+            fail(f"{label}: no update seen: the run without a group ends "
+                 f"at its first loss {want['losses']}")
+        if len(diffs) != MESH_STEPS or max(diffs) > MESH_LOSS_REL:
+            fail(f"{label}: losses {diffs} relative from the run without "
+                 f"a group")
+        if len(gdiffs) != MESH_STEPS or max(gdiffs) > MESH_GNORM_REL:
+            fail(f"{label}: grad norms {gdiffs} relative from the run "
+                 f"without a group")
+        if "first_grads" in want:
+            first = {n: abs(got["first_grads"][n] - g) / g
+                     for n, g in want["first_grads"].items() if g > 0}
+            worst = max(first, key=first.get)
+            log(f"  {label}: {len(first)} first gradients' norms, the "
+                f"farthest {worst} at {first[worst]:.3g} relative (limit "
+                f"{MESH_FIRST_GRAD_REL:g})")
+            if (set(got["first_grads"]) != set(want["first_grads"])
+                    or first[worst] > MESH_FIRST_GRAD_REL):
+                fail(f"{label}: first gradient of {worst} "
+                     f"{first[worst]:.3g} relative from the run without a "
+                     f"group")
+        if min(got["launches"].values()) <= 0:
+            fail(f"{label}: a kernel never launched: {got['launches']}")
+        out[key] = dict(got, diffs=diffs, gnorm_diffs=gdiffs, ref=want)
+    serve = world["serve"]
+    out["serve"] = {}
+    for kv in ("native", "int8"):
+        got, want = serve[kv], ref["serve"][kv]
+        equal = sum(a == b for a, b in zip(got["tokens"], want["tokens"]))
+        pos = sum(min(len(a), len(b)) for a, b in zip(got["tokens"],
+                                                      want["tokens"]))
+        same = sum(x == y for a, b in zip(got["tokens"], want["tokens"])
+                   for x, y in zip(a, b))
+        log(f"  (d) flagship bf16 under 2 model, {kv} kv: "
+            f"{len(got['tokens'])} requests, {equal} token streams equal to "
+            f"the run without a group, {same}/{pos} tokens at common "
+            f"positions; decode {got['decode_tok_s']:.1f} tokens/s "
+            f"(whole model {want['decode_tok_s']:.1f}); launches "
+            f"{got['launches']} (whole {want['launches']}); stats "
+            f"{got['stats']}; peak {[round(r['serve'][kv]['peak'], 3) for r in ranks]} "
+            f"GiB a process (whole {want['peak']:.3f}); {card}")
+        if any(r["serve"][kv]["tokens"] != got["tokens"] for r in ranks):
+            fail(f"(d) {kv}: the processes' tokens differ")
+        if got["stats"]["pages_reused"] <= 0:
+            fail(f"(d) {kv}: the prefix cache reused no page")
+        kern = "paged_decode" if kv == "native" else "paged_decode_int8"
+        if got["launches"][kern] <= 0 or got["launches"]["flash_fwd"] <= 0:
+            fail(f"(d) {kv}: K1 or K7 never launched: {got['launches']}")
+        out["serve"][kv] = dict(got, equal_streams=equal, same_tokens=same,
+                                positions=pos, ref=want)
+    agreement = teacher_forced_agreement(
+        torch, M, reqs, [serve[kv]["tokens"] for kv in ("native", "int8")])
+    out["serve_agreement"] = {kv: f"{a}/{n}" for kv, (a, n)
+                              in zip(("native", "int8"), agreement)}
+    log(f"  (d) teacher-forced agreement of the sharded run's tokens under "
+        f"the whole model (bf16 kv): {out['serve_agreement']} (floors "
+        f"{MESH_AGREE_MIN:g} bf16 kv, {MESH_AGREE_MIN_INT8:g} int8 kv); "
+        f"world {out['world_wall']:.1f} s; {card}")
+    for kv, (a, n), floor in zip(("native", "int8"), agreement,
+                                 (MESH_AGREE_MIN, MESH_AGREE_MIN_INT8)):
+        if a < floor * n:
+            fail(f"(d) {kv} kv: the whole model picks {a}/{n} of the "
+                 f"sharded run's tokens, under the floor {floor:g}")
+    return out
+
+
+def teacher_forced_agreement(torch, M, reqs, token_sets):
+    """For each run's tokens (`token_sets`, one list a request each), how
+    many the whole model's full causal forward over prompt + tokens picks
+    (bf16 near ties may flip) and how many there are."""
+    import gc
+
+    model = M.MultiFrameMLLM(M.flagship_config(), device="cuda")
+    M.init_random_weights(model, SEED)
+    model.eval()
+    out = []
+    with torch.no_grad():
+        for tokens in token_sets:
+            agree = total = 0
+            for (ids, tiles), toks in zip(reqs, tokens):
+                seq = torch.tensor([list(map(int, ids)) + toks],
+                                   device="cuda")
+                logits = model(seq, torch.from_numpy(tiles)[None].cuda())
+                if not torch.isfinite(logits).all():
+                    fail("(d) non-finite logits at the flagship width")
+                pred = logits[0, len(ids) - 1:-1].argmax(-1).tolist()
+                agree += sum(int(a == b) for a, b in zip(pred, toks))
+                total += len(toks)
+            out.append((agree, total))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5349,6 +5783,20 @@ def main(argv=None):
             [A.FLASH_FWD, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV],
             [G.GMM, G.GMM_T, G.TGMM])
         log(f"  phase 23 took {time.perf_counter() - t0:.1f} s; {card}")
+        torch.cuda.empty_cache()
+    if 24 in phases:
+        head(24, "the mesh's model, seq and expert axes and FSDP: train "
+                 "under 2 model, FSDP over 2 data, ring attention over 2 "
+                 "seq, the bench MoE over 2 expert and ragged under 2 "
+                 "model, the flagship served under 2 model; one world of "
+                 "two gloo processes on the card, each part against the "
+                 "run without a group")
+        t0 = time.perf_counter()
+        res["mesh"] = phase_mesh(
+            torch, cli, M, K, T, tok, card,
+            [A.FLASH_FWD, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV],
+            [A.FLASH_FWD, P.PAGED_DECODE, P.PAGED_DECODE_INT8])
+        log(f"  phase 24 took {time.perf_counter() - t0:.1f} s; {card}")
     log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     if phases != set(range(3, N_PHASES + 1)):
@@ -5375,13 +5823,19 @@ def main(argv=None):
     bench_errs = res["bench_train"]["flash_errs"]
     dp_train = res["data_axis"]["dp_launches"]
     dp_moe_train = res["data_axis"]["moe_launches"]
+    mesh = res["mesh"]
+    mesh_flash = {f"mesh_{k}": mesh[k]["launches"] for k in
+                  ("tp", "fsdp", "seq", "ep_einsum", "tp_ragged")}
+    mesh_moe = {"mesh_tp_ragged": mesh["tp_ragged"]["launches"]}
     flash = dict(serve=res["serve"], train=train, moe_serve=moe_serve,
                  moe_train=moe_train, frames_serve=frames,
                  eval_paged=ev["eval_paged"], eval_batched=ev["eval_batched"],
                  moe_eval=ev["moe_eval"], lora_serve=lo["serve"],
                  lora_train=lo["train"], moe_lora_train=lo["moe_train"],
                  bench_train=bench, bench_moe_train=bench_moe,
-                 dp_train=dp_train, dp_moe_train=dp_moe_train)
+                 dp_train=dp_train, dp_moe_train=dp_moe_train, **mesh_flash,
+                 mesh_serve=mesh["serve"]["native"]["launches"],
+                 mesh_serve_int8=mesh["serve"]["int8"]["launches"])
     kernels = [
         kernel_entry("flash_fwd", "flash_fwd.cu",
                      f"{jax_attn}:92 (K1); :483 (K4, streaming)",
@@ -5395,7 +5849,8 @@ def main(argv=None):
                              moe_train=moe_train, lora_train=lo["train"],
                              moe_lora_train=lo["moe_train"],
                              bench_train=bench, bench_moe_train=bench_moe,
-                             dp_train=dp_train, dp_moe_train=dp_moe_train),
+                             dp_train=dp_train, dp_moe_train=dp_moe_train,
+                             **mesh_flash),
                      max(err_dq, bench_errs["dq"]),
                      (tr["dq"][0], tr["plain"], tr["dq"][1]), tr["lib_bwd"]),
         kernel_entry("flash_bwd_dkv", "flash_bwd.cu",
@@ -5404,7 +5859,8 @@ def main(argv=None):
                              moe_train=moe_train, lora_train=lo["train"],
                              moe_lora_train=lo["moe_train"],
                              bench_train=bench, bench_moe_train=bench_moe,
-                             dp_train=dp_train, dp_moe_train=dp_moe_train),
+                             dp_train=dp_train, dp_moe_train=dp_moe_train,
+                             **mesh_flash),
                      max(err_dkv, bench_errs["dk"], bench_errs["dv"]),
                      (tr["dkv"][0], tr["plain"], tr["dkv"][1]),
                      tr["lib_bwd"]),
@@ -5413,26 +5869,32 @@ def main(argv=None):
                      by_path("paged_decode", serve=res["serve"],
                              frames_serve=frames,
                              eval_paged=ev["eval_paged"],
-                             lora_serve=lo["serve"]), k7_err,
+                             lora_serve=lo["serve"],
+                             mesh_serve=mesh["serve"]["native"]["launches"]),
+                     k7_err,
                      k7_timing(k7), None),
         kernel_entry("paged_decode_int8", "paged_decode.cu",
                      "multi_spatialmllm_tpu/ops/paged_attention.py:95 "
                      "(quant branch, :220-245, :256-275)",
                      by_path("paged_decode_int8", moe_serve=moe_serve,
-                             moe_eval=ev["moe_eval"]),
+                             moe_eval=ev["moe_eval"],
+                             mesh_serve_int8=mesh["serve"]["int8"][
+                                 "launches"]),
                      k7i8_err, k7_timing(k7i8), None),
     ]
     for name, replaces, paths in (
             ("gmm", f"{jax_moe}:133 (_pallas_gmm: megablox gmm)",
              dict(moe_train=moe_train, moe_serve=moe_serve,
                   moe_eval=ev["moe_eval"], moe_lora_train=lo["moe_train"],
-                  bench_moe_train=bench_moe, dp_moe_train=dp_moe_train)),
+                  bench_moe_train=bench_moe, dp_moe_train=dp_moe_train,
+                  **mesh_moe)),
             ("gmm_t", f"{jax_moe}:146-165 (VJP: gmm, transpose_rhs)",
              dict(moe_train=moe_train, moe_lora_train=lo["moe_train"],
-                  bench_moe_train=bench_moe, dp_moe_train=dp_moe_train)),
+                  bench_moe_train=bench_moe, dp_moe_train=dp_moe_train,
+                  **mesh_moe)),
             ("tgmm", f"{jax_moe}:146-165 (VJP: megablox tgmm)",
              dict(moe_train=moe_train, bench_moe_train=bench_moe,
-                  dp_moe_train=dp_moe_train))):
+                  dp_moe_train=dp_moe_train, **mesh_moe))):
         t_k, t_p, t_l, bound, _ = k8[(name, "train gate/up")]
         kernels.append(kernel_entry(name, "grouped_matmul.cu", replaces,
                                     by_path(name, **paths), k8_err[name],

@@ -451,19 +451,6 @@ def train_steps(step_fn: Callable, batches: Iterable[dict], steps: int,
     return summary, history
 
 
-def _refuse_unported_train_flags(args) -> None:
-    unported = {
-        "--model-parallel > 1": args.model_parallel > 1,
-        "--seq-parallel > 1": args.seq_parallel > 1,
-        "--expert-parallel > 1": args.expert_parallel > 1,
-        "--fsdp": args.fsdp}
-    asked = [flag for flag, val in unported.items() if val]
-    if asked:
-        raise NotImplementedError(
-            f"train {', '.join(asked)}: not ported yet (the port trains "
-            f"over the data axis alone; see ROADMAP.md, item 17)")
-
-
 def _launched_world() -> int:
     """The processes this one runs among: its group's size, else the
     launcher's `WORLD_SIZE`, else 1."""
@@ -475,15 +462,23 @@ def _launched_world() -> int:
 
 
 def _check_data_parallel(args) -> None:
-    """`--data-parallel n` must be the number of processes launched (the
-    JAX CLI takes n of its chips; here each process is one)."""
+    """The mesh `data x model x seq x expert` must fit the processes
+    launched: exactly, when `--data-parallel` is given (the JAX CLI takes
+    that many of its chips; here each process is one), else the other axes
+    must divide them (the data axis takes the rest, as `make_mesh` fills
+    it)."""
     world = _launched_world()
-    if args.data_parallel and args.data_parallel != world:
+    other = args.model_parallel * args.seq_parallel * args.expert_parallel
+    n = (args.data_parallel or 1) * other
+    if (args.data_parallel and n != world) or world % other:
+        shape = (f"{args.data_parallel or 'data'} x {args.model_parallel} "
+                 f"model x {args.seq_parallel} seq x "
+                 f"{args.expert_parallel} expert")
         raise ValueError(
-            f"--data-parallel {args.data_parallel} does not match the "
-            f"{world} process(es) launched: start one process a device, "
-            f"e.g. python -m torch.distributed.run --nproc-per-node "
-            f"{args.data_parallel} -m multi_spatialmllm_tpu_torch train ...")
+            f"the mesh ({shape}) does not match the {world} process(es) "
+            f"launched: start one process a device, e.g. python -m "
+            f"torch.distributed.run --nproc-per-node {n} -m "
+            f"multi_spatialmllm_tpu_torch train ...")
 
 
 def _train_config(args):
@@ -512,16 +507,21 @@ def cmd_train(args) -> None:
     checkpoints on a background thread. Prints the JAX CLI's summary
     line.
 
-    Data parallelism: launched as `n` processes (`python -m
-    torch.distributed.run --nproc-per-node n -m multi_spatialmllm_tpu_torch
-    train ...`), the command joins their group (NCCL on the card, gloo with
-    `--device cpu`) and trains over a mesh whose data axis is the group
-    (`--data-parallel`, when given, must equal `n`). Every process builds
-    the same global batches from the mixture and the seed, and keeps its
-    rows of each (`parallel/train.local_rows`); process 0 alone logs,
-    evaluates, saves and prints the summary, and the others wait for it at
-    a barrier."""
-    _refuse_unported_train_flags(args)
+    The mesh: launched as `n` processes (`python -m torch.distributed.run
+    --nproc-per-node n -m multi_spatialmllm_tpu_torch train ...`), the
+    command joins their group (NCCL on the card, gloo with `--device cpu`)
+    and trains over the mesh the JAX CLI builds from `--data-parallel`
+    (the rest of the processes when not given), `--model-parallel` (Megatron
+    tensor parallelism), `--seq-parallel` (ring attention), and
+    `--expert-parallel` (the MoE's expert tables; einsum impl only), with
+    `--fsdp` sharding the large parameters over the data axis
+    (parallel/sharding.shard_model). Every process builds the same global
+    batches from the mixture and the seed, and keeps its rows of each
+    (`parallel/train.local_rows`). Checkpoints hold the whole tensors, as a
+    single-device save does, and `--resume` re-shards them. Process 0
+    alone logs, saves and prints the summary; on a mesh that shards the
+    model every process takes part in the evaluation (process 0 reports
+    it), else process 0 evaluates alone; the others wait at a barrier."""
     _check_data_parallel(args)
     cfg = _train_config(args)
     import torch
@@ -538,7 +538,14 @@ def cmd_train(args) -> None:
     from .models.preprocess import PreprocessConfig
     from .models.tokenizer import load_tokenizer
     from .parallel.distributed import initialize_multihost
-    from .parallel.mesh import make_mesh
+    from .parallel.mesh import axes_group, make_mesh
+    from .parallel.sharding import (
+        ROW_AXES,
+        model_state,
+        optimizer_state,
+        shard_model,
+        shard_optimizer_state,
+    )
     from .parallel.train import (
         AdamW,
         AsyncRollingSaver,
@@ -577,9 +584,12 @@ def cmd_train(args) -> None:
     owns_group = not dist.is_initialized()
     initialize_multihost(device=args.device)
     grouped = dist.is_initialized()
-    mesh = make_mesh(n_data=args.data_parallel or None) if grouped else None
+    mesh = make_mesh(n_data=args.data_parallel or None,
+                     n_model=args.model_parallel, n_seq=args.seq_parallel,
+                     n_expert=args.expert_parallel) if grouped else None
     world, first = (dist.get_world_size(), dist.get_rank() == 0) \
         if grouped else (1, True)
+    rows = axes_group(mesh, ROW_AXES)[2]
 
     def log(kind, **fields):
         if first:
@@ -636,13 +646,19 @@ def cmd_train(args) -> None:
                   "frozen (expert tables are not LoRA targets)",
                   file=sys.stderr)
         lora = L.init_lora(model, lcfg, prng.key(args.seed + 1))
+    plan = shard_model(model, mesh, fsdp=args.fsdp) if mesh is not None \
+        else None
+    # every process evaluates a model whose parameters it holds a share of
+    sharded = plan is not None and any(plan.shard_axes(n)
+                                       for n in plan.layout)
+    if lora is not None:
         opt = AdamW(L.lora_named_tensors(lora), train_cfg)
         step_fn = L.make_lora_train_step(model, opt, lcfg, mesh=mesh)
         log("lora", rank=lcfg.rank, trainable=L.lora_param_count(lora))
     else:
         opt = AdamW(list(model.named_parameters()), train_cfg)
         if opt_state is not None:
-            opt.load_state_dict(opt_state)
+            opt.load_state_dict(shard_optimizer_state(opt_state, plan))
         step_fn = make_train_step(model, opt, accum_steps=args.accum,
                                   mesh=mesh)
 
@@ -678,17 +694,18 @@ def cmd_train(args) -> None:
         if args.async_save and args.output and first else None
 
     def save(step):
-        if first:
-            write(step)
-        together()
-
-    def write(step):
+        # whole tensors (gathered over the mesh by every process)
         if lora is not None:            # merged weights, no optimizer state
             from .parallel.lora import merge_lora
 
-            params, state = merge_lora(model.state_dict(), lora, lcfg), None
+            params, state = merge_lora(model_state(model), lora, lcfg), None
         else:
-            params, state = model, opt
+            params, state = model_state(model), optimizer_state(opt, plan)
+        if first:
+            write(step, params, state)
+        together()
+
+    def write(step, params, state):
         if saver is not None:           # the write overlaps the next steps
             where = saver.save(params, state, step=step)
         else:
@@ -698,9 +715,9 @@ def cmd_train(args) -> None:
         log("checkpoint", path=where, step=step)
 
     def evaluate(step):
-        acc = run_eval_now(step) if first else None
+        acc = run_eval_now(step) if first or sharded else None
         together()
-        return acc
+        return acc if first else None
 
     def after_step(n):
         if args.save_every and n % args.save_every == 0:
@@ -722,7 +739,7 @@ def cmd_train(args) -> None:
         summary, history = train_steps(step_fn, batches, args.steps, device,
                                        start_step=start_step,
                                        log_every=args.log_every, log=log,
-                                       after_step=after_step, world=world)
+                                       after_step=after_step, world=rows)
     if args.output:
         save(start_step + len(history))
         if saver is not None:
@@ -1237,13 +1254,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval-max-new-tokens", type=int, default=24)
     p.add_argument("--mc-logprob", action="store_true",
                    help="score MC eval records by candidate logprob")
-    # the JAX CLI's multi-device options: accepted, and each raises
-    # NotImplementedError (the port trains on one device)
-    p.add_argument("--data-parallel", type=int, default=0)
-    p.add_argument("--model-parallel", type=int, default=1)
-    p.add_argument("--seq-parallel", type=int, default=1)
-    p.add_argument("--expert-parallel", type=int, default=1)
-    p.add_argument("--fsdp", action="store_true")
+    # the mesh (one process a device, launched by torch.distributed.run)
+    p.add_argument("--data-parallel", type=int, default=0,
+                   help="data axis (0: the processes the other axes leave)")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="tensor-parallel (Megatron) axis")
+    p.add_argument("--seq-parallel", type=int, default=1,
+                   help="sequence axis (ring attention)")
+    p.add_argument("--expert-parallel", type=int, default=1,
+                   help="expert axis (MoE tables; --moe-impl einsum)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="also shard large parameters over the data axis")
     p.set_defaults(fn=cmd_train)
     return parser
 

@@ -83,7 +83,8 @@ def prefill(model: MultiFrameMLLM, input_ids, tiles, max_len: int):
     `(logits [B, T, V], caches)`."""
     dev = model_device(model)
     ids = _long(input_ids, dev)
-    caches = init_cache(model.cfg.llm, ids.shape[0], max_len, dev)
+    caches = init_cache(model.cfg.llm, ids.shape[0], max_len, dev,
+                        model.llm.kv_heads)
     logits, _ = model.prefill(
         ids, torch.as_tensor(np.asarray(tiles, np.float32), device=dev),
         caches)

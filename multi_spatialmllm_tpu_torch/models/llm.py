@@ -37,6 +37,13 @@ scales stay float32. `remat` checkpoints each layer
 (`torch.utils.checkpoint`); the config's `remat_policy` names what a
 checkpointed layer keeps from its forward (the JAX config's names, see
 `remat_layer()`): None recomputes the whole layer.
+
+On a mesh (parallel/sharding.shard_model) a process holds its shard of
+the heads, the FFN and the vocabulary and runs Megatron's regions: each
+column-parallel group enters a TP region, each row-parallel product's
+partial sums are all-reduced, the vocab shards' logits are gathered.
+Under a ring (ops/ring_attention.ring_context) training attention runs
+over the mesh's "seq" axis.
 """
 
 from __future__ import annotations
@@ -56,6 +63,11 @@ from ..ops.attention import (
     FLASH_FWD_OP,
     trainable_flash_attention,
     trainable_flash_attention_packed,
+)
+from ..ops.ring_attention import (
+    active_ring_mesh,
+    ring_attention,
+    seq_gathered_packed_attention,
 )
 from ..ops.paged_attention import (
     grouped_attention,
@@ -186,29 +198,59 @@ class Linear(nn.Linear):
     whatever dtype the parameters are held in. A training adapter
     (`adapter`: `({"a", "b"}, scale)`, set by parallel/lora.py) is merged
     into the weight at every forward: `W.float() + ((A @ B) * scale).T`,
-    cast back to W's dtype, a new tensor (the base is never written)."""
+    cast back to W's dtype, a new tensor (the base is never written).
+
+    On the model axis (`tp`, a parallel/sharding.TPShard set by
+    `shard_model`) the weight is this process's shard: a column-parallel
+    layer ("col") computes its share of the outputs, with its share of the
+    replicated bias; a row-parallel one ("row") computes partial sums over
+    its share of the inputs, adds `extra` (a serving adapter's delta,
+    partial as well), all-reduces, then adds the bias once."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool = True,
                  device=None, dtype=None):
         super().__init__(d_in, d_out, bias=bias, device=device, dtype=dtype)
         self.compute_dtype = dtype
         self.adapter = None
+        self.tp = None
 
-    def forward(self, x):
+    def forward(self, x, extra=None):
         cd = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(cd)
         w = dequantized(self, "weight")
         if self.adapter is not None:
-            w = merge_adapter(w, *self.adapter)
-        return F.linear(x.to(cd), w.to(cd), bias)
+            w = merge_adapter(w, *self.adapter, shard=self.tp)
+        tp = self.tp
+        if tp is None or tp.kind != "row":
+            if tp is not None and bias is not None:
+                bias = tp.take(bias, 0)
+            return _plus(F.linear(x.to(cd), w.to(cd), bias), extra)
+        from ..parallel.sharding import tp_region_exit
+
+        y = tp_region_exit(_plus(F.linear(x.to(cd), w.to(cd)), extra),
+                           tp.group)
+        return _plus(y, bias)
 
 
-def merge_adapter(w: torch.Tensor, ad: dict, scale: float) -> torch.Tensor:
+def merge_adapter(w: torch.Tensor, ad: dict, scale: float,
+                  shard=None) -> torch.Tensor:
     """`w` `[out, in]` plus its adapter's delta `((A @ B) * scale).T`
     (A `[in, r]`, B `[r, out]`), added in float32 and cast back to `w`'s
     dtype: the product, then the scale, then the add, as the JAX
-    package's `merge_lora`. A new tensor; `w` is untouched."""
-    return (w.float() + ((ad["a"] @ ad["b"]) * scale).T).to(w.dtype)
+    package's `merge_lora`. A new tensor; `w` is untouched. With a model
+    axis `shard` (`w` a column- or row-parallel shard) the delta is the
+    slice that matches it: B's share of the outputs, or A's of the
+    inputs."""
+    a, b = ad["a"], ad["b"]
+    if shard is not None and shard.kind == "col":
+        b = shard.take(b, 1)
+    elif shard is not None and shard.kind == "row":
+        a = shard.take(a, 0)
+    return (w.float() + ((a @ b) * scale).T).to(w.dtype)
+
+
+def _plus(y: torch.Tensor, d: torch.Tensor | None) -> torch.Tensor:
+    return y if d is None else y + d
 
 
 def apply_lora_delta(x: torch.Tensor, lora: dict | None, name: str,
@@ -229,22 +271,30 @@ def apply_lora_delta(x: torch.Tensor, lora: dict | None, name: str,
     return (torch.einsum("btr,bro->bto", xa, b) * lora["scale"]).to(dtype)
 
 
-def _plus(y: torch.Tensor, d: torch.Tensor | None) -> torch.Tensor:
-    return y if d is None else y + d
-
-
 class Embedding(nn.Embedding):
     """`nn.Embedding` with Flax `Embed(dtype=...)` semantics: rows come out
     in the compute dtype (gathered, then cast: the same values as casting
-    the table first)."""
+    the table first). On the model axis (`tp`) the table is this process's
+    shard of the vocabulary."""
 
     def __init__(self, n: int, d: int, device=None, dtype=None):
         super().__init__(n, d, device=device, dtype=dtype)
         self.compute_dtype = dtype
+        self.tp = None
 
     def forward(self, ids):
-        return F.embedding(ids, dequantized(self, "weight")).to(
-            self.compute_dtype)
+        w = dequantized(self, "weight")
+        if self.tp is None:
+            return F.embedding(ids, w).to(self.compute_dtype)
+        # vocab-sharded: this shard's rows, zero for the ids it does not
+        # hold, summed over the model axis (one shard holds each id)
+        from ..parallel.sharding import tp_region_exit
+
+        local = ids - self.tp.coord * w.shape[0]
+        inside = (local >= 0) & (local < w.shape[0])
+        rows = F.embedding(local.clamp(0, w.shape[0] - 1), w)
+        rows = rows * inside[..., None].to(rows.dtype)
+        return tp_region_exit(rows, self.tp.group).to(self.compute_dtype)
 
 
 class RMSNorm(nn.Module):
@@ -270,6 +320,14 @@ class Attention(nn.Module):
         self.wk = Linear(d, cfg.num_kv_heads * hd, **kw)
         self.wv = Linear(d, cfg.num_kv_heads * hd, **kw)
         self.wo = Linear(cfg.num_heads * hd, d, **kw)
+        self.tp = None      # the model axis's place (parallel/sharding.py)
+
+    @property
+    def heads(self) -> tuple[int, int]:
+        """(query heads, kv heads) this process computes: all of them, or
+        its share on the model axis."""
+        n = 1 if self.tp is None else self.tp.size
+        return self.cfg.num_heads // n, self.cfg.num_kv_heads // n
 
     def forward(self, x, rope, cache=None, segment_ids=None, lora=None):
         """`rope`: `rope_tables` of the positions. Without a cache
@@ -278,20 +336,39 @@ class Attention(nn.Module):
         rows), returning `(out, (k, v))` with k/v `[B, KVH, T, hd]`. With a
         contiguous or paged cache (see the module docstring): `(out,
         None)`, the cache updated in place. `lora`: a layer's serving
-        adapters (`apply_lora_delta`) on wq, wk, wv and wo."""
+        adapters (`apply_lora_delta`) on wq, wk, wv and wo.
+
+        On the model axis the layer computes its share of the heads (kv
+        heads too, so caches hold `KVH / n_model` heads). Under a ring
+        (ops/ring_attention.ring_context) `x` is this process's block of
+        the sequence and training attention runs over the ring; packed
+        rows gather the sequence and take K1's packed path."""
         cfg = self.cfg
         b, t, _ = x.shape
         hd = cfg.head_dim
         dt = DTYPES[cfg.dtype]
-        q = _plus(self.wq(x), apply_lora_delta(x, lora, "wq", dt))
-        k = _plus(self.wk(x), apply_lora_delta(x, lora, "wk", dt))
-        v = _plus(self.wv(x), apply_lora_delta(x, lora, "wv", dt))
-        q = q.view(b, t, cfg.num_heads, hd).transpose(1, 2)
-        k = k.view(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
-        v = v.view(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
+        nh, nkv = self.heads
+        if self.tp is not None:
+            from ..parallel.sharding import tp_region_enter
+
+            x = tp_region_enter(x, self.tp.group)
+        q = self.wq(x, apply_lora_delta(x, lora, "wq", dt))
+        k = self.wk(x, apply_lora_delta(x, lora, "wk", dt))
+        v = self.wv(x, apply_lora_delta(x, lora, "wv", dt))
+        q = q.view(b, t, nh, hd).transpose(1, 2)
+        k = k.view(b, t, nkv, hd).transpose(1, 2)
+        v = v.view(b, t, nkv, hd).transpose(1, 2)
         q, k = rotate(q, rope), rotate(k, rope)
         kv = None
-        if cache is None:
+        ring = active_ring_mesh() if cache is None else None
+        if ring is not None:
+            if segment_ids is None:
+                out = ring_attention(q, k, v, ring)
+            else:
+                out = seq_gathered_packed_attention(q, k, v, segment_ids,
+                                                    ring)
+            kv = (k, v)
+        elif cache is None:
             if segment_ids is None:
                 out = trainable_flash_attention(q, k, v, True)
             else:
@@ -326,8 +403,8 @@ class Attention(nn.Module):
                 valid = (torch.arange(kv_len, device=x.device)[None, None, :]
                          <= cur[:, :, None])
                 out = grouped_attention(q, cache["k"], cache["v"], valid)
-        out = out.transpose(1, 2).reshape(b, t, cfg.num_heads * hd)
-        return _plus(self.wo(out), apply_lora_delta(out, lora, "wo", dt)), kv
+        out = out.transpose(1, 2).reshape(b, t, nh * hd)
+        return self.wo(out, apply_lora_delta(out, lora, "wo", dt)), kv
 
 
 def write_cache_rows(cache: dict, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -348,11 +425,14 @@ def write_cache_rows(cache: dict, k: torch.Tensor, v: torch.Tensor) -> None:
     cache["v"][rows, :, pos] = v.transpose(1, 2)
 
 
-def init_cache(cfg: LLMConfig, batch: int, max_len: int, device=None):
+def init_cache(cfg: LLMConfig, batch: int, max_len: int, device=None,
+               kv_heads: int | None = None):
     """An empty contiguous kv cache, one dict a layer: k/v `[batch, KVH,
-    max_len, hd]` in the config dtype (zeros) and index 0."""
+    max_len, hd]` in the config dtype (zeros) and index 0; `kv_heads` the
+    heads a process holds on the model axis (`DecoderLM.kv_heads`), all of
+    them by default."""
     dtype = DTYPES[cfg.dtype]
-    shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    shape = (batch, kv_heads or cfg.num_kv_heads, max_len, cfg.head_dim)
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device),
              "index": 0} for _ in range(cfg.num_layers)]
@@ -366,13 +446,18 @@ class MLP(nn.Module):
         self.gate = Linear(cfg.hidden_size, cfg.ffn_size, **kw)
         self.up = Linear(cfg.hidden_size, cfg.ffn_size, **kw)
         self.down = Linear(cfg.ffn_size, cfg.hidden_size, **kw)
+        self.tp = None      # the model axis's place (parallel/sharding.py)
 
     def forward(self, x, lora=None):
         dt = DTYPES[self.cfg.dtype]
-        gate = _plus(self.gate(x), apply_lora_delta(x, lora, "gate", dt))
-        up = _plus(self.up(x), apply_lora_delta(x, lora, "up", dt))
+        if self.tp is not None:
+            from ..parallel.sharding import tp_region_enter
+
+            x = tp_region_enter(x, self.tp.group)
+        gate = self.gate(x, apply_lora_delta(x, lora, "gate", dt))
+        up = self.up(x, apply_lora_delta(x, lora, "up", dt))
         h = F.silu(gate) * up
-        return _plus(self.down(h), apply_lora_delta(h, lora, "down", dt))
+        return self.down(h, apply_lora_delta(h, lora, "down", dt))
 
 
 class DecoderLayer(nn.Module):
@@ -420,15 +505,25 @@ class DecoderLM(nn.Module):
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.norm_eps, device)
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
                               device=device, dtype=dtype)
+        self.tp = None      # the model axis's place (parallel/sharding.py)
+
+    @property
+    def kv_heads(self) -> int:
+        """The kv heads a layer's cache holds in this process."""
+        return self.layers[0].attn.heads[1] if len(self.layers) else \
+            self.cfg.num_kv_heads
 
     def forward(self, input_embeds, positions, caches=None, segment_ids=None,
-                inference: bool = False, with_aux: bool = False, lora=None):
+                inference: bool = False, with_aux: bool = False, lora=None,
+                vocab_shard: bool = False):
         """`caches`: None, or one contiguous or paged cache dict per layer
         (see the module docstring); `segment_ids` `[B, T]` for packed
         rows (with per-segment `positions`); `inference` True for prefill
         and decode (the MoE's inference routing), False for training;
         `lora` a multi-adapter serving bundle (parallel/lora_serving.py's
-        tables with a per-row `idx`). Returns `(logits, kv rows per
+        tables with a per-row `idx`); `vocab_shard` keeps a
+        tensor-parallel process's logits to its vocab shard (for
+        `cross_entropy_sum(tp=...)`). Returns `(logits, kv rows per
         layer)`, and with `with_aux` also the per-layer MoE statistics
         (None for dense layers)."""
         x = input_embeds
@@ -449,18 +544,35 @@ class DecoderLM(nn.Module):
                                    segment_ids, inference, layer_lora)
             kvs.append(kv)
             auxes.append(aux)
-        logits = self.lm_head(self.final_norm(x))
+        h = self.final_norm(x)
+        if self.tp is None:
+            logits = self.lm_head(h)
+        else:       # the vocab shard's logits, gathered unless asked
+            from ..parallel.sharding import gather_last, tp_region_enter
+
+            logits = self.lm_head(tp_region_enter(h, self.tp.group))
+            if not vocab_shard:
+                logits = gather_last(logits, self.tp.group)
         return (logits, kvs, auxes) if with_aux else (logits, kvs)
 
 
-def cross_entropy_sum(logits, labels, ignore_index: int = -100):
+def cross_entropy_sum(logits, labels, ignore_index: int = -100, tp=None):
     """Masked next-token loss, unnormalised: `(nll_sum, token_count)` with
     the log-softmax in float32. Summing these over microbatches and dividing
-    once makes gradient accumulation equal to the single-batch mean."""
+    once makes gradient accumulation equal to the single-batch mean. With
+    the model axis's place `tp`, `logits` are this process's vocab shard
+    (`vocab_shard=True`) and the loss is the vocab-parallel one
+    (parallel/sharding.vocab_parallel_nll): no process gathers the
+    logits."""
     mask = labels != ignore_index
     safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    if tp is not None:
+        from ..parallel.sharding import vocab_parallel_nll
+
+        nll = vocab_parallel_nll(logits, safe, tp)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     return (nll * mask).sum(), mask.sum()
 
 

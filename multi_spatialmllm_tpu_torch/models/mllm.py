@@ -18,6 +18,8 @@ import math
 import torch
 from torch import nn
 
+from ..ops.ring_attention import active_ring_mesh
+from ..parallel.sharding import tp_region_enter
 from .llm import DTYPES, DecoderLM, Linear, LLMConfig, cross_entropy_loss
 from .moe import MoEMLP
 from .vit import LayerNorm, ViTConfig, VisionTransformer, gelu
@@ -54,9 +56,13 @@ class Projector(nn.Module):
         self.norm = LayerNorm(d_in, 1e-6, dtype, device)
         self.fc1 = Linear(d_in, d, device=device, dtype=dtype)
         self.fc2 = Linear(d, d, device=device, dtype=dtype)
+        self.tp = None      # the model axis's place (parallel/sharding.py)
 
     def forward(self, vision_tokens):
-        return self.fc2(gelu(self.fc1(self.norm(vision_tokens))))
+        h = self.norm(vision_tokens)
+        if self.tp is not None:     # fc1 column-, fc2 row-parallel
+            h = tp_region_enter(h, self.tp.group)
+        return self.fc2(gelu(self.fc1(h)))
 
 
 class MultiFrameMLLM(nn.Module):
@@ -76,31 +82,39 @@ class MultiFrameMLLM(nn.Module):
         return self.projector(feats)
 
     def spliced_embeds(self, input_ids: torch.Tensor,
-                       tiles: torch.Tensor) -> torch.Tensor:
+                       tiles: torch.Tensor,
+                       block: slice | None = None) -> torch.Tensor:
         """Token embeddings with vision features scattered into the
         IMG_CONTEXT slots by the clipped cumsum slot index. `input_ids`
-        `[B, T]`, `tiles` `[B, N_tiles, H, W, 3]`."""
+        `[B, T]`, `tiles` `[B, N_tiles, H, W, 3]`; `block` keeps those
+        positions only (a ring's block of the sequence)."""
         b = input_ids.shape[0]
         n_tiles = tiles.shape[1]
         if n_tiles == 0:      # text-only prompt: nothing to splice
-            return self.llm.embed(input_ids)
+            ids = input_ids if block is None else input_ids[:, block]
+            return self.llm.embed(ids)
         vis = self.encode_tiles(
             tiles.reshape((b * n_tiles,) + tiles.shape[2:]))
         return self.splice(input_ids,
-                           vis.reshape(b, n_tiles * vis.shape[1], -1))
+                           vis.reshape(b, n_tiles * vis.shape[1], -1), block)
 
-    def splice(self, input_ids: torch.Tensor,
-               vis: torch.Tensor) -> torch.Tensor:
+    def splice(self, input_ids: torch.Tensor, vis: torch.Tensor,
+               block: slice | None = None) -> torch.Tensor:
         """Token embeddings of `input_ids` `[B, T]` with the projected
         vision features `vis` `[B, N, D]` (or `[1, N, D]`, shared by every
-        row) in the IMG_CONTEXT slots, in order."""
+        row) in the IMG_CONTEXT slots, in order. With `block`, the rows'
+        positions in it only: the slots are counted over the whole rows,
+        so each image token lands in the block that holds its position."""
+        is_ctx = input_ids == self.cfg.img_context_id
+        slot = torch.cumsum(is_ctx.long(), dim=1) - 1
+        if block is not None:
+            input_ids, is_ctx, slot = (a[:, block] for a in
+                                       (input_ids, is_ctx, slot))
         embeds = self.llm.embed(input_ids)
         if vis.shape[1] == 0:
             return embeds
         vis = vis.expand(input_ids.shape[0], -1, -1)
-        is_ctx = input_ids == self.cfg.img_context_id
-        slot = (torch.cumsum(is_ctx.long(), dim=1) - 1).clamp(
-            0, vis.shape[1] - 1)
+        slot = slot.clamp(0, vis.shape[1] - 1)
         gathered = torch.gather(
             vis, 1, slot[..., None].expand(-1, -1, vis.shape[-1]))
         return torch.where(is_ctx[..., None], gathered.to(embeds.dtype),
@@ -109,21 +123,35 @@ class MultiFrameMLLM(nn.Module):
     def forward(self, input_ids: torch.Tensor, tiles: torch.Tensor,
                 positions: torch.Tensor | None = None,
                 segment_ids: torch.Tensor | None = None,
-                with_aux: bool = False):
+                with_aux: bool = False, vocab_shard: bool = False):
         """Training forward: logits `[B, T, vocab]`, and with `with_aux`
         `(logits, per-layer MoE statistics)` (the JAX package's sown
         `moe_aux_loss` values; None for dense layers). `positions` and
         `segment_ids` `[B, T]` come with packed rows (models/data
         `pack_samples`): per-segment RoPE positions and a block-diagonal
         causal mask; without them, positions count from 0 and attention is
-        causal over the whole row."""
-        embeds = self.spliced_embeds(input_ids, tiles)
+        causal over the whole row.
+
+        Under a ring (ops/ring_attention.ring_context) the rows are whole
+        and this process computes its block of the sequence: the logits
+        come back for the block's positions only (`ring_block`). With
+        `vocab_shard` a tensor-parallel process's logits are its vocab
+        shard's (for the vocab-parallel loss)."""
+        block = ring_block(input_ids.shape[1])
+        embeds = self.spliced_embeds(input_ids, tiles, block)
         b, t, _ = embeds.shape
         if positions is None:
-            positions = torch.arange(t, device=embeds.device).expand(b, t)
+            start = 0 if block is None else block.start
+            positions = torch.arange(start, start + t,
+                                     device=embeds.device).expand(b, t)
+        elif block is not None:
+            positions = positions[:, block]
+        if segment_ids is not None and block is not None:
+            segment_ids = segment_ids[:, block]
         logits, _, auxes = self.llm(embeds, positions,
                                     segment_ids=segment_ids,
-                                    inference=False, with_aux=True)
+                                    inference=False, with_aux=True,
+                                    vocab_shard=vocab_shard)
         return (logits, auxes) if with_aux else logits
 
     def prefill(self, input_ids: torch.Tensor, tiles: torch.Tensor,
@@ -140,6 +168,20 @@ class MultiFrameMLLM(nn.Module):
         b, t, _ = embeds.shape
         positions = torch.arange(t, device=embeds.device).expand(b, t)
         return self.llm(embeds, positions, caches, inference=True, lora=lora)
+
+
+def ring_block(seq_len: int) -> slice | None:
+    """This process's block of a row of `seq_len` tokens under the active
+    ring, or None without one."""
+    ring = active_ring_mesh()
+    if ring is None:
+        return None
+    _, rank, n = ring
+    if seq_len % n:
+        raise ValueError(f"sequence length {seq_len} does not divide over "
+                         f"the seq axis of {n}")
+    blk = seq_len // n
+    return slice(rank * blk, (rank + 1) * blk)
 
 
 def loss_fn(model: MultiFrameMLLM, batch: dict):

@@ -39,6 +39,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.grouped_matmul import grouped_matmul
+from ..parallel.sharding import (
+    all_to_all_autograd,
+    tp_region_enter,
+    tp_region_exit,
+)
 from .quantize import dequantized
 
 # Inference chunks up to this length route with a no-drop capacity
@@ -170,10 +175,13 @@ def _grouped_dot(xs, w, group_sizes, kernel: str = "xla"):
 
 
 def ragged_moe(cfg, x, router, wi_gate, wi_up, wo,
-               valid: torch.Tensor | None = None, group=None):
+               valid: torch.Tensor | None = None, group=None, tp=None):
     """Dropless sorted-gather MoE: x `[B, T, D]` -> (y `[B, T, D]`, aux).
     The stable sort keeps (token, k) order within an expert, so outputs do
-    not depend on how tokens are batched or chunked."""
+    not depend on how tokens are batched or chunked. `tp`: the model
+    axis's place, the tables holding its share of the FFN dimension (the
+    expert outputs are summed over the axis before the gates weigh
+    them)."""
     dtype = getattr(torch, cfg.dtype)
     b, t, d = x.shape
     k, e = cfg.moe_top_k, cfg.moe_experts
@@ -186,6 +194,8 @@ def ragged_moe(cfg, x, router, wi_gate, wi_up, wo,
 
     ei = idx.reshape(n * k).long()
     order = torch.argsort(ei, stable=True)
+    if tp is not None:       # the experts' input enters the TP region
+        xf = tp_region_enter(xf, tp.group)
     xs = xf[order // k].to(dtype)
     group_sizes = expert_counts(ei, e)
 
@@ -195,6 +205,8 @@ def ragged_moe(cfg, x, router, wi_gate, wi_up, wo,
     hg = gd(xs, wi_gate)
     hu = gd(xs, wi_up)
     ys = gd(F.silu(hg) * hu, wo)
+    if tp is not None:
+        ys = tp_region_exit(ys, tp.group)
     inv = torch.argsort(order, stable=True)
     yk = ys[inv].reshape(n, k, d)
     y = (yk * gates.to(dtype)[..., None]).sum(dim=1)
@@ -205,14 +217,28 @@ class MoEMLP(nn.Module):
     """Drop-in replacement for `llm.MLP` when `cfg.moe_experts > 0`;
     `forward` returns `(y, aux)`. `group`: the process group whose batch
     the load-balance statistic is taken over (`data_parallel`), None for
-    this process's batch alone."""
+    this process's batch alone.
+
+    On a mesh (parallel/sharding.shard_model) `tp` is the model axis's
+    place (the tables hold its share of the FFN dimension; the experts'
+    input enters a TP region, the router's does not, and the expert
+    outputs are summed over the axis before the combine, so the gates'
+    gradient is whole on every process)
+    and `ep` the expert axis's (the einsum impl's tables hold
+    `E / n_expert` experts: the `[E, B, C, D]` dispatch buffer goes to the
+    experts' owners with an all-to-all over "expert" and comes back with
+    another; routing stays per row). The ragged impl has no expert-axis
+    form, as in JAX (parallel/sharding.check_moe_mesh refuses it)."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
         self.cfg = cfg
         self.group = None
+        self.tp = None
+        self.ep = None
         d, e, f = cfg.hidden_size, cfg.moe_experts, cfg.ffn_size
         dtype = getattr(torch, cfg.dtype)
+        self.compute_dtype = dtype
         self.router = nn.Parameter(
             torch.zeros(d, e, dtype=torch.float32, device=device))
         self.wi_gate = nn.Parameter(
@@ -236,7 +262,7 @@ class MoEMLP(nn.Module):
                                       ("router", "wi_gate", "wi_up", "wo"))
         if cfg.moe_impl == "ragged":
             return ragged_moe(cfg, x, router, wi_gate, wi_up,
-                              wo, valid=valid, group=self.group)
+                              wo, valid=valid, group=self.group, tp=self.tp)
         dtype = getattr(torch, cfg.dtype)
         b, t, d = x.shape
         # GShard groups (training only); inference routes whole chunks
@@ -254,12 +280,24 @@ class MoEMLP(nn.Module):
         logits = torch.einsum("btd,de->bte", xr.float(), router.float())
         dispatch, combine, aux = top_k_routing(logits, cfg.moe_top_k, cap,
                                                valid=vr, group=self.group)
+        if self.tp is not None:
+            # the experts' input enters the TP region (its gradient is
+            # partial over the FFN shards); the router's does not (the
+            # gates' gradient is whole on every process)
+            xr = tp_region_enter(xr, self.tp.group)
         xin = torch.einsum("btec,btd->ebcd", dispatch.to(dtype),
                            xr.to(dtype))
+        ep = None if self.ep is None else self.ep.group
+        # [E, B, C, D] -> [E / n, n * B, C, D]: each process's experts get
+        # the rows of every process of the expert axis
+        xin = all_to_all_autograd(xin, ep, 0, 1)
         gate = torch.einsum("ebcd,edf->ebcf", xin, wi_gate.to(dtype))
         up = torch.einsum("ebcd,edf->ebcf", xin, wi_up.to(dtype))
         out = torch.einsum("ebcf,efd->ebcd", F.silu(gate) * up,
                            wo.to(dtype))
+        out = all_to_all_autograd(out, ep, 1, 0)
+        if self.tp is not None:
+            out = tp_region_exit(out, self.tp.group)
         y = torch.einsum("btec,ebcd->btd", combine.to(dtype), out)
         return y.reshape(b, t, d).to(dtype), aux
 

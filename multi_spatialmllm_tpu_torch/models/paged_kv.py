@@ -63,7 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.paged_attention import gather_window, quantize_kv_rows
-from ..parallel.lora_serving import stack_adapters
+from ..parallel.lora_serving import shard_serving_tables, stack_adapters
 from .generate import model_device, pad_to_bucket
 from .llm import DTYPES, LLMConfig
 from .mllm import MLLMConfig, MultiFrameMLLM
@@ -159,12 +159,15 @@ class PageAllocator:
                 self._free.append(p)
 
 
-def init_paged_pools(cfg: LLMConfig, pcfg: PagedConfig, device) -> list:
+def init_paged_pools(cfg: LLMConfig, pcfg: PagedConfig, device,
+                     kv_heads: int | None = None) -> list:
     """Per-layer page pools `[num_pages, kv_heads, page_size, head_dim]`
     in the model dtype, or int8 with float32 scale pools
     `[num_pages, kv_heads, page_size]` (`k_scale`, `v_scale`) when
-    `pcfg.kv_dtype == "int8"`."""
-    shape = (pcfg.num_pages, cfg.num_kv_heads, pcfg.page_size, cfg.head_dim)
+    `pcfg.kv_dtype == "int8"`. `kv_heads`: those a process holds on the
+    model axis (`DecoderLM.kv_heads`), all of them by default."""
+    shape = (pcfg.num_pages, kv_heads or cfg.num_kv_heads, pcfg.page_size,
+             cfg.head_dim)
     quant = pcfg.kv_dtype == "int8"
     dtype = torch.int8 if quant else DTYPES[cfg.dtype]
     pools = []
@@ -295,8 +298,9 @@ class PagedBatcher:
                     "adapters carry rank but not alpha, and a default "
                     "scale would silently mis-serve them")
             names = list(adapters)
-            tables = stack_adapters([adapters[n] for n in names],
-                                    model.cfg.llm.num_layers, lora_config)
+            tables = shard_serving_tables(
+                model, stack_adapters([adapters[n] for n in names],
+                                      model.cfg.llm.num_layers, lora_config))
             tables["layers"] = [
                 {t: (a.to(self.device), b.to(self.device))
                  for t, (a, b) in layer.items()}
@@ -304,7 +308,8 @@ class PagedBatcher:
             self.lora_tables = tables
             self.adapter_index = {n: i + 1 for i, n in enumerate(names)}
         self.slot_adapter = np.zeros(cfg.slots, dtype=np.int64)
-        self.pools = init_paged_pools(model.cfg.llm, cfg, self.device)
+        self.pools = init_paged_pools(model.cfg.llm, cfg, self.device,
+                                      model.llm.kv_heads)
         self.allocator = PageAllocator(cfg.num_pages)
         # host-side mirrors; uploaded per chunk (a few hundred int32s).
         # A slot near max_len keeps decoding (discarded tokens) to the end

@@ -40,9 +40,14 @@ F32_TINY = torch.finfo(torch.float32).tiny
 
 def dequantized(module: nn.Module, name: str) -> torch.Tensor:
     """`module.<name>`, dequantised to float32 when it is held in int8
-    (`int8.float() * scale`), else the tensor itself."""
+    (`int8.float() * scale`), else the tensor itself. A parameter the
+    module holds as an FSDP shard (parallel/sharding.shard_model) is
+    gathered whole first."""
     scale = module._buffers.get(name + SCALE)
     w = getattr(module, name)
+    gather = module.__dict__.get("_gather")
+    if gather is not None and name in gather:
+        w = gather[name](w)
     return w if scale is None else w.float() * scale
 
 

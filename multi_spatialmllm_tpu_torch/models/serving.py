@@ -256,7 +256,7 @@ class ContinuousBatcher:
         self.max_len = cfg.max_prompt_len + cfg.max_new_tokens \
             + (cfg.speculate + 1 if cfg.speculate else 0)
         self.caches = init_cache(model.cfg.llm, cfg.slots, self.max_len,
-                                 self.device)
+                                 self.device, model.llm.kv_heads)
         self.positions = np.zeros(cfg.slots, dtype=np.int64)
         self.last_token = np.zeros((cfg.slots, 1), dtype=np.int64)
         self.temperature = np.zeros(cfg.slots, dtype=np.float32)

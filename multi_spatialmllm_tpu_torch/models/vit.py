@@ -7,7 +7,8 @@ backward K2/K3) with the token count (1 + grid^2 = 1025 at 448/14) padded
 to a multiple of 128 and the pads in their own segment, so they are masked
 exactly and the kernels skip their tiles. Weights are cast to the config
 dtype at use (see models/llm.py); `remat` checkpoints each block, under
-`remat_policy` (models/llm.remat_layer).
+`remat_policy` (models/llm.remat_layer). On the model axis a block
+computes its share of the heads and of the MLP (parallel/sharding.py).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import trainable_flash_attention_packed
+from ..parallel.sharding import tp_region_enter
 from .llm import DTYPES, Linear, check_remat_policy, remat_layer
 from .quantize import dequantized
 
@@ -86,13 +88,19 @@ class ViTBlock(nn.Module):
         self.norm2 = LayerNorm(d, cfg.norm_eps, dtype, device)
         self.fc1 = Linear(d, int(d * cfg.mlp_ratio), **kw)
         self.fc2 = Linear(int(d * cfg.mlp_ratio), d, **kw)
+        self.tp = None      # the model axis's place (parallel/sharding.py)
 
     def forward(self, x):
+        """On the model axis the block computes its share of the heads and
+        of the MLP (qkv and fc1 column-parallel, proj and fc2
+        row-parallel)."""
         cfg = self.cfg
-        h = self.norm1(x)
+        group = None if self.tp is None else self.tp.group
+        h = tp_region_enter(self.norm1(x), group)
         b, t, d = h.shape
         hd = d // cfg.num_heads
-        qkv = self.qkv(h).view(b, t, 3, cfg.num_heads, hd)
+        nh = cfg.num_heads // (1 if self.tp is None else self.tp.size)
+        qkv = self.qkv(h).view(b, t, 3, nh, hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         pad = (-t) % 128
         q, k, v = (F.pad(a, (0, 0, 0, pad)) for a in (q, k, v))
@@ -100,9 +108,10 @@ class ViTBlock(nn.Module):
             torch.zeros(b, t, dtype=torch.int32, device=x.device),
             torch.ones(b, pad, dtype=torch.int32, device=x.device)], dim=1)
         attn = trainable_flash_attention_packed(q, k, v, seg, False)
-        attn = attn[:, :, :t].transpose(1, 2).reshape(b, t, d)
+        attn = attn[:, :, :t].transpose(1, 2).reshape(b, t, nh * hd)
         x = x + self.proj(attn)
-        return x + self.fc2(gelu(self.fc1(self.norm2(x))))
+        h = tp_region_enter(self.norm2(x), group)
+        return x + self.fc2(gelu(self.fc1(h)))
 
 
 class VisionTransformer(nn.Module):
@@ -112,8 +121,10 @@ class VisionTransformer(nn.Module):
         self.cfg = cfg
         dtype = DTYPES[cfg.dtype]
         d, p = cfg.hidden_size, cfg.patch_size
+        self.compute_dtype = dtype
         self.patch_embed = nn.Conv2d(3, d, p, stride=p, device=device,
                                      dtype=dtype)
+        self.patch_embed.compute_dtype = dtype
         self.cls_token = nn.Parameter(
             torch.zeros(1, 1, d, dtype=dtype, device=device))
         self.pos_embed = nn.Parameter(

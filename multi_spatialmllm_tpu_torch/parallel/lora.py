@@ -1,5 +1,5 @@
-"""LoRA adapters for training on one device (port of
-multi_spatialmllm_tpu/parallel/lora.py, without its mesh shardings).
+"""LoRA adapters for training (port of multi_spatialmllm_tpu/parallel/
+lora.py).
 
 The reference's main-paper training is LoRA over InternVL-2. Low-rank
 deltas `scale * (A @ B)` ride on selected weights of a frozen base; the
@@ -36,8 +36,7 @@ import torch
 
 from ..models.llm import Linear, merge_adapter
 from ..models.prng import normal, split
-from .mesh import data_axis
-from .train import all_reduce_grads, global_sum, masked_nll
+from .train import MeshComm, all_reduce_grads, global_sum, masked_nll
 
 # target name -> number of leading JAX kernel dims that are fan-in
 _FAN_IN_DIMS = {
@@ -110,7 +109,8 @@ def init_lora(model: torch.nn.Module, cfg: LoRAConfig,
     """`{weight name: {"a": [fan_in, r], "b": [r, fan_out]}}` (float32, on
     the model's device) for every weight `cfg.targets` matches. A is drawn
     on the host (the same bits on every device) from `key` (a
-    models/prng.py key), B is zero."""
+    models/prng.py key), B is zero. The model holds its full weights (call
+    it before parallel/sharding.shard_model)."""
     out: dict = {}
     key = key.cpu()
     for name, mod, _ in adapted_weights(model, cfg):
@@ -156,10 +156,11 @@ def lora_from_optimizer(optimizer) -> dict:
 @contextlib.contextmanager
 def merged(model: torch.nn.Module, lora: dict | None, cfg: LoRAConfig | None):
     """Within the block each weight `lora` adapts is a separate merged
-    tensor (`merge_adapter`) and no `Linear` merges at its forward; on exit
-    the base parameters and every `Linear`'s adapter as it was are put
-    back. The base tensors are never written. A no-op when `lora` is
-    None."""
+    tensor (`merge_adapter`; on a mesh, of this process's whole TP shard,
+    gathered first if FSDP shards it) and no `Linear` merges at its
+    forward; on exit the base parameters, their FSDP gathering and every
+    `Linear`'s adapter as it was are put back. The base tensors are never
+    written. A no-op when `lora` is None."""
     if lora is None:
         yield model
         return
@@ -171,14 +172,18 @@ def merged(model: torch.nn.Module, lora: dict | None, cfg: LoRAConfig | None):
             mod.adapter = None
         with torch.no_grad():
             for name, mod, _ in adapted_weights(model, cfg):
-                swapped.append((mod, mod.weight))
+                gather = mod.__dict__.get("_gather", {}).pop("weight", None)
+                swapped.append((mod, mod.weight, gather))
+                w = mod.weight if gather is None else gather(mod.weight)
                 mod.weight = torch.nn.Parameter(
-                    merge_adapter(mod.weight, lora[name], cfg.scale),
+                    merge_adapter(w, lora[name], cfg.scale, shard=mod.tp),
                     requires_grad=False)
         yield model
     finally:
-        for mod, base in swapped:
+        for mod, base, gather in swapped:
             mod.weight = base
+            if gather is not None:
+                mod._gather["weight"] = gather
         for mod, adapter in before:
             mod.adapter = adapter
 
@@ -200,11 +205,16 @@ def make_lora_train_step(model, optimizer, cfg: LoRAConfig, mesh=None
     so no gradient or moment is kept for it, and a tower with no adapter
     takes no backward); the adapters ride on the model (`attach`).
 
-    With a `mesh` the step is data-parallel over its data axis, as
-    `parallel/train.make_train_step` is: `batch` holds this process's rows
-    of the global batch, the loss is the global nll sum over the global
-    token count, and only the adapters' gradients are summed over the
-    processes (the frozen base is the same replica on each)."""
+    With a `mesh` the step runs over it as `parallel/train.make_train_step`
+    does: `batch` holds this process's rows of the global batch, the loss
+    is the global nll sum over the global token count, and only the
+    adapters' gradients are summed over the processes. The adapters
+    replicate, as in JAX; on a tensor-parallel base (parallel/sharding.
+    shard_model) each process merges the slice of a delta that matches its
+    shard of the weight (models/llm.merge_adapter), so every adapter's
+    gradient is also summed over "model"."""
+    from ..ops.ring_attention import ring_context
+
     model.requires_grad_(False)
     lora = lora_from_optimizer(optimizer)
     for ad in lora.values():
@@ -212,22 +222,23 @@ def make_lora_train_step(model, optimizer, cfg: LoRAConfig, mesh=None
             t.requires_grad_(True)
     attach(model, lora, cfg.scale)
     params = optimizer.params
-    group = data_axis(mesh)[0]
+    comm = MeshComm(model, optimizer, mesh, model_summed=True)
 
     def step(batch: dict) -> dict:
         for p in params:
             p.grad = None
         denom = global_sum((batch["labels"][:, 1:] != -100).sum(),
-                           group).clamp_min(1).float()
-        loss = masked_nll(model, batch) / denom
-        loss.backward()
+                           comm.rows).clamp_min(1).float()
+        with ring_context(mesh):
+            loss = masked_nll(model, batch) / denom
+            loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
-        all_reduce_grads(grads, group)
+        all_reduce_grads(grads, comm.grad_groups)
         grad_norm = optimizer.update(grads)
         for p in params:
             p.grad = None
-        return {"loss": global_sum(loss.detach(), group),
+        return {"loss": global_sum(loss.detach(), comm.tokens),
                 "grad_norm": grad_norm}
 
     return step

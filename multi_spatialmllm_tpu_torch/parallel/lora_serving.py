@@ -71,3 +71,29 @@ def stack_adapters(adapters: list, num_layers: int,
             for part in ("a", "b"))
         layers[int(layer_key.split("_")[1])][target] = stacks
     return {"scale": cfg.scale, "layers": layers}
+
+
+def shard_serving_tables(model, tables: dict) -> dict:
+    """`stack_adapters`' tables as a process of a tensor-parallel model
+    (parallel/sharding.shard_model) applies them: a column-parallel
+    weight's B keeps its share of the outputs, a row-parallel weight's A
+    its share of the inputs (that delta is then partial, and is summed over
+    the model axis with the weight's own partial output). The tables as
+    they are on a model without a model axis, and for a target the layer
+    does not hold (a routed MoE's gate/up/down, which its FFN refuses)."""
+    if model.llm.tp is None:
+        return tables
+    out = []
+    for i, layer in enumerate(tables["layers"]):
+        mods = {n.rsplit(".", 1)[-1]: m
+                for n, m in model.llm.layers[i].named_modules()}
+        new = {}
+        for target, (a, b) in layer.items():
+            shard = getattr(mods.get(target), "tp", None)
+            if shard is not None and shard.kind == "col":
+                b = shard.take(b, 2).contiguous()
+            elif shard is not None and shard.kind == "row":
+                a = shard.take(a, 1).contiguous()
+            new[target] = (a, b)
+        out.append(new)
+    return {**tables, "layers": out}

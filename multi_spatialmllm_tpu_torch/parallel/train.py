@@ -1,6 +1,5 @@
 """Training step for the multi-frame MLLM (the port of
-multi_spatialmllm_tpu/parallel/train.py), on one device or data-parallel
-over a mesh's data axis.
+multi_spatialmllm_tpu/parallel/train.py), on one device or over a mesh.
 
 The optimizer is the JAX package's optax chain, written out:
 `clip_by_global_norm(grad_clip)` then `adamw(warmup_cosine_decay_schedule(
@@ -19,17 +18,24 @@ With a routed-MoE decoder the loss adds `MOE_AUX_WEIGHT` times the mean of
 the layers' load-balance statistics, weighted by each microbatch's token
 count as the JAX step's `loss_sum_of` does.
 
-Data parallelism (`mesh=`, parallel/mesh.py): each process of the data
-axis holds a full replica and its own rows of the global batch. The JAX
-step shards that batch over the axis and XLA computes every reduction over
-the global batch; here the step computes the same two global quantities
-with collectives. The token nll is `sum nll / global token count`: the
-count is summed over the processes before the division, each process's
-loss is its nll sum over it, and the gradients are summed over the
-processes once a step, before the clip, so the global norm and the update
-are the same on every process. A MoE decoder's load-balance statistic is
-the global batch's (`models/moe.data_parallel`). With one process in the
-axis the collectives leave every value as it is, and the step is the
+Over a mesh (`mesh=`, parallel/mesh.py): each process of the data and
+expert axes holds its own rows of the global batch (`local_rows`), and
+under a "seq" axis each row's block of the sequence (models/mllm.py,
+ops/ring_attention.py). The JAX step shards that batch and XLA computes
+every reduction over the global batch; here the step computes the same
+global quantities with collectives. The token nll is `sum nll / global
+token count`: the count is summed over the row axes before the division,
+the nll over the row and seq axes, and after the backward each gradient
+is summed over the axes the batch is split over that do not shard its
+parameter (`MeshComm`, parallel/sharding.MeshPlan), once a step, before
+the clip, whose global norm sums each shard's squares once over the group
+its parameter is sharded over. A model put on the mesh by
+parallel/sharding.shard_model runs tensor-parallel over "model" (its
+Megatron regions' collectives inside the forward and backward), FSDP
+over "data" (gathered at each use, gradients reduce-scattered) and its
+expert tables over "expert". A MoE decoder's load-balance statistic is
+the global batch's (`models/moe.data_parallel`). With one process on an
+axis the axis's collectives are skipped, and the step is the
 single-device step.
 
 Parameters, gradients and both moments are float32 (the model holds float32
@@ -61,7 +67,6 @@ import torch
 from ..models.llm import cross_entropy_sum
 from ..models.moe import data_parallel
 from .distributed import global_batch_slice
-from .mesh import data_axis
 
 ADAM_EPS = 1e-8             # optax.adamw's default
 MOE_AUX_WEIGHT = 0.01       # the JAX make_train_step's default
@@ -104,13 +109,29 @@ class AdamW:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        # per parameter, the group whose shards make it whole (set by the
+        # train steps on a mesh; None: every parameter whole here)
+        self.norm_groups: list | None = None
+
+    def global_norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
+        """The gradients' global norm: each shard's squares summed once
+        over the group its parameter is sharded over."""
+        if self.norm_groups is None:
+            return torch.sqrt(sum(g.float().square().sum() for g in grads))
+        sums: dict = {}
+        for g, group in zip(grads, self.norm_groups):
+            sq = g.float().square().sum()
+            sums[group] = sq if group not in sums else sums[group] + sq
+        from .sharding import all_reduce_
+
+        return torch.sqrt(sum(all_reduce_(v, k) for k, v in sums.items()))
 
     @torch.no_grad()
     def update(self, grads: list[torch.Tensor]) -> torch.Tensor:
         """Clip, then one AdamW step; returns the global norm before
         clipping."""
         cfg = self.cfg
-        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        norm = self.global_norm(grads)
         # optax's select(norm < clip, g, (g / norm) * clip) on the device,
         # as g / den * scale in place: den = scale = 1 under the clip (the
         # same bits as g), no host read of the norm and no temporaries
@@ -149,15 +170,33 @@ def moe_aux_mean(auxes: list) -> torch.Tensor | float:
     return sum(vals) / max(len(vals), 1)
 
 
-def all_reduce_grads(grads: list[torch.Tensor], group) -> None:
-    """Sum each gradient over `group`'s processes, in place (nothing
-    without a group)."""
-    if group is None:
-        return
-    import torch.distributed as dist
+def all_reduce_grads(grads: list[torch.Tensor], groups: list) -> None:
+    """Sum each gradient over its group's processes (None: nothing), in
+    place. Gradients of a group travel in flat buckets of at most `_BUCKET`
+    elements."""
+    from .sharding import all_reduce_
 
-    for g in grads:
-        dist.all_reduce(g, group=group)
+    buckets: dict = {}
+    for g, group in zip(grads, groups):
+        if group is not None:
+            buckets.setdefault((group, g.dtype), []).append(g)
+    for (group, _), gs in buckets.items():
+        start = 0
+        while start < len(gs):
+            end, size = start, 0
+            while end < len(gs) and (end == start
+                                     or size + gs[end].numel() <= _BUCKET):
+                size += gs[end].numel()
+                end += 1
+            part = gs[start:end]
+            flat = all_reduce_(torch.cat([g.reshape(-1) for g in part]),
+                               group)
+            for g, piece in zip(part, flat.split([g.numel() for g in part])):
+                g.copy_(piece.view_as(g))
+            start = end
+
+
+_BUCKET = 1 << 26
 
 
 def global_sum(t: torch.Tensor, group) -> torch.Tensor:
@@ -165,11 +204,52 @@ def global_sum(t: torch.Tensor, group) -> torch.Tensor:
     group)."""
     if group is None:
         return t
-    import torch.distributed as dist
+    from .sharding import all_reduce_
 
-    t = t.clone()
-    dist.all_reduce(t, group=group)
-    return t
+    return all_reduce_(t.clone(), group)
+
+
+class MeshComm:
+    """The groups a train step on `mesh` reduces over: `rows` (the axes a
+    batch's rows are split over: data and expert) for the token count,
+    `tokens` (rows and, under a ring, each row's blocks over seq) for the
+    nll and the MoE statistic, and per optimizer parameter the group its
+    gradient is all-reduced over and the group its shards make it whole
+    over (parallel/sharding.MeshPlan; a model without a plan is whole on
+    every process). `model_summed` sums every gradient over "model" too
+    (adapters used a share at a time on a TP model)."""
+
+    def __init__(self, model, optimizer, mesh, model_summed=False):
+        from .mesh import axes_group, model_axis
+        from .sharding import BATCH_AXES, ROW_AXES, MeshPlan
+
+        self.mesh = mesh
+        self.rows = axes_group(mesh, ROW_AXES)[0]
+        self.tokens = axes_group(mesh, BATCH_AXES)[0]
+        plan = getattr(model, "mesh_plan", None) or \
+            MeshPlan(mesh, {}, frozenset())
+        extra = model_summed and model_axis(mesh)[0] is not None
+        self.grad_groups = [plan.grad_group(n, extra)
+                            for n in optimizer.names]
+        norm = [plan.norm_group(n) for n in optimizer.names]
+        if any(g is not None for g in norm):
+            optimizer.norm_groups = norm
+
+
+def next_token_nll(model, logits: torch.Tensor, labels: torch.Tensor):
+    """`(nll sum, count)` of the next-token loss of `model`'s `logits`
+    (its vocab shard's on the model axis: `vocab_shard=True`) for the
+    rows' `labels` `[B, T]`; under a ring the logits are this process's
+    block of the sequence and the labels of its positions' next tokens are
+    taken (the last position of the row predicts nothing)."""
+    from ..models.mllm import ring_block
+
+    tp = model.llm.tp
+    block = ring_block(labels.shape[1])
+    if block is None:
+        return cross_entropy_sum(logits[:, :-1], labels[:, 1:], tp=tp)
+    nxt = torch.nn.functional.pad(labels[:, 1:], (0, 1), value=-100)
+    return cross_entropy_sum(logits, nxt[:, block], tp=tp)
 
 
 def make_train_step(model, optimizer: AdamW, accum_steps: int = 1,
@@ -178,9 +258,14 @@ def make_train_step(model, optimizer: AdamW, accum_steps: int = 1,
     device); `batch` is a dict of tensors leading with the batch dim
     (`input_ids`, `labels`, `tiles`, and `positions`/`segment_ids` for
     packed rows). With a `mesh`, `batch` holds this process's rows of the
-    global batch (for microbatch i, its `global_batch_slice` of the global
-    microbatch i, as the JAX step shards each one), and the loss and
-    grad norm returned are the global batch's, on every process.
+    global batch (`local_rows`: for microbatch i, its share over the data
+    and expert axes of the global microbatch i, as the JAX step shards
+    each one), and the loss and grad norm returned are the global batch's,
+    on every process. A model put on the mesh by
+    parallel/sharding.shard_model runs tensor-parallel over "model", FSDP
+    over "data" and its MoE tables over "expert"; with a "seq" axis the
+    rows are whole and each process computes its block of the sequence,
+    attention over the ring (ops/ring_attention.py).
 
     `accum_steps > 1` runs the batch as that many microbatches of
     consecutive rows before the one update. As in the JAX step, the loss
@@ -191,9 +276,13 @@ def make_train_step(model, optimizer: AdamW, accum_steps: int = 1,
     microbatch's nll before that one division (`loss_sum_of` in the JAX
     step; with one microbatch it equals `loss_of`'s mean + weight * aux).
     """
+    from ..ops.ring_attention import ring_context
+    from .sharding import check_moe_mesh
+
     params = optimizer.params
     use_moe = model.cfg.llm.moe_experts > 0
-    group = data_axis(mesh)[0]
+    check_moe_mesh(model.cfg, mesh)
+    comm = MeshComm(model, optimizer, mesh)
 
     def step(batch: dict) -> dict:
         n = batch["input_ids"].shape[0]
@@ -201,35 +290,34 @@ def make_train_step(model, optimizer: AdamW, accum_steps: int = 1,
             raise ValueError(f"batch {n} not divisible by accum {accum_steps}")
         mb = n // accum_steps
         denom = global_sum((batch["labels"][:, 1:] != -100).sum(),
-                           group).clamp_min(1).float()
+                           comm.rows).clamp_min(1).float()
         for p in params:
             p.grad = None
         nll = torch.zeros((), device=denom.device)
-        with data_parallel(model, group):
+        with data_parallel(model, comm.tokens), ring_context(mesh):
             for i in range(accum_steps):
                 sub = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
                 logits, auxes = model(sub["input_ids"], sub["tiles"],
                                       positions=sub.get("positions"),
                                       segment_ids=sub.get("segment_ids"),
-                                      with_aux=True)
-                mb_nll, count = cross_entropy_sum(logits[:, :-1],
-                                                  sub["labels"][:, 1:])
+                                      with_aux=True, vocab_shard=True)
+                mb_nll, count = next_token_nll(model, logits, sub["labels"])
                 del logits
                 if use_moe:
                     # the global microbatch's count weighs this process's
                     # share of its statistic
                     mb_nll = mb_nll + (
                         MOE_AUX_WEIGHT * moe_aux_mean(auxes)
-                        * global_sum(count, group).to(mb_nll.dtype))
+                        * global_sum(count, comm.tokens).to(mb_nll.dtype))
                 (mb_nll / denom).backward()
                 nll += mb_nll.detach()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
-        all_reduce_grads(grads, group)
+        all_reduce_grads(grads, comm.grad_groups)
         grad_norm = optimizer.update(grads)
         for p in params:
             p.grad = None
-        return {"loss": global_sum(nll, group) / denom,
+        return {"loss": global_sum(nll, comm.tokens) / denom,
                 "grad_norm": grad_norm}
 
     return step
@@ -240,8 +328,14 @@ def local_rows(batch: dict, accum_steps: int, mesh) -> dict:
     leading with the batch dim), as `make_train_step` takes them: the JAX
     step splits the global batch into `accum_steps` microbatches of
     consecutive rows and shards each over the data axis, so the process
-    keeps, of each microbatch, the rows `global_batch_slice` gives it."""
-    _, rank, size = data_axis(mesh)
+    keeps, of each microbatch, the rows `global_batch_slice` gives it. The
+    rows are split over the data and expert axes together (coordinate
+    `data * n_expert + expert`); the model and seq axes' processes hold
+    the same rows."""
+    from .mesh import axes_group
+    from .sharding import ROW_AXES
+
+    _, rank, size = axes_group(mesh, ROW_AXES)
     n = len(batch["input_ids"])
     if n % accum_steps:
         raise ValueError(f"batch {n} not divisible by accum {accum_steps}")
@@ -264,23 +358,26 @@ def make_chained_train_step(model, optimizer: AdamW, n_steps: int,
     device from the host. With a `mesh`, `batch` is this process's rows of
     the global batch, as for `make_train_step`, and the losses are the
     global batch's."""
+    from ..ops.ring_attention import ring_context
+
     params = optimizer.params
-    group = data_axis(mesh)[0]
+    comm = MeshComm(model, optimizer, mesh)
 
     def run(batch: dict) -> torch.Tensor:
         denom = global_sum((batch["labels"][:, 1:] != -100).sum(),
-                           group).clamp_min(1).float()
+                           comm.rows).clamp_min(1).float()
         losses = []
         for _ in range(n_steps):
             for p in params:
                 p.grad = None
-            loss = masked_nll(model, batch) / denom
-            loss.backward()
+            with ring_context(mesh):
+                loss = masked_nll(model, batch) / denom
+                loss.backward()
             grads = [torch.zeros_like(p) if p.grad is None else p.grad
                      for p in params]
-            all_reduce_grads(grads, group)
+            all_reduce_grads(grads, comm.grad_groups)
             optimizer.update(grads)
-            losses.append(global_sum(loss.detach(), group))
+            losses.append(global_sum(loss.detach(), comm.tokens))
         for p in params:
             p.grad = None
         return torch.stack(losses)
@@ -290,20 +387,22 @@ def make_chained_train_step(model, optimizer: AdamW, n_steps: int,
 
 def masked_nll(model, batch: dict) -> torch.Tensor:
     """The summed next-token nll of `batch` under `model` (no MoE term):
-    `models/mllm.loss_fn`'s numerator."""
+    `models/mllm.loss_fn`'s numerator (this block's, under a ring)."""
     logits = model(batch["input_ids"], batch["tiles"],
                    positions=batch.get("positions"),
-                   segment_ids=batch.get("segment_ids"))
-    return cross_entropy_sum(logits[:, :-1], batch["labels"][:, 1:])[0]
+                   segment_ids=batch.get("segment_ids"), vocab_shard=True)
+    return next_token_nll(model, logits, batch["labels"])[0]
 
 
-def _payload(params, optimizer: AdamW | None, step: int) -> dict:
+def _payload(params, optimizer, step: int) -> dict:
     """What a checkpoint holds: `params` (a model's state dict, or a state
-    dict), the optimizer state when given, and the step."""
+    dict), the optimizer state when given (an AdamW, or its state dict),
+    and the step."""
     state = params.state_dict() if hasattr(params, "state_dict") else params
     payload = {"params": state, "step": step}
     if optimizer is not None:
-        payload["opt_state"] = optimizer.state_dict()
+        payload["opt_state"] = optimizer if isinstance(optimizer, dict) \
+            else optimizer.state_dict()
     return payload
 
 

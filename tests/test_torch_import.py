@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from multi_spatialmllm_tpu.models import tokenizer as JT
+from multi_spatialmllm_tpu_torch.dryrun import free_port
 from multi_spatialmllm_tpu_torch.models import runner as TR
 from multi_spatialmllm_tpu_torch.ops import _build as TB
 from multi_spatialmllm_tpu_torch.ops import attention as TA
@@ -86,6 +87,7 @@ PORT_MODULES = [
     "multi_spatialmllm_tpu_torch.ops.attention",
     "multi_spatialmllm_tpu_torch.ops.grouped_matmul",
     "multi_spatialmllm_tpu_torch.ops.paged_attention",
+    "multi_spatialmllm_tpu_torch.ops.ring_attention",
     "multi_spatialmllm_tpu_torch.models._vocab_templates",
     "multi_spatialmllm_tpu_torch.models.checkpoint_import",
     "multi_spatialmllm_tpu_torch.models.convert",
@@ -111,6 +113,7 @@ PORT_MODULES = [
     "multi_spatialmllm_tpu_torch.parallel.lora",
     "multi_spatialmllm_tpu_torch.parallel.lora_serving",
     "multi_spatialmllm_tpu_torch.parallel.mesh",
+    "multi_spatialmllm_tpu_torch.parallel.sharding",
     "multi_spatialmllm_tpu_torch.parallel.train",
 ]
 # the card has neither safetensors nor ml_dtypes: the port reads and writes
@@ -263,6 +266,43 @@ def test_moe_train_and_int8_serve_run_with_the_jax_package_unimportable(
     _train_then_serve(
         tmp_path, ["--moe-experts", "4", "--moe-impl", "ragged",
                    "--moe-kernel", "pallas"], ["--kv-dtype", "int8"])
+
+
+def test_train_mesh_flags_run_with_the_jax_package_unimportable(tmp_path):
+    """`train` with each mesh flag (`--model-parallel 2`, `--seq-parallel
+    2`, `--expert-parallel 2` with the einsum MoE, `--fsdp --data-parallel
+    2`) in one world launched by `torch.distributed.run --nproc-per-node 2`
+    on the CPU, one run after another, packed rows in two microbatches,
+    with the JAX package unimportable in every process."""
+    from torch_mesh_ranks import SEQUENTIAL_TRAIN, split_runs
+
+    _write_mixture(tmp_path)
+    (tmp_path / "blocked_train.py").write_text(_blocker(
+        body=SEQUENTIAL_TRAIN))
+    flags = {"model": ["--model-parallel", "2"],
+             "seq": ["--seq-parallel", "2"],
+             "expert": ["--expert-parallel", "2", "--moe-experts", "4",
+                        "--moe-impl", "einsum"],
+             "data": ["--fsdp", "--data-parallel", "2"]}
+    runs = [["train", "--meta", "mix.json", "--config", "tiny", "--device",
+             "cpu", "--steps", "2", "--batch-size", "4", "--accum", "2",
+             "--seq-len", "128", "--max-tiles", "2", "--tiles-per-image",
+             "1", "--packed", "--warmup", "1", "--lr", "1e-3",
+             "--vocab-size", "800", "--output", str(tmp_path / f"ckpt_{a}"),
+             *f] for a, f in flags.items()]
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "--master-addr", "localhost", "--master-port",
+         str(free_port()), "blocked_train.py", json.dumps(runs)],
+        env=dict(_env(), OMP_NUM_THREADS="1"), cwd=tmp_path,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    outs = split_runs(proc.stdout, len(runs))
+    for axis, out in zip(flags, outs):
+        [report] = [json.loads(ln) for ln in out.splitlines()
+                    if ln.startswith("{")]
+        assert report["steps"] == 2 and report["mesh"][axis] == 2, report
+        assert (tmp_path / f"ckpt_{axis}" / "LATEST").exists()
 
 
 _ADAPTER_SERVE = """
@@ -612,15 +652,48 @@ def _result_lines(stdout: str):
     return [ln for ln in stdout.splitlines() if '"ok"' in ln]
 
 
+# the JAX dry run's 14 lines at 8 devices (__graft_entry__._dryrun_on_mesh
+# and the data-engine lines), the pipe axis's three waiting for their
+# module (ROADMAP.md item 17, step 3)
+DRYRUN_8 = [
+    r"mesh=\(4 data x 2 model\), gloo/cpu, loss=\d+\.\d{4}$",
+    r"tensor-parallel serving decode over the \(4 data x 2 model\) mesh ok$",
+    r"paged serving \(prefix cache \+ chunked prefill \+ vision cache \+ "
+    r"speculative\) under TP-sharded params ok, stats=\{.*\}$",
+    r"paged multi-LoRA \+ sampled serving under TP-sharded params ok$",
+    r"FULL-MLLM 1F1B: waits for the pipe axis .*item 17, step 3\)$",
+    r"combined \(data x pipe\) MLLM 1F1B step: waits .*item 17, step 3\)$",
+    r"combined \(data x model x pipe\) MLLM 1F1B step: waits .*item 17, "
+    r"step 3\)$",
+    r"\(data=2 x model=2 x seq=2\) train step with ring attention, "
+    r"loss=\d+\.\d{4}$",
+    r"\(data=2 x expert=4\) MoE train step \(top-2 routed SwiGLU, "
+    r"expert-sharded tables\), loss=\d+\.\d{4}$",
+    r"ring attention over seq axis ok$",
+    r"scene-parallel visibility over data axis ok \(8 scenes\)$",
+    r"scene-parallel frame relations over data axis ok \(8 scenes, == "
+    r"single-device\)$",
+    r"scene-parallel object visibility over data axis ok "
+    r"\(== single-device\)$",
+    r"scene-parallel coverage intervals over data axis ok \(search results "
+    r"== single-device\)$",
+]
+
+
 def test_dryrun_and_drill_run_with_the_cards_installation(tmp_path):
-    """`python -m multi_spatialmllm_tpu_torch.dryrun 4 --device cpu` (four
-    gloo processes on the CPU) and
+    """`python -m multi_spatialmllm_tpu_torch.dryrun 8 --device cpu` (eight
+    gloo processes on the CPU) prints the JAX dry run's lines in its order
+    on its meshes (every step's loss finite, the serving, ring and
+    data-engine results checked in the ranks; the three pipe lines naming
+    the roadmap item that ports them), and
     `scripts/torch_volume_drill.py --scale smoke --device cpu` (a killed
-    and a resumed campaign process) with jax, the JAX package and cv2
-    unimportable in every process they start: a `sitecustomize` on the
+    and a resumed campaign process) runs, with jax, the JAX package and
+    cv2 unimportable in every process they start: a `sitecustomize` on the
     path installs the refusing finder, so the children refuse too. pandas
     and pyarrow stay, as on the card: without them the relation table has
     no file to resume from, and the resumed campaign computes it again."""
+    import re
+
     site = tmp_path / "site"
     site.mkdir()
     (site / "sitecustomize.py").write_text(
@@ -630,15 +703,14 @@ def test_dryrun_and_drill_run_with_the_cards_installation(tmp_path):
                              capture_output=True, text=True, timeout=60)
     assert refused.returncode != 0 and "blocked: jax" in refused.stderr
     proc = subprocess.run(
-        [sys.executable, "-m", "multi_spatialmllm_tpu_torch.dryrun", "4",
+        [sys.executable, "-m", "multi_spatialmllm_tpu_torch.dryrun", "8",
          "--device", "cpu"], env=env,
         capture_output=True, text=True, timeout=300, cwd=tmp_path)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     lines = proc.stdout.splitlines()
-    assert len(lines) == 5 and lines[0].startswith(
-        "dryrun_multichip(4): mesh=(4 data x 1 model), gloo/cpu, loss=")
-    assert all(" ok " in ln or ln.endswith(" ok") or "ok (" in ln
-               for ln in lines[1:])
+    assert len(lines) == len(DRYRUN_8), lines
+    for line, pattern in zip(lines, DRYRUN_8):
+        assert re.match(r"dryrun_multichip\(8\): " + pattern, line), line
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "scripts",
                                       "torch_volume_drill.py"),

@@ -296,20 +296,25 @@ def test_train_config_remats_the_flagship_under_lora(config, lora_rank,
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--model-parallel", "2"], NotImplementedError, "item 17"),
-    (["--seq-parallel", "2"], NotImplementedError, "item 17"),
-    (["--expert-parallel", "2"], NotImplementedError, "item 17"),
-    (["--fsdp"], NotImplementedError, "item 17"),
-    (["--data-parallel", "2"], ValueError, "2 does not match the 1"),
+    (["--model-parallel", "2"], ValueError, r"\(data x 2 model x 1 seq x 1 "
+     r"expert\) does not match the 1 process"),
+    (["--seq-parallel", "2"], ValueError, r"\(data x 1 model x 2 seq x 1 "
+     r"expert\) does not match the 1 process"),
+    (["--expert-parallel", "2"], ValueError, r"\(data x 1 model x 1 seq x 2 "
+     r"expert\) does not match the 1 process"),
+    (["--fsdp", "--model-parallel", "3", "--world", "2"], ValueError,
+     "3 model x 1 seq x 1 expert\\) does not match the 2 process"),
+    (["--data-parallel", "2"], ValueError,
+     r"\(2 x 1 model x 1 seq x 1 expert\) does not match the 1 process"),
     (["--data-parallel", "3", "--world", "2"], ValueError,
-     "3 does not match the 2"),
+     r"\(3 x 1 model x 1 seq x 1 expert\) does not match the 2 process"),
 ], ids=["model", "seq", "expert", "fsdp", "data-alone", "data-world"])
 def test_train_guards_raise_before_device_work(tmp_path, monkeypatch, flags,
                                                error, match):
-    """The multi-device flags still refused, and a `--data-parallel` that
-    is not the launched world (alone, or under a launcher's WORLD_SIZE),
-    raise before the mixture is read, a model built or a process group
-    started."""
+    """A mesh (`--data-parallel` x `--model-parallel` x `--seq-parallel` x
+    `--expert-parallel`, with or without `--fsdp`) that does not fit the
+    launched world (alone, or under a launcher's WORLD_SIZE) raises before
+    the mixture is read, a model built or a process group started."""
     import torch.distributed as dist
 
     if "--world" in flags:

@@ -238,7 +238,7 @@ def test_remat_keeps_loss_and_gradients():
 
 PORTED_TRAIN_FLAGS = ("--lora-rank", "--eval-jsonl", "--eval-images-root",
                       "--eval-limit", "--eval-max-new-tokens",
-                      "--mc-logprob", "--async-save")
+                      "--mc-logprob", "--async-save", "--fsdp")
 
 
 @pytest.mark.parametrize("flags", [
@@ -250,11 +250,11 @@ PORTED_TRAIN_FLAGS = ("--lora-rank", "--eval-jsonl", "--eval-images-root",
     ["--eval-max-new-tokens", "24"], ["--mc-logprob"],
     ["--async-save"]], ids=lambda f: f[0][2:])
 def test_train_cli_refuses_unported_flags(flags):
-    """The JAX CLI's training options the port lacks (the multi-device
-    ones but the data axis) are accepted and raise, before any data is
-    read; `--data-parallel 2` raises there too in a process launched alone;
-    the ones ported since (LoRA, train-time eval, async saves) get past
-    that check to the data, absent here."""
+    """Every training option of the JAX CLI is ported: LoRA, train-time
+    eval, async saves and `--fsdp` (on one process, a mesh of one) get
+    past the checks to the data, absent here; a mesh axis of 2 (data,
+    model, seq or expert) raises before any data is read in a process
+    launched alone, since its mesh does not fit one process."""
     from multi_spatialmllm_tpu_torch.__main__ import main
 
     argv = ["train", "--meta", "absent.json", "--device", "cpu", *flags]
@@ -262,12 +262,8 @@ def test_train_cli_refuses_unported_flags(flags):
         with pytest.raises(FileNotFoundError, match="absent.json"):
             main(argv)
         return
-    if flags[0] == "--data-parallel":
-        # ported: two processes are asked for and one was launched
-        with pytest.raises(ValueError, match="does not match"):
-            main(argv)
-        return
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # two processes are asked for and one was launched
+    with pytest.raises(ValueError, match="does not match the 1 process"):
         main(argv)
 
 
