@@ -189,8 +189,9 @@ result line):
    --kv-dtype int8, --logprobs (confidences within EVAL_SCORE_ATOL) and
    --quantize-weights; option scores card vs CPU within EVAL_SCORE_ATOL;
    `serve --sampling` tokens equal card vs CPU for four seeds and
-   temperatures, top_p 0.8 in one. (b) the flagship (8.075 B params,
-   seeded bf16 weights) over the eval data of a port pipeline run on phase
+   temperatures, top_p 0.8 in one. (b) the flagship's widths with its LLM
+   and ViT cut to EVAL_LAYERS of 32 and EVAL_VIT_LAYERS of 24 layers for
+   time (seeded bf16 weights) over the eval data of a port pipeline run on phase
    18's two small scans (their frames exported from the .sens beside the
    engines' annotated images; every record's images must resolve),
    EVAL_LIMIT records a file: `eval --batch-size 4 --mc-logprob`, then
@@ -216,22 +217,24 @@ result line):
    greedy serving of the import card vs CPU, 3 LoRA steps card vs CPU
    within TRAIN_REL, and a mixed-adapter PagedBatcher (base and two
    adapters with non-zero B, native and int8 kv, prefix cache, chunked
-   prefill and speculation) card vs CPU; (b) the flagship in bf16 at
-   whole depth: an HF-layout state drawn on the card from a seeded
-   generator, written as 4 GB shards (5 and the index) through
-   models/safetensors_io.py, `import-checkpoint --config flagship --dtype
-   bfloat16` (seconds and GB/s), the import equal to `convert_state_dict`
-   on the card bit for bit, `export-checkpoint`, and the export
-   re-imported equal to the import (needs ~34 GB of free disk under the
-   temporary directory, checked first; the files go as the phase goes);
+   prefill and speculation) card vs CPU; (b) the flagship's widths in
+   bf16 with its LLM cut to PHASE20_LAYERS of 32 layers for time (the CLI's
+   `flagship` cut alike for (b)-(d)): an HF-layout state drawn on the card
+   from a seeded generator, written as SHARD_GB shards (5 and the index)
+   through models/safetensors_io.py, `import-checkpoint --config flagship
+   --dtype bfloat16` (seconds and GB/s), the import equal to
+   `convert_state_dict` on the card bit for bit, `export-checkpoint`, and
+   the export re-imported equal to the import (needs PHASE20_DISK of free
+   disk under the temporary directory, checked first; the files go as the
+   phase goes);
    (c) 16 flagship requests on the imported weights through the serve
    loop in thirds on the base and two rank-16 adapters, beside an
    adapter-free run of the same requests (decode tokens/s of both), base
    rows equal to the adapter-free run's, adapter rows against a batcher on
-   merged weights (reported); (d) LoRA rank 16 of the flagship at its
-   whole 32-layer depth from the imported weights (frozen float32 base,
-   the LLM's layers rematerialised, packed 4096-token rows, batch 2):
-   `trainable` must be 13,631,488 and the loss must fall over 5 steps on
+   merged weights (reported); (d) LoRA rank 16 of that flagship from the
+   imported weights (frozen float32 base, the LLM's layers
+   rematerialised, packed 4096-token rows, batch 2): `trainable` must be
+   LORA_TRAINABLE_PER_LAYER a layer and the loss must fall over 5 steps on
    one repeated batch (peak memory, step seconds, K1/K2/K3 launches a
    step); then the bench MoE (`--moe-experts 4 --moe-impl ragged
    --moe-kernel pallas`) the same way: gmm and gmm_t launch, tgmm never
@@ -309,8 +312,8 @@ result line):
    MESH_STEPS steps under `--model-parallel 2`, then under `--fsdp
    --data-parallel 2` (one row a process); (b) the same on unpacked
    4,096-token rows under `--seq-parallel 2` (ring attention); (c) the
-   bench MoE (`bench_1chip_moe_config`, 4 experts) in float32 on
-   MESH_MOE_BATCH under (1 x
+   bench MoE (`bench_1chip_moe_config`, 4 experts, MESH_MOE_LAYERS of its
+   8 decoder layers) in float32 on MESH_MOE_BATCH under (1 x
    1 x 1 x 2 expert) with the einsum impl and under (1 x 2 model) with
    ragged + K8, each parameter's first gradient within
    MESH_FIRST_GRAD_REL of the run without a group in norm;
@@ -318,16 +321,35 @@ result line):
    nonzero rate (the first update's rate is 0), which the run without a
    group must show; every loss within MESH_LOSS_REL and every step's
    gradient norm within MESH_GNORM_REL of the run without a group;
-   launches a step. (d) the flagship in bf16 at full
-   depth served under (1 x 2 model): N_MESH_SERVE requests of
-   MESH_NEW_TOKENS new tokens (two a shared image and prefix) on the paged batcher with the prefix cache and
-   chunked prefill, bf16 and int8 kv; the tokens against the same requests served in this
+   launches a step. (d) the flagship's widths in bf16 with
+   MESH_SERVE_LAYERS of its 32 LLM layers, served under (1 x 2 model):
+   N_MESH_SERVE requests of MESH_NEW_TOKENS new tokens (two a shared image
+   and prefix) on the paged batcher with the prefix cache and chunked
+   prefill, bf16 and int8 kv; the tokens against the same requests served in this
    process (equal share) and the teacher-forced agreement of the
    sharded run's tokens under this process's model, at least
    MESH_AGREE_MIN of them (bf16 kv; MESH_AGREE_MIN_INT8 int8); decode
    tokens/s.
    Each part's seconds, the peak GiB a process and the gloo transport's
    staged bytes and seconds.
+
+25. The mesh's pipe axis (parallel/pipeline_parallel.py,
+   parallel/pipeline_mllm.py; K1-K3 in every stage's forward, recompute
+   and backward and the ViT preamble's), as gloo processes sharing the
+   card, each part against the same model's `loss_fn` and backward in
+   this process without a group: (a) the flagship's widths (float32
+   master weights, bf16 compute) with PIPE_LAYERS LLM and PIPE_VIT_LAYERS
+   ViT layers, `mllm_pipeline_loss_and_grads` over 2 pipe stages on
+   `make_example_batch` at PIPE_BATCH in PIPE_MICRO microbatches, in a
+   world of two: the loss within MESH_LOSS_REL and every parameter's
+   gradient norm within MESH_GNORM_REL of the run without a group, the
+   processes' losses equal; K1/K2/K3 launches, the gloo transport's staged
+   bytes and seconds, the peak GiB a process and the call's seconds;
+   (b) the `tiny` config in float32 with PIPE_TINY_LAYERS decoder layers
+   in a world of four, over pipe 4, (data 2 x pipe 2) and (model 2 x pipe
+   2) in turn: the loss within PIPE_LOSS_RTOL and every gradient element
+   within PIPE_GRAD_ATOL (the JAX pipeline tests' bounds). The two worlds
+   run at once.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -367,11 +389,12 @@ MOE_MAX_TILES, MOE_TILES_PER_IMAGE = 14, 6
 MOE_TRAIN_LAUNCHES = {"flash_fwd": 28, "flash_bwd_dq": 28,
                       "flash_bwd_dkv": 28, "gmm": 96, "gmm_t": 48,
                       "tgmm": 48}
-N_PHASES = 24
+N_PHASES = 25
 # phase 20: LoRA rank 16 on the default targets (wq, wk, wv, wo of the
 # flagship's 32 layers: (131,072 + 81,920 + 81,920 + 131,072) a layer)
 LORA_RANK = 16
-LORA_TRAINABLE = 13_631_488
+# rank 16 on wq/wk/wv/wo of one flagship layer (13,631,488 at 32 layers)
+LORA_TRAINABLE_PER_LAYER = 425_984
 # its repeated-batch steps: a LoRA learning rate, warmup 1 (the first
 # update has lr 0), REPEAT_STEPS steps
 LORA_LR, LORA_WARMUP = 2e-4, 1
@@ -383,8 +406,13 @@ TINY_LORA_ATOL, TINY_LORA_MOVED = 1e-5, 1e-4
 # the base's distance from the merged weights' logits (bf16: the unmerged
 # delta is added after the bf16 product, the merged weight rounds W + delta)
 LORA_LOGIT_FRAC = 0.25
-SHARD_GB = 4.0           # export-checkpoint's default shard size
-PHASE20_DISK = 34e9      # peak: the 4 GB shards and the imported file
+# phase 20 (b)-(d): the flagship's LLM cut from 32 layers for time (the
+# whole depth took 125-203 s of the phase); 1.5 GB shards cut its 5.681
+# GB state into 5, as 4 GB shards (export-checkpoint's default) cut the
+# whole depth's 16.151 GB
+PHASE20_LAYERS = 8
+SHARD_GB = 1.5
+PHASE20_DISK = 12e9      # peak: the shards and the imported file
 # phase 9's steps on one repeated batch run a fresh optimizer on the train
 # CLI's default schedule (--lr 1e-5, --warmup 100, --steps 1000)
 REPEAT_LR, REPEAT_WARMUP, REPEAT_TOTAL = 1e-5, 100, 1000
@@ -3185,6 +3213,8 @@ def phase_real_inputs(torch, cli, card, kernels):
 # tokens, so a two-frame prompt takes ~3,700 tokens: --max-prompt-len 4096
 EVAL_TILES, EVAL_PROMPT = 6, 4096
 EVAL_LIMIT = 3            # records a file of the pipeline's eval data
+# (b): the flagship's LLM and ViT cut from 32 and 24 layers, for time
+EVAL_LAYERS, EVAL_VIT_LAYERS = 8, 6
 EVAL_CHUNK, EVAL_VISION, EVAL_SPECULATE = 1024, 8, 4
 EVAL_SCORE_ATOL = 1e-5    # option scores and logprobs, card vs CPU (f32)
 TINY_PAGED = ["--paged", "--slots", "2", "--page-size", "16", "--num-pages",
@@ -3589,7 +3619,7 @@ def phase_eval(torch, cli, M, K, tok, card, kernels):
         paged = ["--paged", "--slots", "8", "--page-size", "64",
                  "--num-pages", "640", "--prefix-cache", "--prefill-chunk",
                  str(EVAL_CHUNK), "--vision-cache", str(EVAL_VISION)]
-        cfg = M.flagship_config()
+        cfg = flagship_cut(M, EVAL_LAYERS, EVAL_VIT_LAYERS)
         t0 = time.perf_counter()
         model = M.MultiFrameMLLM(cfg, device="cuda")
         M.init_random_weights(model, SEED)
@@ -3597,7 +3627,9 @@ def phase_eval(torch, cli, M, K, tok, card, kernels):
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in model.parameters())
         bf16_bytes = Q.tree_nbytes(model)
-        log(f"  flagship: {n_params / 1e9:.3f} B params, "
+        log(f"  flagship, LLM and ViT cut to {EVAL_LAYERS} and "
+            f"{EVAL_VIT_LAYERS} layers: "
+            f"{n_params / 1e9:.3f} B params, "
             f"{bf16_bytes / 2**30:.2f} GiB of weights, built in "
             f"{time.perf_counter() - t0:.1f} s")
         runs = {}
@@ -3928,12 +3960,12 @@ def same_state(torch, got, want, what):
             fail(f"{what}: {k} differs")
 
 
-def phase20_checkpoint(torch, cli, M, tmp, card):
-    """(b) the flagship, bf16, whole depth: an HF-layout state drawn on the
-    card, written as 4 GB shards, `import-checkpoint` (seconds, GB/s),
-    held against `convert_state_dict` in memory, `export-checkpoint`, and
-    the export re-imported equal to the import. Returns the imported
-    file."""
+def phase20_checkpoint(torch, cli, M, cfg, tmp, card):
+    """(b) the flagship `cfg` (the CLI's `flagship` cut to it), bf16: an
+    HF-layout state drawn on the card, written as SHARD_GB shards,
+    `import-checkpoint` (seconds, GB/s), held against `convert_state_dict`
+    in memory, `export-checkpoint`, and the export re-imported equal to the
+    import. Returns the imported file."""
     import shutil
 
     from multi_spatialmllm_tpu_torch.models import checkpoint_import as CI
@@ -3944,7 +3976,6 @@ def phase20_checkpoint(torch, cli, M, tmp, card):
     if free < PHASE20_DISK:
         fail(f"phase 20 needs {PHASE20_DISK / 1e9:.0f} GB of free disk "
              f"under {tmp}, has {free / 1e9:.1f} GB")
-    cfg = M.flagship_config()
     t0 = time.perf_counter()
     state = CI.random_state_dict(cfg, SEED + 23, device="cuda",
                                  dtype=torch.bfloat16)
@@ -4004,7 +4035,7 @@ def phase20_checkpoint(torch, cli, M, tmp, card):
     return pt
 
 
-def phase20_serve(torch, M, K, cli, tok, pt, kernels, card):
+def phase20_serve(torch, M, K, cli, tok, cfg, pt, kernels, card):
     """(c) 16 flagship requests on the imported weights through the serve
     loop, in thirds on the base and two adapters (rank 16, the attention
     targets, non-zero B), beside the same requests with no adapters. The
@@ -4018,7 +4049,6 @@ def phase20_serve(torch, M, K, cli, tok, pt, kernels, card):
         stack_adapters,
     )
 
-    cfg = M.flagship_config()
     dev = torch.device("cuda")
     model = M.MultiFrameMLLM(cfg, device=dev)
     model.load_state_dict(torch.load(pt, map_location=dev,
@@ -4215,16 +4245,18 @@ def lora_train_cli(torch, cli, kernels, label, config_flags, cfg, init,
     return launches, summary, peak, trainable, err
 
 
-def phase20_train(torch, M, cli, pt, kernels, moe_kernels):
-    """(d) `train --config flagship --lora-rank 16` at the whole 32-layer
-    depth from the imported weights (the CLI turns on the LLM's remat),
-    then the bench MoE's LoRA with its expert tables frozen (gmm and gmm_t
-    launch, tgmm never)."""
+def phase20_train(torch, M, cli, cfg, pt, kernels, moe_kernels):
+    """(d) `train --config flagship --lora-rank 16` (the CLI's `flagship`
+    cut to `cfg`) from the imported weights (the CLI turns on the LLM's
+    remat), then the bench MoE's LoRA with its expert tables frozen (gmm
+    and gmm_t launch, tgmm never)."""
     launches, summary, peak, trainable, _ = lora_train_cli(
-        torch, cli, kernels, "flagship LoRA, whole depth",
-        ["--config", "flagship"], M.flagship_config(), pt, 6, 6)
-    if trainable != LORA_TRAINABLE:
-        fail(f"trainable adapter params {trainable} != {LORA_TRAINABLE}")
+        torch, cli, kernels,
+        f"flagship LoRA, LLM cut to {cfg.llm.num_layers} layers",
+        ["--config", "flagship"], cfg, pt, 6, 6)
+    want = LORA_TRAINABLE_PER_LAYER * cfg.llm.num_layers
+    if trainable != want:
+        fail(f"trainable adapter params {trainable} != {want}")
     flags = ["--config", "bench", "--moe-experts", "4", "--moe-impl",
              "ragged", "--moe-kernel", "pallas"]
     moe_launches, moe_summary, moe_peak, _, err = lora_train_cli(
@@ -4244,8 +4276,9 @@ def phase20_train(torch, M, cli, pt, kernels, moe_kernels):
 def phase_lora(torch, cli, M, K, T, tok, card, kernels, moe_kernels,
                serve_kernels):
     """Phase 20: (a) tiny card vs CPU, (b) the flagship checkpoint
-    import/export, (c) multi-LoRA flagship serving, (d) whole-depth LoRA
-    training and the MoE LoRA, both through the train CLI."""
+    import/export, (c) multi-LoRA flagship serving, (d) flagship LoRA
+    training and the MoE LoRA, both through the train CLI; (b)-(d) with
+    the flagship's LLM cut to PHASE20_LAYERS layers."""
     import tempfile
 
     import numpy as np
@@ -4255,16 +4288,19 @@ def phase_lora(torch, cli, M, K, T, tok, card, kernels, moe_kernels,
         t0 = time.perf_counter()
         phase20_tiny(torch, np, cli, M, K, T, tok, tmp)
         log(f"  (a) took {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        pt = phase20_checkpoint(torch, cli, M, tmp, card)
-        log(f"  (b) took {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        out["serve"], out["serve_rates"] = phase20_serve(
-            torch, M, K, cli, tok, pt, serve_kernels, card)
-        log(f"  (c) took {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        out.update(phase20_train(torch, M, cli, pt, kernels, moe_kernels))
-        log(f"  (d) took {time.perf_counter() - t0:.1f} s")
+        cfg = flagship_cut(M, PHASE20_LAYERS)
+        with flagship_cut_to(M, PHASE20_LAYERS):
+            t0 = time.perf_counter()
+            pt = phase20_checkpoint(torch, cli, M, cfg, tmp, card)
+            log(f"  (b) took {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            out["serve"], out["serve_rates"] = phase20_serve(
+                torch, M, K, cli, tok, cfg, pt, serve_kernels, card)
+            log(f"  (c) took {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            out.update(phase20_train(torch, M, cli, cfg, pt, kernels,
+                                     moe_kernels))
+            log(f"  (d) took {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -4798,10 +4834,26 @@ MESH_AGREE_MIN, MESH_AGREE_MIN_INT8 = 0.9, 0.8
 # (a), (b): the depth phase 9's widths are cut to: gloo carries 0.4-1.1
 # GB/s on the card (scripts/torch_gloo_cuda_probe.py), and FSDP moves the
 # f32 parameters and gradients through it every step
-MESH_LAYERS, MESH_VIT_LAYERS = 2, 6
+MESH_LAYERS, MESH_VIT_LAYERS = 1, 6
 # (d): requests (two a shared image and prefix), cut from phase 6's 16 for
 # time, and new tokens a request
 N_MESH_SERVE, MESH_NEW_TOKENS = 8, 32
+# (c) and (d): depth cut for time (the bench MoE has 8 decoder layers, the
+# flagship 32; widths as they are)
+MESH_MOE_LAYERS, MESH_SERVE_LAYERS = 4, 8
+# phase 25 (a): the flagship's widths with the LLM cut to 2 layers a stage
+# and the ViT to phase 24's depth; make_example_batch's rows, tiles a row
+# and tokens a row, and the microbatches
+PIPE_LAYERS, PIPE_VIT_LAYERS = 4, MESH_VIT_LAYERS
+PIPE_BATCH = (4, 2, 2048)
+PIPE_MICRO = 4
+# (b): the tiny config's decoder depth, its meshes, and the JAX pipeline
+# tests' bounds (tests/test_pipeline_parallel.py)
+PIPE_TINY_LAYERS = 4
+PIPE_TINY_MESHES = {"pipe 4": dict(n_stages=4),
+                    "(data 2 x pipe 2)": dict(n_stages=2, n_data=2),
+                    "(model 2 x pipe 2)": dict(n_stages=2, n_model=2)}
+PIPE_LOSS_RTOL, PIPE_GRAD_ATOL = 1e-5, 3e-5
 DP_STEPS = 3             # the third step's loss follows an update
 DP_LOSS_REL = 1e-6       # world 1 against the same run without a group
 STAGE_PDB = 4            # the scene-parallel stages' per_device_batch
@@ -4940,22 +4992,23 @@ def stage_world(device, n_corpus, real):
                 exchange_s=sum(seconds), exchanges=len(seconds))
 
 
-@contextlib.contextmanager
-def flagship_cut_to(M, layers, vit_layers=None):
-    """The CLI's `flagship` config with its LLM cut to `layers` layers
-    (and its ViT to `vit_layers`, when given)."""
+def flagship_cut(M, layers, vit_layers=None):
+    """The flagship config with its LLM cut to `layers` layers (and its ViT
+    to `vit_layers`, when given): every width as it is."""
     import dataclasses
 
+    cfg = M.flagship_config()
+    return dataclasses.replace(
+        cfg, vit=dataclasses.replace(
+            cfg.vit, num_layers=vit_layers or cfg.vit.num_layers),
+        llm=dataclasses.replace(cfg.llm, num_layers=layers))
+
+
+@contextlib.contextmanager
+def flagship_cut_to(M, layers, vit_layers=None):
+    """The CLI's `flagship` config cut as `flagship_cut` cuts it."""
     full = M.CONFIGS["flagship"]
-
-    def cut():
-        cfg = full()
-        return dataclasses.replace(
-            cfg, vit=dataclasses.replace(
-                cfg.vit, num_layers=vit_layers or cfg.vit.num_layers),
-            llm=dataclasses.replace(cfg.llm, num_layers=layers))
-
-    M.CONFIGS["flagship"] = cut
+    M.CONFIGS["flagship"] = lambda: flagship_cut(M, layers, vit_layers)
     try:
         yield
     finally:
@@ -5237,6 +5290,7 @@ def mesh_moe(torch, M, T, impl, mesh_kw, kernels):
     parameter's first gradient, clipped (AdamW's first moment after the
     first update, whose rate is 0, over 1 - b1), its shards' squares summed
     over the group that shards it."""
+    import dataclasses
     import gc
 
     from multi_spatialmllm_tpu_torch.parallel import sharding as S
@@ -5247,6 +5301,8 @@ def mesh_moe(torch, M, T, impl, mesh_kw, kernels):
     cfg = M.with_dtype(M.bench_1chip_moe_config(
         impl=impl, kernel="pallas" if impl == "ragged" else "xla"),
         MESH_MOE_DTYPE)
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, num_layers=MESH_MOE_LAYERS))
     model = M.MultiFrameMLLM(cfg, device="cuda", param_dtype=torch.float32)
     M.init_random_weights(model, SEED)
     mesh = make_mesh(**mesh_kw) if mesh_kw else None
@@ -5304,7 +5360,8 @@ def mesh_serve(torch, M, K, reqs, ids, kernels, mesh_kw):
     from multi_spatialmllm_tpu_torch.parallel.mesh import make_mesh
 
     t0 = time.perf_counter()
-    model = M.MultiFrameMLLM(M.flagship_config(), device="cuda")
+    model = M.MultiFrameMLLM(flagship_cut(M, MESH_SERVE_LAYERS),
+                             device="cuda")
     M.init_random_weights(model, SEED)
     model.eval()
     if mesh_kw:
@@ -5484,7 +5541,8 @@ def phase_mesh(torch, cli, M, K, T, tok, card, flash, serve_kernels):
                                                       want["tokens"]))
         same = sum(x == y for a, b in zip(got["tokens"], want["tokens"])
                    for x, y in zip(a, b))
-        log(f"  (d) flagship bf16 under 2 model, {kv} kv: "
+        log(f"  (d) flagship bf16 ({MESH_SERVE_LAYERS} layers) under 2 "
+            f"model, {kv} kv: "
             f"{len(got['tokens'])} requests, {equal} token streams equal to "
             f"the run without a group, {same}/{pos} tokens at common "
             f"positions; decode {got['decode_tok_s']:.1f} tokens/s "
@@ -5523,7 +5581,8 @@ def teacher_forced_agreement(torch, M, reqs, token_sets):
     (bf16 near ties may flip) and how many there are."""
     import gc
 
-    model = M.MultiFrameMLLM(M.flagship_config(), device="cuda")
+    model = M.MultiFrameMLLM(flagship_cut(M, MESH_SERVE_LAYERS),
+                             device="cuda")
     M.init_random_weights(model, SEED)
     model.eval()
     out = []
@@ -5543,6 +5602,244 @@ def teacher_forced_agreement(torch, M, reqs, token_sets):
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def pipe_configs(M):
+    """Phase 25's models: (a) the flagship cut to PIPE_LAYERS LLM and
+    PIPE_VIT_LAYERS ViT layers, (b) the tiny config in float32 with
+    PIPE_TINY_LAYERS decoder layers."""
+    import dataclasses
+
+    tiny = M.with_dtype(M.tiny_config(), "float32")
+    return (flagship_cut(M, PIPE_LAYERS, PIPE_VIT_LAYERS),
+            dataclasses.replace(tiny, llm=dataclasses.replace(
+                tiny.llm, num_layers=PIPE_TINY_LAYERS)))
+
+
+def pipe_batch(M, cfg, tiny):
+    rows, tiles, tokens = (8, 1, 32) if tiny else PIPE_BATCH
+    return M.make_example_batch(cfg, batch=rows, n_tiles=tiles,
+                                seq_len=tokens, device="cuda")
+
+
+def pipe_reference(torch, M, cfg, tiny):
+    """The model of `cfg` (seeded weights, float32 master weights) without
+    a group: `loss_fn` and its backward on the card -> (loss, {name:
+    gradient on the host} for the tiny model, else {name: its norm}, the
+    state for the tiny model)."""
+    import gc
+
+    model = M.MultiFrameMLLM(cfg, device="cuda", param_dtype=torch.float32)
+    M.init_random_weights(model, SEED)
+    loss = M.loss_fn(model, pipe_batch(M, cfg, tiny))
+    loss.backward()
+    grads = {n: p.grad.cpu() if tiny else float(p.grad.norm())
+             for n, p in model.named_parameters()}
+    state = {k: v.cpu() for k, v in model.state_dict().items()} if tiny \
+        else None
+    value = float(loss.detach())
+    del model, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return value, grads, state
+
+
+@contextlib.contextmanager
+def pipe_spans(torch, PM, model):
+    """Seconds of a pipeline call's parts, each synchronised: the preamble's
+    forward (stage 0), the 1F1B schedule and the broadcasts of the
+    preamble's, the loss's and the head's gradients."""
+    spans = {}
+    parts = {"schedule": (PM, "one_f_one_b"),
+             "broadcasts": (PM, "broadcast_all_"),
+             "preamble": (model, "spliced_embeds")}
+    saved = {k: getattr(o, a) for k, (o, a) in parts.items()}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spans[name] = spans.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    for name, (obj, attr) in parts.items():
+        setattr(obj, attr, timed(name, saved[name]))
+    try:
+        yield spans
+    finally:
+        PM.one_f_one_b = saved["schedule"]
+        PM.broadcast_all_ = saved["broadcasts"]
+        del model.spliced_embeds        # the class's method again
+
+
+def pipe_world(tiny, state=None):
+    """One process of phase 25's world (gloo, computing on card 0): (a)
+    the flagship cut over 2 pipe stages, its loss, launches, staged
+    transfers, peak and seconds, and its gradients' norms (the preamble's
+    and head's on the first stage's process, each stage's own); or (b)
+    the tiny model from `state` over each PIPE_TINY_MESHES mesh, its
+    losses, launches and (rank 0) whole gradients."""
+    import torch
+    import torch.distributed as dist
+
+    from multi_spatialmllm_tpu_torch.models import mllm as M
+    from multi_spatialmllm_tpu_torch.ops import attention as A
+    from multi_spatialmllm_tpu_torch.parallel import pipeline_mllm as PM
+    from multi_spatialmllm_tpu_torch.parallel import sharding as S
+    from multi_spatialmllm_tpu_torch.parallel.pipeline_parallel import (
+        MODEL_AXIS,
+        gather_stage,
+        make_pipe_mesh,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flash = [A.FLASH_FWD, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV]
+    cfg = pipe_configs(M)[1 if tiny else 0]
+    meshes = PIPE_TINY_MESHES if tiny else {"pipe 2": dict(n_stages=2)}
+    out = {}
+    for name, kw in meshes.items():
+        model = M.MultiFrameMLLM(cfg, device="cuda",
+                                 param_dtype=torch.float32)
+        if tiny:
+            model.load_state_dict(state)
+        else:
+            M.init_random_weights(model, SEED)
+        mesh = make_pipe_mesh(**kw)
+        if MODEL_AXIS in mesh.mesh_dim_names:
+            S.shard_model(model, mesh)
+        batch = pipe_batch(M, cfg, tiny)
+        S.reset_staged()
+        for kern in flash:
+            kern.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with pipe_spans(torch, PM, model) as spans:
+            loss, (pre, stage, head) = PM.mllm_pipeline_loss_and_grads(
+                model, batch, mesh, PIPE_MICRO)
+        torch.cuda.synchronize()
+        got = dict(loss=float(loss), seconds=time.perf_counter() - t0,
+                   launches={k.name: k.launches for k in flash},
+                   staged=dict(S.STAGED), spans=spans,
+                   peak=torch.cuda.max_memory_allocated() / 2**30)
+        if tiny:
+            stage = gather_stage(stage, mesh, PM.tp_stage_param_specs(stage))
+            grads = PM.merge_params(pre, stage, head, cfg)
+            got["grads"] = ({k: v.cpu() for k, v in grads.items()}
+                            if dist.get_rank() == 0 else None)
+        else:
+            per = next(iter(stage.values())).shape[1]
+            first = int(mesh.get_local_rank("pipe")) * per
+            norms = {k: float(v.norm()) for k, v in {**pre, **head}.items()}
+            for rel, v in stage.items():
+                for j in range(v.shape[1]):
+                    norms[f"llm.layers.{first + j}.{rel}"] = float(
+                        v[0, j].norm())
+            got["norms"] = norms
+        out[name] = got
+        del model, pre, stage, head
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_pipe(torch, M, card):
+    """Phase 25 (see the module docstring): the references in this
+    process, then the two worlds at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from multi_spatialmllm_tpu_torch.dryrun import run_world
+
+    cfg_a, cfg_b = pipe_configs(M)
+    t0 = time.perf_counter()
+    ref_a = pipe_reference(torch, M, cfg_a, False)
+    ref_b = pipe_reference(torch, M, cfg_b, True)
+    log(f"  the runs without a group took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    walls = {}
+
+    def world(n, args):
+        ranks = run_world(n, "chip_smoke:pipe_world", args, device="cpu",
+                          timeout=600)
+        walls[n] = time.perf_counter() - t0
+        return ranks
+
+    with ThreadPoolExecutor(2) as pool:
+        world_a = pool.submit(world, 2, (False,))
+        world_b = pool.submit(world, 4, (True, ref_b[2]))
+        ranks_a, ranks_b = world_a.result(), world_b.result()
+    world_s = time.perf_counter() - t0
+    out = {"world_s": world_s, "world_walls": walls}
+
+    # (a): the flagship cut over 2 stages
+    loss, norms, _ = ref_a
+    got = [r["pipe 2"] for r in ranks_a]
+    rel = abs(got[0]["loss"] - loss) / abs(loss)
+    mine = {**got[1]["norms"], **got[0]["norms"]}
+    gdiff = {n: abs(mine[n] - g) / g for n, g in norms.items() if g > 0}
+    worst = max(gdiff, key=gdiff.get)
+    log(f"  (a) flagship widths ({PIPE_LAYERS} LLM, {PIPE_VIT_LAYERS} ViT "
+        f"layers) over 2 pipe stages, {PIPE_MICRO} microbatches of "
+        f"{PIPE_BATCH}: loss {got[0]['loss']} vs {loss} without a group, "
+        f"relative {rel:.3g} (limit {MESH_LOSS_REL:g}); {len(gdiff)} "
+        f"gradient norms, the farthest {worst} at {gdiff[worst]:.3g} "
+        f"(limit {MESH_GNORM_REL:g}); launches a call a process "
+        f"{[r['launches'] for r in got]}; staged "
+        f"{[r['staged'] for r in got]}; parts "
+        f"{[{k: round(v, 3) for k, v in r['spans'].items()} for r in got]} "
+        f"s; peak "
+        f"{[round(r['peak'], 3) for r in got]} GiB a process; call "
+        f"{[round(r['seconds'], 3) for r in got]} s; {card}")
+    if got[0]["loss"] != got[1]["loss"]:
+        fail(f"(a) the processes' losses differ: "
+             f"{[r['loss'] for r in got]}")
+    if rel > MESH_LOSS_REL:
+        fail(f"(a) loss {rel:.3g} relative from the run without a group")
+    if set(mine) != set(norms) or gdiff[worst] > MESH_GNORM_REL:
+        fail(f"(a) gradient norm of {worst} {gdiff[worst]:.3g} relative "
+             f"from the run without a group")
+    for r in got:
+        if min(r["launches"].values()) <= 0:
+            fail(f"(a) a kernel never launched: {r['launches']}")
+    out["a"] = dict(loss=got[0]["loss"], ref_loss=loss, loss_rel=rel,
+                    gnorm_worst=(worst, gdiff[worst]),
+                    launches=[r["launches"] for r in got],
+                    staged=[r["staged"] for r in got],
+                    peak=[r["peak"] for r in got],
+                    seconds=[r["seconds"] for r in got])
+
+    # (b): the tiny model over three meshes, element by element
+    loss, grads, _ = ref_b
+    out["b"] = {}
+    for name in PIPE_TINY_MESHES:
+        got = [r[name] for r in ranks_b]
+        rel = abs(got[0]["loss"] - loss) / abs(loss)
+        whole = got[0]["grads"]
+        err = {n: float((whole[n] - g).abs().max()) for n, g in grads.items()
+               if n in whole}
+        worst = max(err, key=err.get)
+        log(f"  (b) tiny f32 over {name}: loss {got[0]['loss']} vs {loss}, "
+            f"relative {rel:.3g} (limit {PIPE_LOSS_RTOL:g}); {len(err)} "
+            f"gradients, the farthest {worst} at {err[worst]:.3g} (limit "
+            f"{PIPE_GRAD_ATOL:g}); launches a call a process "
+            f"{[r['launches'] for r in got]}; {card}")
+        if len({r["loss"] for r in got}) != 1:
+            fail(f"(b) {name}: the processes' losses differ")
+        if rel > PIPE_LOSS_RTOL:
+            fail(f"(b) {name}: loss {rel:.3g} relative from the run "
+                 f"without a group")
+        if set(whole) != set(grads) or err[worst] > PIPE_GRAD_ATOL:
+            fail(f"(b) {name}: gradient of {worst} {err[worst]:.3g} from "
+                 f"the run without a group")
+        if any(min(r["launches"].values()) <= 0 for r in got):
+            fail(f"(b) {name}: a kernel never launched")
+        out["b"][name] = dict(loss_rel=rel, grad_err=(worst, err[worst]))
+    log(f"  the two worlds took {world_s:.1f} s (world of 2 "
+        f"{walls[2]:.1f} s, of 4 {walls[4]:.1f} s); {card}")
     return out
 
 
@@ -5735,9 +6032,11 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if 19 in phases:
         head(19, "eval and serving options: tiny f32 card vs CPU, the "
-                 "flagship in bf16 on a pipeline run's eval data (paged with "
-                 "every option, batched with option scoring, int8 weights), "
-                 "the bench MoE with int8 kv")
+                 f"flagship in bf16 (LLM and ViT cut to {EVAL_LAYERS} and "
+                 f"{EVAL_VIT_LAYERS} layers) on a "
+                 "pipeline run's eval data (paged with every option, batched "
+                 "with option scoring, int8 weights), the bench MoE with "
+                 "int8 kv")
         t0 = time.perf_counter()
         res["eval"] = phase_eval(
             torch, cli, M, K, tok, card,
@@ -5748,7 +6047,8 @@ def main(argv=None):
         head(20, "checkpoint import/export and LoRA: tiny card vs CPU, the "
                  "flagship checkpoint through import-checkpoint and "
                  "export-checkpoint, multi-LoRA flagship serving, "
-                 "whole-depth flagship LoRA training, the bench MoE LoRA")
+                 "flagship LoRA training, the bench MoE LoRA (the flagship's "
+                 f"LLM cut to {PHASE20_LAYERS} layers)")
         t0 = time.perf_counter()
         res["lora"] = phase_lora(
             torch, cli, M, K, T, tok, card,
@@ -5797,6 +6097,16 @@ def main(argv=None):
             [A.FLASH_FWD, A.FLASH_BWD_DQ, A.FLASH_BWD_DKV],
             [A.FLASH_FWD, P.PAGED_DECODE, P.PAGED_DECODE_INT8])
         log(f"  phase 24 took {time.perf_counter() - t0:.1f} s; {card}")
+        torch.cuda.empty_cache()
+    if 25 in phases:
+        head(25, "the mesh's pipe axis: 1F1B training of the whole MLLM at "
+                 "the flagship's widths over 2 pipe stages, and of the tiny "
+                 "model over pipe 4, (data 2 x pipe 2) and (model 2 x pipe "
+                 "2); gloo processes on the card, each against the run "
+                 "without a group")
+        t0 = time.perf_counter()
+        res["pipe"] = phase_pipe(torch, M, card)
+        log(f"  phase 25 took {time.perf_counter() - t0:.1f} s; {card}")
     log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     if phases != set(range(3, N_PHASES + 1)):
@@ -5827,6 +6137,9 @@ def main(argv=None):
     mesh_flash = {f"mesh_{k}": mesh[k]["launches"] for k in
                   ("tp", "fsdp", "seq", "ep_einsum", "tp_ragged")}
     mesh_moe = {"mesh_tp_ragged": mesh["tp_ragged"]["launches"]}
+    # a call a process: the first stage's (with the preamble) and the last's
+    pipe = dict(zip(("pipe_train", "pipe_train_last"),
+                    res["pipe"]["a"]["launches"]))
     flash = dict(serve=res["serve"], train=train, moe_serve=moe_serve,
                  moe_train=moe_train, frames_serve=frames,
                  eval_paged=ev["eval_paged"], eval_batched=ev["eval_batched"],
@@ -5834,7 +6147,7 @@ def main(argv=None):
                  lora_train=lo["train"], moe_lora_train=lo["moe_train"],
                  bench_train=bench, bench_moe_train=bench_moe,
                  dp_train=dp_train, dp_moe_train=dp_moe_train, **mesh_flash,
-                 mesh_serve=mesh["serve"]["native"]["launches"],
+                 **pipe, mesh_serve=mesh["serve"]["native"]["launches"],
                  mesh_serve_int8=mesh["serve"]["int8"]["launches"])
     kernels = [
         kernel_entry("flash_fwd", "flash_fwd.cu",
@@ -5850,7 +6163,7 @@ def main(argv=None):
                              moe_lora_train=lo["moe_train"],
                              bench_train=bench, bench_moe_train=bench_moe,
                              dp_train=dp_train, dp_moe_train=dp_moe_train,
-                             **mesh_flash),
+                             **mesh_flash, **pipe),
                      max(err_dq, bench_errs["dq"]),
                      (tr["dq"][0], tr["plain"], tr["dq"][1]), tr["lib_bwd"]),
         kernel_entry("flash_bwd_dkv", "flash_bwd.cu",
@@ -5860,7 +6173,7 @@ def main(argv=None):
                              moe_lora_train=lo["moe_train"],
                              bench_train=bench, bench_moe_train=bench_moe,
                              dp_train=dp_train, dp_moe_train=dp_moe_train,
-                             **mesh_flash),
+                             **mesh_flash, **pipe),
                      max(err_dkv, bench_errs["dk"], bench_errs["dv"]),
                      (tr["dkv"][0], tr["plain"], tr["dkv"][1]),
                      tr["lib_bwd"]),

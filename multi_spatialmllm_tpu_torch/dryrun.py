@@ -10,12 +10,15 @@ prints the JAX dry run's lines, in its order and on its meshes: the
 (data x model) train step on `tiny_config` (`n_model` 2 when n is even),
 tensor-parallel greedy decode, the paged batcher (prefix cache, chunked
 prefill, vision cache, speculation) and multi-LoRA plus sampled serving
-under the TP-sharded parameters, the (data x model x seq) train step with
-ring attention (n divisible by 4), the (data x expert) MoE step (n
-divisible by 8), ring attention alone over a seq mesh, then scene-parallel
-visibility, frame relations, object visibility and coverage, each asserted
-equal to the single-device stage. The three 1F1B lines of the "pipe" axis
-say that they wait for their module. A failing child raises. Departures
+under the TP-sharded parameters, the whole MLLM's interleaved-1F1B step
+over n pipe stages, over (data 2 x pipe n/2) when n is even and over (data
+2 x model 2 x pipe n/4) with tensor-parallel stage bodies when n is
+divisible by 8 (each loss and every gradient finite), the (data x model x
+seq) train step with ring attention (n divisible by 4), the (data x
+expert) MoE step (n divisible by 8), ring attention alone over a seq mesh,
+then scene-parallel visibility, frame relations, object visibility and
+coverage, each asserted equal to the single-device stage. A failing child
+raises. Departures
 from the JAX lines: the expert-parallel step takes 8 rows (the port splits
 rows over data x expert, JAX over data alone), and the lone ring's head
 dim is 32 (the flash kernels take 32, 64 or 128; JAX uses 8).
@@ -164,11 +167,7 @@ def _dryrun_rank(n: int, device: str) -> list[str]:
     lines.append(f"dryrun_multichip({n}): mesh=({n_data} data x {n_model} "
                  f"model), {backend}/{dev.type}, loss={loss:.4f}")
     lines += _tp_serving_lines(n, model, cfg, n_data, n_model, dev)
-    for what in ("FULL-MLLM 1F1B", "combined (data x pipe) MLLM 1F1B step",
-                 "combined (data x model x pipe) MLLM 1F1B step"):
-        lines.append(f"dryrun_multichip({n}): {what}: waits for the pipe "
-                     f"axis (parallel/pipeline_parallel.py, "
-                     f"pipeline_mllm.py; ROADMAP.md item 17, step 3)")
+    lines += _pipe_lines(n, cfg, dev)
     if n % 4 == 0:
         sp_mesh = make_mesh(n_data=2, n_model=n // 4, n_seq=2)
         loss, _ = _mesh_step(cfg, sp_mesh, 2, 64, dev)
@@ -315,6 +314,50 @@ def _tp_serving_lines(n: int, model, cfg, n_data: int, n_model: int, dev
     _check(len(lbatcher.generate_all(mixed)) == 3, "multi-LoRA outputs")
     lines.append(f"dryrun_multichip({n}): paged multi-LoRA + sampled "
                  f"serving under TP-sharded params ok")
+    return lines
+
+
+def _pipe_lines(n: int, base, dev) -> list[str]:
+    """The JAX dry run's 1F1B lines on its meshes and batches: the whole
+    MLLM (`base` with one decoder layer a stage) over n stages on 4 rows,
+    over (data 2 x pipe n/2) on 8 rows when n is even, over (data 2 x
+    model 2 x pipe n/4) on 8 rows when n is divisible by 8; 4 microbatches
+    of 32 tokens, 1 tile a row. Each loss and every gradient must be
+    finite."""
+    import dataclasses
+
+    import torch
+
+    from .models import mllm as M
+    from .parallel.pipeline_mllm import mllm_pipeline_loss_and_grads
+    from .parallel.pipeline_parallel import make_pipe_mesh
+    from .parallel.sharding import shard_model
+
+    runs = [(f"FULL-MLLM 1F1B ({n} stages x 4 microbatches, ViT+projector "
+             f"preamble + trainable head)", dict(n_stages=n), 4, 5)]
+    if n % 2 == 0:
+        runs.append((f"combined (data=2 x pipe={n // 2}) MLLM 1F1B step",
+                     dict(n_stages=n // 2, n_data=2), 8, 6))
+    if n % 8 == 0:
+        runs.append((f"combined (data=2 x model=2 x pipe={n // 4}) MLLM 1F1B "
+                     f"step with tensor-parallel stage bodies",
+                     dict(n_stages=n // 4, n_data=2, n_model=2), 8, 7))
+    lines = []
+    for what, kw, rows, seed in runs:
+        cfg = dataclasses.replace(base, llm=dataclasses.replace(
+            base.llm, num_layers=kw["n_stages"]))
+        model = M.MultiFrameMLLM(cfg, device=dev, param_dtype=torch.float32)
+        M.init_random_weights(model, seed)
+        mesh = make_pipe_mesh(**kw)
+        if kw.get("n_model", 1) > 1:
+            shard_model(model, mesh)
+        batch = M.make_example_batch(cfg, batch=rows, n_tiles=1, seq_len=32,
+                                     device=dev)
+        loss, grads = mllm_pipeline_loss_and_grads(model, batch, mesh, 4)
+        _check(bool(torch.isfinite(loss)), f"{what}: loss {float(loss)}")
+        _check(all(bool(torch.isfinite(g).all()) for part in grads
+                   for g in part.values()), f"{what}: a gradient")
+        lines.append(f"dryrun_multichip({n}): {what}, loss={float(loss):.4f}")
     return lines
 
 

@@ -263,7 +263,8 @@ def prefetch_iterator(it, depth: int = 2):
     compute. Yields exactly the wrapped iterator's items in order;
     producer exceptions re-raise at the consumer; abandoning the
     generator stops the producer (no thread leak). Composes with
-    mixture_batches and packed_batch_iterator."""
+    mixture_batches / packed_batch_iterator, which prefetch_batches'
+    padded-only pipeline does not."""
     import queue as queue_mod
     import threading
 
@@ -306,3 +307,126 @@ def prefetch_iterator(it, depth: int = 2):
         stop.set()
         thread.join()
 
+
+def prefetch_batches(
+    samples: Sequence[dict],
+    tokenizer: SpatialTokenizer,
+    model_cfg: MLLMConfig,
+    image_loader: Callable[[str], np.ndarray],
+    batch_size: int,
+    config: DataConfig | None = None,
+    drop_remainder: bool = True,
+    num_workers: int | None = None,
+    prefetch: int = 2,
+) -> Iterator[dict]:
+    """`batch_iterator` with the host work overlapped against device
+    compute (JPEG decode, tiling and tokenizing are host-bound and must not
+    starve the card).
+
+    Worker threads run `encode_sample` (the native codec releases the
+    GIL); results are consumed strictly in submission order, so batch
+    composition is IDENTICAL to the synchronous iterator for any worker
+    count (test-asserted). A producer thread keeps up to `prefetch`
+    assembled batches queued ahead of the consumer. The native library
+    (ingest/native: the JPEG codec an image loader reads through) is built
+    and loaded here, in the calling thread, before any worker starts: its
+    lazy build takes no lock, and two workers would race it.
+    """
+    import queue as queue_mod
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    config = config or DataConfig()
+    if num_workers is None:
+        num_workers = min(8, __import__("os").cpu_count() or 1)
+    if num_workers <= 1:
+        yield from batch_iterator(samples, tokenizer, model_cfg,
+                                  image_loader, batch_size, config,
+                                  drop_remainder)
+        return
+
+    from ..ingest import native
+
+    native.native_available()
+    out_q: queue_mod.Queue = queue_mod.Queue(maxsize=prefetch)
+    _END = object()
+    stop = threading.Event()  # set when the consumer abandons the iterator
+
+    class _Abandoned(Exception):
+        pass
+
+    def put(item):
+        # bounded put that aborts once the consumer is gone, so the
+        # producer thread and its executor never leak
+        while True:
+            if stop.is_set():
+                raise _Abandoned()
+            try:
+                out_q.put(item, timeout=0.1)
+                return
+            except queue_mod.Full:
+                continue
+
+    def produce():
+        try:
+            with ThreadPoolExecutor(max_workers=num_workers) as pool:
+                window = 4 * num_workers
+                futures: list = []
+                buf_ids, buf_labels, buf_tiles = [], [], []
+
+                def drain_one():
+                    enc = futures.pop(0).result()
+                    if enc is None:
+                        return
+                    input_ids, labels, tiles, _ = enc
+                    buf_ids.append(input_ids)
+                    buf_labels.append(labels)
+                    buf_tiles.append(tiles)
+                    if len(buf_ids) == batch_size:
+                        put({
+                            "input_ids": np.stack(buf_ids),
+                            "labels": np.stack(buf_labels),
+                            "tiles": np.stack(buf_tiles),
+                        })
+                        buf_ids.clear()
+                        buf_labels.clear()
+                        buf_tiles.clear()
+
+                for sample in samples:
+                    if stop.is_set():
+                        raise _Abandoned()
+                    futures.append(pool.submit(
+                        encode_sample, sample, tokenizer, model_cfg,
+                        image_loader, config))
+                    if len(futures) >= window:
+                        drain_one()
+                while futures:
+                    drain_one()
+                if buf_ids and not drop_remainder:
+                    put({
+                        "input_ids": np.stack(buf_ids),
+                        "labels": np.stack(buf_labels),
+                        "tiles": np.stack(buf_tiles),
+                    })
+            put(_END)
+        except _Abandoned:
+            pass
+        except BaseException as exc:  # surface worker failures
+            try:
+                put(exc)
+            except _Abandoned:
+                pass
+
+    thread = threading.Thread(target=produce, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = out_q.get()
+            if item is _END:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        thread.join()

@@ -11,7 +11,7 @@ its kernels when its tensors lie on a CUDA device and runs its plain
 version when they lie on the CPU. That device is the only switch.
 
 `trainable_flash_attention` and `trainable_flash_attention_packed` go
-through `FLASH_FWD_OP`, a `torch.library` custom op whose outputs are
+through `FLASH_FWD_OP`, an op of its own (`torch.library`) whose outputs are
 `(o, lse)` and whose autograd formula is the backward pair, as the JAX
 package's custom-VJP functions of the same names are. Being an op of its
 own, the forward is visible to torch's selective checkpointing (the
@@ -239,15 +239,24 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal, segment_ids=None):
     raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
 
 
-@torch.library.custom_op("msmllm_torch::flash_attention_fwd",
-                         mutates_args=())
-def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  segment_ids: torch.Tensor | None,
-                  causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+# the op is defined through `torch.library.Library` rather than the
+# `custom_op` decorator: that decorator wraps the kernel in
+# `torch._disable_dynamo`, whose first call imports torch._dynamo (9.5-10 s
+# in a fresh process on the card's host, scripts/torch_first_call_probe.py)
+_LIB = torch.library.Library("msmllm_torch", "DEF")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, "
+            "Tensor? segment_ids, bool causal) -> (Tensor, Tensor)")
+
+
+def _flash_fwd_impl(q, k, v, segment_ids, causal):
     return flash_attention_fwd(q, k, v, causal, segment_ids)
 
 
-@_flash_fwd_op.register_fake
+_LIB.impl("flash_attention_fwd", _flash_fwd_impl,
+          "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("msmllm_torch::flash_attention_fwd")
 def _(q, k, v, segment_ids, causal):
     b, h, s, _ = q.shape
     return torch.empty_like(q), q.new_empty((b, h, s), dtype=torch.float32)
@@ -269,7 +278,8 @@ def _flash_backward(ctx, do, dlse):
     return dq, dk, dv, None, None
 
 
-_flash_fwd_op.register_autograd(_flash_backward,
+torch.library.register_autograd("msmllm_torch::flash_attention_fwd",
+                                _flash_backward,
                                 setup_context=_flash_setup_context)
 FLASH_FWD_OP = torch.ops.msmllm_torch.flash_attention_fwd.default
 
@@ -277,11 +287,11 @@ FLASH_FWD_OP = torch.ops.msmllm_torch.flash_attention_fwd.default
 def trainable_flash_attention(q, k, v, causal=True):
     """Differentiable flash attention: q `[B, H, S, hd]`, k/v
     `[B, KVH, S, hd]` (GQA native; dk/dv come back at KVH heads)."""
-    return _flash_fwd_op(q, k, v, None, causal)[0]
+    return FLASH_FWD_OP(q, k, v, None, causal)[0]
 
 
 def trainable_flash_attention_packed(q, k, v, segment_ids, causal):
     """`trainable_flash_attention` with a block-diagonal segment mask:
     queries see only keys of the same id in `segment_ids` `[B, S]`
     (packed training rows; the ViT's pad segment with `causal=False`)."""
-    return _flash_fwd_op(q, k, v, segment_ids, causal)[0]
+    return FLASH_FWD_OP(q, k, v, segment_ids, causal)[0]

@@ -8,8 +8,9 @@ process of the `torch.distributed` default group (`initialize_multihost`),
 and the mesh is a `DeviceMesh` with the same axis names in the same order.
 Code that runs over an axis takes its group, this process's coordinate and
 its size from the helper of that axis (`data_axis`, `model_axis`,
-`seq_axis`, `expert_axis`), and a group over several axes at once from
-`axes_group`.
+`seq_axis`, `expert_axis`; the pipeline's "pipe" axis through `mesh_axis`,
+its mesh from parallel/pipeline_parallel.make_pipe_mesh), and a group over
+several axes at once from `axes_group`.
 
 Not ported: `shard_map_compat`, `data_sharding` and `replicated`. They
 place arrays on a JAX mesh for XLA's partitioner; a process here holds its
@@ -26,6 +27,7 @@ DATA_AXIS = "data"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
 EXPERT_AXIS = "expert"
+PIPE_AXIS = "pipe"
 
 
 def make_mesh(n_data: int | None = None, n_model: int = 1,

@@ -36,13 +36,21 @@ and calls the collectives itself, where XLA inserts them in JAX:
   shard's; the logsumexp and the label's logit are reduced over "model".
 
 Every collective goes through one seam (`all_reduce_`, `all_gather`,
-`reduce_scatter`, `all_to_all`, `ring_pass`). Under NCCL it passes CUDA
-tensors as they are. Under a gloo group, a CUDA tensor goes to gloo as it
-is for every collective that gloo takes on CUDA, and through pinned host
-memory for those it does not (point-to-point sends and receives, found
-with scripts/torch_gloo_cuda_probe.py on torch 2.11: `ring_pass`); the
-group's backend decides, and `STAGED` counts the bytes and seconds of
-those copies. The seam never moves compute off the tensor's device.
+`reduce_scatter`, `all_to_all`, `broadcast_`, and the point-to-point
+`exchange` under `ring_pass` and the pipeline's schedule). Under NCCL it
+passes CUDA tensors as they are. Under a gloo group, a CUDA tensor goes to
+gloo as it is for every collective that gloo takes on CUDA, and through
+pinned host memory for those it does not (point-to-point sends and
+receives, found with scripts/torch_gloo_cuda_probe.py on torch 2.11:
+`exchange`); the group's backend decides, and `STAGED` counts the bytes
+and seconds of those copies. The seam never moves compute off the tensor's
+device.
+
+On a mesh with a "pipe" axis (parallel/pipeline_parallel.make_pipe_mesh)
+only the decoder stack's layers shard, over "model", as the JAX pipeline's
+`tp_stage_param_specs` shards them; the preamble (ViT, projector, token
+embedding) and the head (final norm, lm_head) replicate
+(`params_shardings`, `shard_model`).
 """
 
 from __future__ import annotations
@@ -54,7 +62,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .mesh import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS, axes_group
+from .mesh import (
+    DATA_AXIS,
+    EXPERT_AXIS,
+    MODEL_AXIS,
+    PIPE_AXIS,
+    SEQ_AXIS,
+    axes_group,
+)
 
 # (patterns that must each be a segment of the dotted parameter name,
 #  {ndim: spec over the port tensor's dims})
@@ -87,6 +102,8 @@ _RULES: list[tuple[tuple[str, ...], dict[int, tuple]]] = [
 # module name -> parts its output dimension is laid out in (the model axis
 # splits each part)
 _BLOCKS = {"qkv": 3}
+# what a mesh with a "pipe" axis shards: the decoder stack's layers
+STAGE_PREFIX = "llm.layers."
 
 
 def spec_for_path(name: str, ndim: int) -> tuple:
@@ -126,12 +143,19 @@ def params_shardings(model, mesh, fsdp: bool = False,
     """{parameter name: spec} for a model holding FULL parameters (built
     on any device, the meta device included): per dimension, the mesh axis
     that shards it, or None. Axes the mesh does not carry drop out, as in
-    JAX; `fsdp` adds the data axis (`_add_fsdp`)."""
+    JAX; `fsdp` adds the data axis (`_add_fsdp`). On a pipe mesh only the
+    decoder layers shard (the module docstring)."""
     sizes = mesh_sizes(mesh)
+    pipe = PIPE_AXIS in sizes
+    if pipe and fsdp:
+        raise ValueError("FSDP does not compose with the pipe axis (the JAX "
+                         "pipeline shards stage weights over model alone)")
     out = {}
     for name, p in model.named_parameters():
         spec = tuple(a if a in sizes else None
                      for a in spec_for_path(name, p.dim()))
+        if pipe and not name.startswith(STAGE_PREFIX):
+            spec = (None,) * p.dim()
         if fsdp:
             spec = _add_fsdp(spec, tuple(p.shape), sizes.get(DATA_AXIS, 1),
                              fsdp_min_size)
@@ -278,32 +302,55 @@ def all_to_all(t: torch.Tensor, group, split_dim: int, cat_dim: int
     return torch.cat([p.movedim(0, split_dim) for p in parts], dim=cat_dim)
 
 
+def exchange(sends: list, recvs: list, group) -> list:
+    """Point-to-point transfers within `group`, all in one
+    `batch_isend_irecv`: each `(tensor, peer)` of `sends` goes to the
+    group's rank `peer`, and for each `(like, peer)` of `recvs` a tensor
+    of `like`'s shape, dtype and device comes from `peer`; returns those,
+    in order. A pair of ranks matches its transfers in the order they are
+    listed."""
+    if not sends and not recvs:
+        return []
+    first = (sends or recvs)[0][0]
+    # point-to-point transfers of CUDA tensors crash gloo's TCP pairs
+    # (scripts/torch_gloo_cuda_probe.py); every other collective here takes
+    # CUDA tensors under gloo
+    staged = first.is_cuda and dist.get_backend(group) == "gloo"
+    t0 = time.perf_counter()
+    bufs = [torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+            if staged else torch.empty(like.shape, dtype=like.dtype,
+                                       device=like.device)
+            for like, _ in recvs]
+    ops = [dist.P2POp(dist.isend, _to_host(t) if staged else t.contiguous(),
+                      dist.get_global_rank(group, peer), group)
+           for t, peer in sends] + \
+          [dist.P2POp(dist.irecv, b, dist.get_global_rank(group, peer), group)
+           for b, (_, peer) in zip(bufs, recvs)]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    if staged:
+        bufs = [_to_device(b, like) for b, (like, _) in zip(bufs, recvs)]
+        STAGED["seconds"] += time.perf_counter() - t0
+        STAGED["calls"] += 1
+    return bufs
+
+
 def ring_pass(tensors: list, group) -> list:
     """Each tensor sent to the next rank of `group` (ranks in a ring), and
     the previous rank's received in its place."""
     if group is None:
         return tensors
     rank, n = dist.get_rank(group), dist.get_world_size(group)
-    nxt = dist.get_global_rank(group, (rank + 1) % n)
-    prv = dist.get_global_rank(group, (rank - 1) % n)
-    # point-to-point transfers of CUDA tensors crash gloo's TCP pairs
-    # (scripts/torch_gloo_cuda_probe.py); every other collective here takes
-    # CUDA tensors under gloo
-    staged = tensors[0].is_cuda and dist.get_backend(group) == "gloo"
-    t0 = time.perf_counter()
-    sends = [(_to_host(t) if staged else t.contiguous()) for t in tensors]
-    recvs = [torch.empty_like(s) for s in sends]
-    if staged:
-        recvs = [r.pin_memory() for r in recvs]
-    ops = [dist.P2POp(dist.isend, s, nxt, group) for s in sends] + \
-          [dist.P2POp(dist.irecv, r, prv, group) for r in recvs]
-    for w in dist.batch_isend_irecv(ops):
-        w.wait()
-    if staged:
-        recvs = [_to_device(r, t) for r, t in zip(recvs, tensors)]
-        STAGED["seconds"] += time.perf_counter() - t0
-        STAGED["calls"] += 1
-    return recvs
+    return exchange([(t, (rank + 1) % n) for t in tensors],
+                    [(t, (rank - 1) % n) for t in tensors], group)
+
+
+def broadcast_(t: torch.Tensor, group, src: int) -> torch.Tensor:
+    """`t` of the group's rank `src` on every rank of `group`, in place
+    (nothing without a group)."""
+    if group is not None:
+        dist.broadcast(t, src=dist.get_global_rank(group, src), group=group)
+    return t
 
 
 # --- autograd regions ------------------------------------------------------
@@ -507,8 +554,11 @@ def shard_model(model, mesh, fsdp: bool = False,
     check_moe_mesh(model.cfg, mesh)
     mgroup, mcoord, msize = model_axis(mesh)
     tp = TPShard(mgroup, mcoord, msize) if mgroup is not None else None
+    pipe = PIPE_AXIS in mesh_sizes(mesh)
     summed = set()
     for mod_name, mod in model.named_modules():
+        if pipe and not mod_name.startswith(STAGE_PREFIX):
+            continue        # the pipeline's preamble and head replicate
         leaf = mod_name.rsplit(".", 1)[-1]
         if isinstance(mod, Linear) and tp is not None:
             # the model axis on the output dim: column parallel (its
@@ -588,11 +638,18 @@ def _check_divisible(model, mesh) -> None:
     m, e = sizes.get(MODEL_AXIS, 1), sizes.get(EXPERT_AXIS, 1)
     need = {"llm.num_kv_heads": cfg.llm.num_kv_heads,
             "llm.num_heads": cfg.llm.num_heads,
-            "llm.ffn_size": cfg.llm.ffn_size,
-            "llm.vocab_size": cfg.llm.vocab_size,
-            "vit.num_heads": cfg.vit.num_heads,
-            "vit mlp": int(cfg.vit.hidden_size * cfg.vit.mlp_ratio),
-            "llm.hidden_size (the projector's fc1)": cfg.llm.hidden_size}
+            "llm.ffn_size": cfg.llm.ffn_size}
+    if PIPE_AXIS in sizes:
+        if m > 1 and cfg.llm.moe_experts:
+            raise ValueError("the pipeline's tensor-parallel stage bodies "
+                             "are dense layers (JAX tp_decoder_layer): a MoE "
+                             "decoder pipelines without a model axis")
+    else:
+        need.update({"llm.vocab_size": cfg.llm.vocab_size,
+                     "vit.num_heads": cfg.vit.num_heads,
+                     "vit mlp": int(cfg.vit.hidden_size * cfg.vit.mlp_ratio),
+                     "llm.hidden_size (the projector's fc1)":
+                         cfg.llm.hidden_size})
     for what, n in need.items():
         if n % m:
             raise ValueError(f"{what} = {n} does not divide over the "

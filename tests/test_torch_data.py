@@ -200,3 +200,53 @@ def test_mixture_batches_and_validation_match_jax(meta_path):
     _assert_batches_equal(got, want)
     assert TX.validate_mixture(et, loader, sample=3) == \
         JX.validate_mixture(ej, loader, sample=3)
+
+
+@pytest.mark.parametrize("workers", [1, 2, 4])
+def test_prefetch_batches_equal_the_synchronous_iterator_and_jax(workers):
+    """`prefetch_batches` (worker threads in submission order; one worker
+    is `batch_iterator` itself) yields byte-identical batches, in order, to
+    the port's synchronous iterator and to the JAX package's
+    `prefetch_batches` at the same worker count."""
+    (jcfg, dj, jt), (tcfg, dt, tt) = _setup()
+    recs = _records(5, 11)
+    sync = list(TD.batch_iterator(recs, tt, tcfg, _loader, 3, dt,
+                                  drop_remainder=False))
+    got = list(TD.prefetch_batches(recs, tt, tcfg, _loader, 3, dt,
+                                   drop_remainder=False, num_workers=workers,
+                                   prefetch=2))
+    assert len(got) >= 3
+    _assert_batches_equal(got, sync)
+    _assert_batches_equal(got, JD.prefetch_batches(
+        recs, jt, jcfg, _loader, 3, dj, drop_remainder=False,
+        num_workers=workers, prefetch=2))
+
+
+def test_prefetch_batches_reraise_a_loader_error():
+    tcfg, dt, tt = _setup()[1]
+
+    def bad_loader(path):
+        raise FileNotFoundError(path)
+
+    recs = [r for r in _records(5, 11) if "image" in r]
+    with pytest.raises(FileNotFoundError):
+        list(TD.prefetch_batches(recs, tt, tcfg, bad_loader, 1, dt,
+                                 num_workers=4))
+
+
+def test_abandoned_prefetch_batches_end_their_threads():
+    """Closing the generator after one batch stops the producer and its
+    workers instead of leaving them blocked on the bounded queue."""
+    import threading
+    import time
+
+    tcfg, dt, tt = _setup()[1]
+    before = threading.active_count()
+    it = TD.prefetch_batches(_records(6, 40), tt, tcfg, _loader, 2, dt,
+                             num_workers=4, prefetch=1)
+    next(it)
+    it.close()
+    deadline = time.monotonic() + 10
+    while threading.active_count() > before and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert threading.active_count() <= before

@@ -113,6 +113,8 @@ PORT_MODULES = [
     "multi_spatialmllm_tpu_torch.parallel.lora",
     "multi_spatialmllm_tpu_torch.parallel.lora_serving",
     "multi_spatialmllm_tpu_torch.parallel.mesh",
+    "multi_spatialmllm_tpu_torch.parallel.pipeline_mllm",
+    "multi_spatialmllm_tpu_torch.parallel.pipeline_parallel",
     "multi_spatialmllm_tpu_torch.parallel.sharding",
     "multi_spatialmllm_tpu_torch.parallel.train",
 ]
@@ -653,18 +655,18 @@ def _result_lines(stdout: str):
 
 
 # the JAX dry run's 14 lines at 8 devices (__graft_entry__._dryrun_on_mesh
-# and the data-engine lines), the pipe axis's three waiting for their
-# module (ROADMAP.md item 17, step 3)
+# and the data-engine lines)
 DRYRUN_8 = [
     r"mesh=\(4 data x 2 model\), gloo/cpu, loss=\d+\.\d{4}$",
     r"tensor-parallel serving decode over the \(4 data x 2 model\) mesh ok$",
     r"paged serving \(prefix cache \+ chunked prefill \+ vision cache \+ "
     r"speculative\) under TP-sharded params ok, stats=\{.*\}$",
     r"paged multi-LoRA \+ sampled serving under TP-sharded params ok$",
-    r"FULL-MLLM 1F1B: waits for the pipe axis .*item 17, step 3\)$",
-    r"combined \(data x pipe\) MLLM 1F1B step: waits .*item 17, step 3\)$",
-    r"combined \(data x model x pipe\) MLLM 1F1B step: waits .*item 17, "
-    r"step 3\)$",
+    r"FULL-MLLM 1F1B \(8 stages x 4 microbatches, ViT\+projector preamble "
+    r"\+ trainable head\), loss=\d+\.\d{4}$",
+    r"combined \(data=2 x pipe=4\) MLLM 1F1B step, loss=\d+\.\d{4}$",
+    r"combined \(data=2 x model=2 x pipe=2\) MLLM 1F1B step with "
+    r"tensor-parallel stage bodies, loss=\d+\.\d{4}$",
     r"\(data=2 x model=2 x seq=2\) train step with ring attention, "
     r"loss=\d+\.\d{4}$",
     r"\(data=2 x expert=4\) MoE train step \(top-2 routed SwiGLU, "
@@ -683,9 +685,8 @@ DRYRUN_8 = [
 def test_dryrun_and_drill_run_with_the_cards_installation(tmp_path):
     """`python -m multi_spatialmllm_tpu_torch.dryrun 8 --device cpu` (eight
     gloo processes on the CPU) prints the JAX dry run's lines in its order
-    on its meshes (every step's loss finite, the serving, ring and
-    data-engine results checked in the ranks; the three pipe lines naming
-    the roadmap item that ports them), and
+    on its meshes (every step's loss finite, every 1F1B gradient finite, the
+    serving, ring and data-engine results checked in the ranks), and
     `scripts/torch_volume_drill.py --scale smoke --device cpu` (a killed
     and a resumed campaign process) runs, with jax, the JAX package and
     cv2 unimportable in every process they start: a `sitecustomize` on the
