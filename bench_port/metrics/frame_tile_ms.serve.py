@@ -1,0 +1,9 @@
+"""Mean host time to tile one frame in the serving window (INTER_AREA
+resizes, crops, normalisation): the program span `msm.image.tile`
+(`models/preprocess.tile_image`) over its count."""
+
+from bench_port.spans import mean_ms
+
+
+def read(ctx):
+    return mean_ms("msm.image.tile", "host_s")

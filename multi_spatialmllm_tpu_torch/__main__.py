@@ -50,8 +50,10 @@ def _read_image(path: str) -> np.ndarray:
     bytes: `cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)` without
     cv2. Any other format raises."""
     from .ingest.image import COLOR, imread
+    from .utils.profiling import span
 
-    return np.ascontiguousarray(imread(path, COLOR)[..., ::-1])
+    with span("msm.image.read"):
+        return np.ascontiguousarray(imread(path, COLOR)[..., ::-1])
 
 
 def make_request_builder(cfg, tokenizer, batcher, tiles_for: Callable):

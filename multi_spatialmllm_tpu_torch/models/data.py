@@ -14,6 +14,7 @@ from typing import Callable, Iterator, Sequence
 
 import numpy as np
 
+from ..utils.profiling import span
 from .mllm import MLLMConfig
 from .preprocess import PreprocessConfig, tile_image
 from .tokenizer import (
@@ -297,7 +298,8 @@ def prefetch_iterator(it, depth: int = 2):
     thread.start()
     try:
         while True:
-            item = q.get()
+            with span("msm.data.wait"):
+                item = q.get()
             if item is _END:
                 break
             if isinstance(item, BaseException):

@@ -20,6 +20,7 @@ from torch import nn
 
 from ..ops.ring_attention import active_ring_mesh
 from ..parallel.sharding import tp_region_enter
+from ..utils.profiling import span
 from .llm import DTYPES, DecoderLM, Linear, LLMConfig, cross_entropy_loss
 from .moe import MoEMLP
 from .vit import LayerNorm, ViTConfig, VisionTransformer, gelu
@@ -77,9 +78,11 @@ class MultiFrameMLLM(nn.Module):
 
     def encode_tiles(self, tiles: torch.Tensor) -> torch.Tensor:
         """`[N_tiles, H, W, 3] -> [N_tiles, tokens_per_tile, llm_hidden]`."""
-        feats = self.vision(tiles)[:, 1:]  # drop cls
-        feats = pixel_shuffle(feats, self.cfg.vit.grid, self.cfg.downsample)
-        return self.projector(feats)
+        with span("msm.model.vit", device=True):
+            feats = self.vision(tiles)[:, 1:]  # drop cls
+            feats = pixel_shuffle(feats, self.cfg.vit.grid,
+                                  self.cfg.downsample)
+            return self.projector(feats)
 
     def spliced_embeds(self, input_ids: torch.Tensor,
                        tiles: torch.Tensor,
@@ -148,10 +151,11 @@ class MultiFrameMLLM(nn.Module):
             positions = positions[:, block]
         if segment_ids is not None and block is not None:
             segment_ids = segment_ids[:, block]
-        logits, _, auxes = self.llm(embeds, positions,
-                                    segment_ids=segment_ids,
-                                    inference=False, with_aux=True,
-                                    vocab_shard=vocab_shard)
+        with span("msm.model.llm", device=True):
+            logits, _, auxes = self.llm(embeds, positions,
+                                        segment_ids=segment_ids,
+                                        inference=False, with_aux=True,
+                                        vocab_shard=vocab_shard)
         return (logits, auxes) if with_aux else logits
 
     def prefill(self, input_ids: torch.Tensor, tiles: torch.Tensor,
@@ -167,7 +171,9 @@ class MultiFrameMLLM(nn.Module):
         embeds = self.spliced_embeds(input_ids, tiles)
         b, t, _ = embeds.shape
         positions = torch.arange(t, device=embeds.device).expand(b, t)
-        return self.llm(embeds, positions, caches, inference=True, lora=lora)
+        with span("msm.model.llm", device=True):
+            return self.llm(embeds, positions, caches, inference=True,
+                            lora=lora)
 
 
 def ring_block(seq_len: int) -> slice | None:

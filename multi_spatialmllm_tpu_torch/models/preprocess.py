@@ -14,6 +14,7 @@ import dataclasses
 
 import numpy as np
 
+from ..utils.profiling import span
 from .resize import resize_area
 
 # ImageNet normalization used by InternViT-style encoders.
@@ -68,7 +69,11 @@ def tile_image(image: np.ndarray, config: PreprocessConfig | None = None
                ) -> np.ndarray:
     """RGB uint8 `[H, W, 3]` -> normalized float32 tiles
     `[n_tiles, tile, tile, 3]` (grid tiles + optional thumbnail)."""
-    config = config or PreprocessConfig()
+    with span("msm.image.tile"):
+        return _tile_image(image, config or PreprocessConfig())
+
+
+def _tile_image(image: np.ndarray, config: PreprocessConfig) -> np.ndarray:
     if config.resize_hw is not None:
         image = _resize(image, config.resize_hw)
     h, w = image.shape[:2]

@@ -27,6 +27,7 @@ import time
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import prng
 from .generate import (
     accept_chain,
@@ -182,23 +183,29 @@ def dispatch(batcher, step_logits, verify_logits):
     positions = torch.as_tensor(b.positions, device=dev)
     if cfg.speculate:
         hist = torch.as_tensor(b.hist, device=dev)
-        cands, counts, positions = spec_chunk(
-            verify_logits, positions.long(), hist, cfg.chunk, cfg.speculate)
-        cands, counts = cands.cpu().numpy(), counts.cpu().numpy()
-        b.hist = hist.cpu().numpy()
-        b.positions = positions.cpu().numpy().astype(dtype)
+        with span("msm.serve.decode_launch"):
+            cands, counts, positions = spec_chunk(
+                verify_logits, positions.long(), hist, cfg.chunk,
+                cfg.speculate)
+        with span("msm.serve.decode_read"):
+            cands, counts = cands.cpu().numpy(), counts.cpu().numpy()
+            b.hist = hist.cpu().numpy()
+            b.positions = positions.cpu().numpy().astype(dtype)
         return [[list(cands[s, i, :counts[s, i]])
                  for i in range(cfg.chunk)]
                 for s in range(cfg.slots)], None
-    toks, lps, last, positions = decode_chunk(
-        step_logits, torch.as_tensor(b.last_token, device=dev), positions,
-        cfg.chunk, sampling_state(cfg, b.temperature, b.top_p, b.seed, dev),
-        cfg.logprobs)
-    toks = toks.cpu().numpy()               # the chunk's one host read
-    b.last_token = last.cpu().numpy()
-    b.positions = positions.cpu().numpy().astype(dtype)
-    return ([[[t] for t in row] for row in toks],
-            None if lps is None else lps.cpu().numpy())
+    with span("msm.serve.decode_launch"):
+        toks, lps, last, positions = decode_chunk(
+            step_logits, torch.as_tensor(b.last_token, device=dev),
+            positions, cfg.chunk,
+            sampling_state(cfg, b.temperature, b.top_p, b.seed, dev),
+            cfg.logprobs)
+    with span("msm.serve.decode_read"):
+        toks = toks.cpu().numpy()           # the chunk's one host read
+        b.last_token = last.cpu().numpy()
+        b.positions = positions.cpu().numpy().astype(dtype)
+        lps = None if lps is None else lps.cpu().numpy()
+    return [[[t] for t in row] for row in toks], lps
 
 
 def unpack_request(request, max_new_tokens: int, allow_adapter=False):

@@ -66,6 +66,7 @@ import torch
 
 from ..models.llm import cross_entropy_sum
 from ..models.moe import data_parallel
+from ..utils.profiling import span
 from .distributed import global_batch_slice
 
 ADAM_EPS = 1e-8             # optax.adamw's default
@@ -130,6 +131,10 @@ class AdamW:
     def update(self, grads: list[torch.Tensor]) -> torch.Tensor:
         """Clip, then one AdamW step; returns the global norm before
         clipping."""
+        with span("msm.train.optimizer", device=True):
+            return self._update(grads)
+
+    def _update(self, grads: list[torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
         norm = self.global_norm(grads)
         # optax's select(norm < clip, g, (g / norm) * clip) on the device,
@@ -301,15 +306,18 @@ def make_train_step(model, optimizer: AdamW, accum_steps: int = 1,
                                       positions=sub.get("positions"),
                                       segment_ids=sub.get("segment_ids"),
                                       with_aux=True, vocab_shard=True)
-                mb_nll, count = next_token_nll(model, logits, sub["labels"])
-                del logits
-                if use_moe:
-                    # the global microbatch's count weighs this process's
-                    # share of its statistic
-                    mb_nll = mb_nll + (
-                        MOE_AUX_WEIGHT * moe_aux_mean(auxes)
-                        * global_sum(count, comm.tokens).to(mb_nll.dtype))
-                (mb_nll / denom).backward()
+                with span("msm.train.loss", device=True):
+                    mb_nll, count = next_token_nll(model, logits,
+                                                   sub["labels"])
+                    del logits
+                    if use_moe:
+                        # the global microbatch's count weighs this
+                        # process's share of its statistic
+                        mb_nll = mb_nll + (
+                            MOE_AUX_WEIGHT * moe_aux_mean(auxes)
+                            * global_sum(count, comm.tokens).to(mb_nll.dtype))
+                with span("msm.train.backward", device=True):
+                    (mb_nll / denom).backward()
                 nll += mb_nll.detach()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]

@@ -4,9 +4,9 @@ drift within the call cancels): chip_smoke.py phase 13's MoE trainer,
 phase 20's bench MoE LoRA, and the optimizer update of a train step.
 
     python3 scripts/torch_compare_train.py --a PARENT_ROOT --b ROOT \
-        [--passes 4] [--parts train,profile,update]
+        [--passes 4] [--parts train,update]
 
-Each pass runs up to four processes from the checkout's root:
+Each pass runs up to two processes from the checkout's root:
 
 - chip_smoke.py's own `phase_train` on phase 13's model (`--config bench
   --moe-experts 4 --moe-impl ragged --moe-kernel pallas`, nothing cut:
@@ -14,14 +14,13 @@ Each pass runs up to four processes from the checkout's root:
   `lora_train_cli` on phase 20's bench MoE LoRA (5 steps through the
   train CLI): steps/s and tokens/s (the first step left out), peak GiB,
   launches a step;
-- `scripts/torch_profile_train.py --moe` and `scripts/torch_profile_train.py`
-  (phase 9's flagship trainer, 8 LLM layers): a step and its optimizer
-  update (clip + AdamW) by CUDA events;
 - `AdamW.update` alone on phase 13's parameters, with random gradients
   scaled to a global norm of 0.5 (under the clip) and of 2.0 (over it):
   the median of UPDATE_REPS by CUDA events.
 
-`--parts` picks among `train`, `profile` and `update`.
+`--parts` picks among `train` and `update`. A step's phases at a cell's
+shapes come from the benchmark's traced runs (`bench_port/run.py
+--trace 1`: `optimizer_ms.train` and the other phase metrics).
 
 Prints one JSON line a pass, then the card's name and power limit. Each
 checkout builds its kernels into its own tree. Needs CUDA.
@@ -30,10 +29,8 @@ checkout builds its kernels into its own tree. Needs CUDA.
 import argparse
 import json
 import os
-import re
 import subprocess
 import sys
-import tempfile
 
 # runs in the checkout's root: its own chip_smoke.py and package
 TRAIN = r"""
@@ -106,10 +103,6 @@ print("RESULT " + json.dumps(out), flush=True)
 """
 UPDATE_REPS = 5
 
-STEP = re.compile(r"step ([\d.]+) ms \(CUDA events\), of which the "
-                  r"optimizer update \(clip \+ AdamW, (\d+) params\) "
-                  r"([\d.]+) ms")
-
 
 def run(argv, root, timeout):
     proc = subprocess.run(argv, cwd=root, capture_output=True, text=True,
@@ -135,18 +128,6 @@ def one_pass(label, root, parts):
     if "update" in parts:
         result["update"] = result_of(run(
             [sys.executable, "-c", UPDATE, str(UPDATE_REPS)], root, 600))
-    for name, flags in (("profile_moe", ["--moe"]), ("profile_flagship", [])
-                        ) if "profile" in parts else ():
-        with tempfile.TemporaryDirectory() as tmp:
-            text = run([sys.executable, "scripts/torch_profile_train.py",
-                        "--out", tmp, *flags], root, 600)
-        m = STEP.search(text)
-        if m is None:
-            raise SystemExit(f"no step line from torch_profile_train.py "
-                             f"{flags} in {root}:\n{text[-2000:]}")
-        result[name] = {"step_ms": float(m.group(1)),
-                        "params": int(m.group(2)),
-                        "update_ms": float(m.group(3))}
     result["tree"], result["root"] = label, root
     print(json.dumps(result), flush=True)
 
@@ -157,10 +138,9 @@ def main():
     ap.add_argument("--b", required=True, help="the second checkout's root")
     ap.add_argument("--passes", type=int, default=4,
                     help="passes in the order A B B A A B B A ...")
-    ap.add_argument("--parts", default="train,profile,update",
+    ap.add_argument("--parts", default="train,update",
                     help="comma-separated: train (phases 13 and 20's MoE "
-                         "trainers), profile (torch_profile_train.py), "
-                         "update (the optimizer update alone)")
+                         "trainers), update (the optimizer update alone)")
     args = ap.parse_args()
     parts = set(args.parts.split(","))
     order = "ABBA" * (args.passes // 4 + 1)

@@ -81,7 +81,11 @@ EDITED = {
                      # a torch device (None for the CPU or an unknown card)
     ],
     "utils/profiling.py": [
-        (4, 5),      # the module docstring names torch.profiler
+        (1, 44),     # the module docstring names torch.profiler and the
+                     # spans; torch and threading imported; Timings is
+                     # the process-wide span store (host and device
+                     # seconds by name, a lock, snapshot and reset), then
+                     # the span context that writes it
         (45, 55),    # device_trace: a torch.profiler trace (CPU and CUDA
                      # activities) exported as a Chrome trace
     ],
