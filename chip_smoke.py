@@ -154,9 +154,9 @@ result line):
    `<data>/adt/`, train and val, with and without `--dot`, on the card
    and on the CPU: every file byte-equal. Each number beside the card's
    name and power limit.
-18. Real inputs on the card without cv2 (no kernel of its own but K1 and
-   K7 on the serve path; the native inflate and codec, the PNG codec and
-   the INTER_AREA resize on the host): (a) bench.py's ingest_l1
+18. Real inputs on the card without cv2 (no kernel of its own but K1, K7
+   and tile_frame on the serve path; the native inflate and codec and the
+   PNG codec on the host): (a) bench.py's ingest_l1
    configuration (make_synthetic_sens, 300 frames of 480 x 640, seed 5):
    export_posed_images and build_images_info at frame_skip 1, their rates
    under `ingest_sens_export` and `ingest_info_update` (frames/s, median
@@ -177,7 +177,9 @@ result line):
    frames written as JPEG and PNG: tile_image's tiles equal cv2's by
    digest, and `serve` (tiny, float32) on request lines naming those files
    gives the same greedy tokens on the card and the CPU, K1 and K7
-   launched. Each number beside the card's name and power limit.
+   launched, tile_frame once a frame read on the card and no frame tiled on
+   the host there, `--device cpu` tiling each frame in numpy. Each number
+   beside the card's name and power limit.
 
 19. Eval and the serving options (K1, K7 native and int8 and K8 on the
    eval paths; generation, sampling and the paged options are torch ops,
@@ -351,6 +353,17 @@ result line):
    within PIPE_GRAD_ATOL (the JAX pipeline tests' bounds). The two worlds
    run at once.
 
+26. tile_frame (ops/csrc/tile_frames.cu: INTER_AREA, crops and the
+   normalisation of a frame's tiles in one launch; it replaces no TPU
+   kernel, the JAX package tiles on the host) at the benchmark cells'
+   frame (968 x 1296, 6 tiles and the thumbnail, no fixed resize), on a
+   smooth and a noisy frame, and from 480 x 640 with the reference's
+   fixed resize to 968 x 1296 (`resize_frame` first): `tile_image`'s tiles
+   byte-equal to the numpy path's, one launch a frame; the kernel's device
+   ms (CUDA-graph replay, frame resident) beside its bytes bound,
+   `tile_image`'s host ms a frame end to end (upload, launch, wait,
+   download; median of TILE_CALLS) and the numpy path's ms.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -389,7 +402,9 @@ MOE_MAX_TILES, MOE_TILES_PER_IMAGE = 14, 6
 MOE_TRAIN_LAUNCHES = {"flash_fwd": 28, "flash_bwd_dq": 28,
                       "flash_bwd_dkv": 28, "gmm": 96, "gmm_t": 48,
                       "tgmm": 48}
-N_PHASES = 25
+N_PHASES = 26
+# phase 26: tile_image calls timed (median) at the cells' frame
+TILE_CALLS = 20
 # phase 20: LoRA rank 16 on the default targets (wq, wk, wv, wo of the
 # flagship's 32 layers: (131,072 + 81,920 + 81,920 + 131,072) a layer)
 LORA_RANK = 16
@@ -3092,12 +3107,16 @@ def frames_and_serve(torch, np, G, stored, cli, tmp, card, kernels):
     tile_image's tiles of each equal the digests of cv2's; then `serve`
     at the tiny config in float32 (as phase 5) with request lines naming
     those files, on the card and on the CPU: the same greedy tokens, and
-    each of `kernels` launched on the card's run. Returns the launches."""
+    each of `kernels` launched on the card's run; every frame read tiled
+    by one launch of tile_frame on the card and in numpy on the CPU.
+    Returns the launches."""
     import argparse
     import contextlib
     import io
 
     from multi_spatialmllm_tpu_torch.models import mllm as M
+    from multi_spatialmllm_tpu_torch.models import preprocess as PP
+    from multi_spatialmllm_tpu_torch.ops import tile_frames as TF
 
     frames = os.path.join(tmp, "frames")
     os.makedirs(frames)
@@ -3127,11 +3146,13 @@ def frames_and_serve(torch, np, G, stored, cli, tmp, card, kernels):
         M.init_random_weights(model, SEED)
         ckpt = os.path.join(tmp, "tiny.pt")
         torch.save(model.state_dict(), ckpt)
-        tokens = {}
+        tokens, tiled = {}, {}
+        n_frames = sum(len(json.loads(ln)["image"]) for ln in lines)
         for dev in ("cuda", "cpu"):
             if dev == "cuda":
                 for k in kernels:
                     k.launches = 0
+            card0, host0 = TF.TILE_FRAME.launches, PP.HOST_TILED.frames
             stdin, buf = sys.stdin, io.StringIO()
             sys.stdin = io.StringIO("".join(ln + "\n" for ln in lines))
             try:
@@ -3140,6 +3161,8 @@ def frames_and_serve(torch, np, G, stored, cli, tmp, card, kernels):
                               "--images-root", frames, *SERVE_FLAGS])
             finally:
                 sys.stdin = stdin
+            tiled[dev] = (TF.TILE_FRAME.launches - card0,
+                          PP.HOST_TILED.frames - host0)
             if dev == "cuda":
                 launches = {k.name: k.launches for k in kernels}
             res = [json.loads(ln) for ln in buf.getvalue().splitlines()]
@@ -3155,10 +3178,14 @@ def frames_and_serve(torch, np, G, stored, cli, tmp, card, kernels):
              f"for {diff}")
     if min(launches.values()) <= 0:
         fail(f"a kernel never launched on the frames' serve path: {launches}")
+    if tiled != {"cuda": (n_frames, 0), "cpu": (0, n_frames)}:
+        fail(f"serve on frames from disk: {n_frames} frames read, tiled "
+             f"(on the card, in numpy) {tiled}")
     n_tok = sum(len(t) for t in tokens["cpu"].values())
     log(f"  serve (tiny f32) on {len(lines)} requests naming those files: "
         f"{n_tok} greedy tokens equal card vs CPU; launches {launches}; "
-        f"{card}")
+        f"{n_frames} frames read, tiled by tile_frame on the card and in "
+        f"numpy on the CPU; {card}")
     return launches
 
 
@@ -5747,6 +5774,78 @@ def pipe_world(tiny, state=None):
     return out
 
 
+def cells_frame(np, seed, noisy):
+    """A seeded 968 x 1296 RGB frame (the benchmark cells' size): smooth
+    shading with a little noise, or uniform noise."""
+    rng = np.random.default_rng(seed)
+    if noisy:
+        return rng.integers(0, 256, (968, 1296, 3), dtype=np.uint8)
+    yy, xx = np.mgrid[0:968, 0:1296]
+    base = 96 + 80 * np.sin(xx / 37.0 + seed) * np.cos(yy / 23.0)
+    img = base[..., None] + rng.normal(0, 6, (968, 1296, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def phase_tile_frames(torch, TF, card):
+    """Phase 26 (see the module docstring)."""
+    import ctypes
+
+    import numpy as np
+
+    from multi_spatialmllm_tpu_torch.models import preprocess as PP
+
+    cells = PP.PreprocessConfig(max_tiles=6, resize_hw=None)
+    fixed = PP.PreprocessConfig(max_tiles=6, resize_hw=(968, 1296))
+    cases = [("cells' frame, smooth", cells_frame(np, 1, False), cells),
+             ("cells' frame, noise", cells_frame(np, 2, True), cells),
+             ("480 x 640, fixed resize", cells_frame(np, 3, False)[:480, :640],
+              fixed)]
+    launches, host = TF.TILE_FRAME.launches, PP.HOST_TILED.frames
+    plain_ms = []
+    for label, img, cfg in cases:
+        got = PP.tile_image(img, cfg)
+        t0 = time.perf_counter()
+        want = PP._tile_image(img, cfg)
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+        if (got.dtype, got.shape) != (want.dtype, want.shape) or \
+                not got.flags.c_contiguous or got.tobytes() != want.tobytes():
+            fail(f"tile_frame: {label}: the tiles differ from the numpy "
+                 f"path's")
+        log(f"  {label}: {got.shape[0]} tiles byte-equal to the numpy path")
+    launches = TF.TILE_FRAME.launches - launches
+    if launches != len(cases) or PP.HOST_TILED.frames != host:
+        fail(f"tile_frame launched {launches} times for {len(cases)} frames "
+             f"({PP.HOST_TILED.frames - host} tiled on the host)")
+    img = cases[0][1]
+    host_ms = []
+    for _ in range(TILE_CALLS):
+        t0 = time.perf_counter()
+        out = PP.tile_image(img, cells)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    src = torch.from_numpy(img).cuda()
+    mean_std = (ctypes.c_float * 6)(*PP.MEAN.tolist(), *PP.STD.tolist())
+
+    def launch():
+        return TF.tile_on_device(src, (968, 1296), 2, 3, 448, True, mean_std)
+
+    k_ms = graph_ms(torch, launch)
+    if k_ms is None:
+        fail("tile_frame: the launch did not capture in a CUDA graph")
+    wrapper_ms = cuda_ms(torch, launch)
+    n_bytes = img.nbytes + out.nbytes
+    b_ms, b_by = bound_ms(0, n_bytes)
+    t_plain = median(plain_ms[:2])
+    log(f"  at 968 x 1296 -> {out.shape[0]} tiles: kernel {ms_text(k_ms)} "
+        f"(graph replay; {wrapper_ms:.4f} ms by events around the wrapper), "
+        f"bound {b_ms:.4f} ms ({b_by}: {img.nbytes / 1e6:.2f} MB read, "
+        f"{out.nbytes / 1e6:.2f} MB written), {100 * b_ms / k_ms:.1f}% of "
+        f"it; tile_image {median(host_ms):.2f} ms a frame on the host "
+        f"(median of {TILE_CALLS}; {min(host_ms):.2f}-{max(host_ms):.2f}); "
+        f"the numpy path {t_plain:.1f} ms; {card}")
+    return {"ms": k_ms, "wrapper_ms": wrapper_ms, "bound": (b_ms, b_by),
+            "plain_ms": t_plain, "host_ms": median(host_ms)}
+
+
 def phase_pipe(torch, M, card):
     """Phase 25 (see the module docstring): the references in this
     process, then the two worlds at once."""
@@ -5889,6 +5988,7 @@ def main(argv=None):
     from multi_spatialmllm_tpu_torch.ops import attention as A
     from multi_spatialmllm_tpu_torch.ops import grouped_matmul as G
     from multi_spatialmllm_tpu_torch.ops import paged_attention as P
+    from multi_spatialmllm_tpu_torch.ops import tile_frames as TF
     from multi_spatialmllm_tpu_torch.parallel import train as T
 
     # float32 paths compare against float32 references: no TF32 anywhere
@@ -5913,7 +6013,7 @@ def main(argv=None):
         emitter = pool.submit(native.native_available)
         build_all([A.FLASH_FWD, P.PAGED_DECODE, A.FLASH_BWD_DQ,
                    A.FLASH_BWD_DKV, P.PAGED_DECODE_INT8, G.GMM, G.GMM_T,
-                   G.TGMM])
+                   G.TGMM, TF.TILE_FRAME, TF.RESIZE_FRAME])
         if not emitter.result():
             fail(f"the native library did not build: "
                  f"{native.build_error}")
@@ -6025,7 +6125,7 @@ def main(argv=None):
                  "against the JAX digests, serve on frames from disk")
         t0 = time.perf_counter()
         res["real_inputs"] = phase_real_inputs(
-            torch, cli, card, [A.FLASH_FWD, P.PAGED_DECODE])
+            torch, cli, card, [A.FLASH_FWD, P.PAGED_DECODE, TF.TILE_FRAME])
         log(f"  rates under bench.py's keys: "
             f"{json.dumps(res['real_inputs']['rates'])}; phase 18 took "
             f"{time.perf_counter() - t0:.1f} s; {card}")
@@ -6107,6 +6207,10 @@ def main(argv=None):
         t0 = time.perf_counter()
         res["pipe"] = phase_pipe(torch, M, card)
         log(f"  phase 25 took {time.perf_counter() - t0:.1f} s; {card}")
+    if 26 in phases:
+        head(26, "tile_frame at the benchmark cells' frame against the numpy "
+                 "path, timed beside its bound and the numpy path")
+        res["tile"] = phase_tile_frames(torch, TF, card)
     log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     if phases != set(range(3, N_PHASES + 1)):
@@ -6236,6 +6340,14 @@ def main(argv=None):
                                       for s, t in bwd.items()}
         entry["library_ms_by_shape"] = {s: t["lib_bwd"]
                                         for s, t in bwd.items()}
+    tile = res["tile"]
+    kernels.append(kernel_entry(
+        "tile_frame", "tile_frames.cu",
+        "none: the JAX package tiles frames on the host with cv2 "
+        "(multi_spatialmllm_tpu/models/preprocess.py)",
+        by_path("tile_frame", frames_serve=frames), 0.0,
+        (tile["ms"], tile["plain_ms"], tile["bound"]), None))
+    kernels[-1]["host_ms"] = tile["host_ms"]
     missing = [(k["name"], p) for k in kernels
                for p, n in k["launches_by_path"].items() if n <= 0]
     if missing:

@@ -195,7 +195,7 @@ def cmd_serve(args) -> None:
 
     def tiles_for(path):
         return tile_image(_read_image(os.path.join(args.images_root, path)),
-                          pre)
+                          pre, batcher.device)
 
     def more_buffered() -> bool:
         """True when another stdin line can be read without blocking."""
@@ -612,9 +612,11 @@ def cmd_train(args) -> None:
                               args.batch_size, data_cfg, seed=args.seed,
                               packed=args.packed,
                               shard_index=args.data_shard,
-                              num_shards=args.data_num_shards)
+                              num_shards=args.data_num_shards,
+                              device=args.device)
     if args.prefetch:
-        batches = prefetch_iterator(batches, depth=args.prefetch)
+        batches = prefetch_iterator(batches, depth=args.prefetch,
+                                    device=args.device)
 
     device = torch.device(args.device)
     model = M.MultiFrameMLLM(cfg, device=device, param_dtype=torch.float32)

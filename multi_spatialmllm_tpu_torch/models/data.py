@@ -13,10 +13,11 @@ import dataclasses
 from typing import Callable, Iterator, Sequence
 
 import numpy as np
+import torch
 
 from ..utils.profiling import span
 from .mllm import MLLMConfig
-from .preprocess import PreprocessConfig, tile_image
+from .preprocess import PreprocessConfig, tile_device, tile_image
 from .tokenizer import (
     ASSISTANT,
     HUMAN,
@@ -63,9 +64,11 @@ def encode_unpadded(
     model_cfg: MLLMConfig,
     image_loader: Callable[[str], np.ndarray],
     config: DataConfig | None = None,
+    device=None,
 ):
     """One JSONL record -> (input_ids [L], labels [L], tiles [n,H,W,3])
-    at the sample's TRUE length, or None if it exceeds the budgets."""
+    at the sample's TRUE length, or None if it exceeds the budgets; the
+    tiles are made for a model on `device` (`tile_image`)."""
     config = config or DataConfig()
     tile_stacks = []
     tiles_per_image = []
@@ -74,7 +77,7 @@ def encode_unpadded(
     # tiles, no IMG_CONTEXT positions, plain next-token loss
     for rel_path in sample.get("image", []):
         img = image_loader(rel_path)
-        tiles = tile_image(img, config.preprocess)
+        tiles = tile_image(img, config.preprocess, device)
         tile_stacks.append(tiles)
         tiles_per_image.append(tiles.shape[0])
     total_tiles = int(sum(tiles_per_image))
@@ -115,12 +118,13 @@ def encode_sample(
     model_cfg: MLLMConfig,
     image_loader: Callable[[str], np.ndarray],
     config: DataConfig | None = None,
+    device=None,
 ):
     """One JSONL record -> (input_ids, labels, tiles, n_tiles) padded to
     the static budget, or None if it does not fit."""
     config = config or DataConfig()
     enc = encode_unpadded(sample, tokenizer, model_cfg, image_loader,
-                          config)
+                          config, device)
     if enc is None:
         return None
     ids, labels, tile_tensor = enc
@@ -203,6 +207,7 @@ def packed_batch_iterator(
     batch_size: int,
     config: DataConfig | None = None,
     drop_remainder: bool = True,
+    device=None,
 ) -> Iterator[dict]:
     """`batch_iterator` with sequence packing: batches additionally carry
     `segment_ids` and `positions` `[B, T]` — feed them to the model so
@@ -210,7 +215,7 @@ def packed_batch_iterator(
     (MultiFrameMLLM.__call__ / parallel.train's loss both accept them)."""
     config = config or DataConfig()
     encoded = (encode_unpadded(s, tokenizer, model_cfg, image_loader,
-                               config) for s in samples)
+                               config, device) for s in samples)
     buf: list[dict] = []
     for row in pack_samples(encoded, config, tokenizer.pad_id):
         buf.append(row)
@@ -229,14 +234,16 @@ def batch_iterator(
     batch_size: int,
     config: DataConfig | None = None,
     drop_remainder: bool = True,
+    device=None,
 ) -> Iterator[dict]:
     """Static-shape batches: input_ids [B,T] int32, labels [B,T] int32,
-    tiles [B, max_tiles, H, W, 3] float32."""
+    tiles [B, max_tiles, H, W, 3] float32, tiled for a model on `device`
+    (`tile_image`)."""
     config = config or DataConfig()
     buf_ids, buf_labels, buf_tiles = [], [], []
     for sample in samples:
         enc = encode_sample(sample, tokenizer, model_cfg, image_loader,
-                            config)
+                            config, device)
         if enc is None:
             continue
         input_ids, labels, tiles, _ = enc
@@ -258,23 +265,41 @@ def batch_iterator(
         }
 
 
-def prefetch_iterator(it, depth: int = 2):
+def _tiling_cuda_device(device) -> int | None:
+    """The calling thread's CUDA device where frames for a model on
+    `device` are tiled on the card, else None: a thread that works for it
+    starts on that device."""
+    if tile_device(device).type != "cuda":
+        return None
+    return torch.cuda.current_device()
+
+
+def _set_cuda_device(device: int | None) -> None:
+    if device is not None:
+        torch.cuda.set_device(device)
+
+
+def prefetch_iterator(it, depth: int = 2, device=None):
     """Run ANY iterator in a producer thread behind a bounded queue, so
     host-side work (JPEG decode / tokenize / packing) overlaps device
     compute. Yields exactly the wrapped iterator's items in order;
     producer exceptions re-raise at the consumer; abandoning the
     generator stops the producer (no thread leak). Composes with
     mixture_batches / packed_batch_iterator, which prefetch_batches'
-    padded-only pipeline does not."""
+    padded-only pipeline does not. Where frames for a model on `device` are
+    tiled on the card, the producer works on the consumer's current CUDA
+    device, taken when it starts."""
     import queue as queue_mod
     import threading
 
     q: queue_mod.Queue = queue_mod.Queue(maxsize=max(1, depth))
     _END = object()
     stop = threading.Event()
+    cuda_device = _tiling_cuda_device(device)
 
     def produce():
         try:
+            _set_cuda_device(cuda_device)
             for item in it:
                 while not stop.is_set():
                     try:
@@ -320,6 +345,7 @@ def prefetch_batches(
     drop_remainder: bool = True,
     num_workers: int | None = None,
     prefetch: int = 2,
+    device=None,
 ) -> Iterator[dict]:
     """`batch_iterator` with the host work overlapped against device
     compute (JPEG decode, tiling and tokenizing are host-bound and must not
@@ -330,9 +356,12 @@ def prefetch_batches(
     composition is IDENTICAL to the synchronous iterator for any worker
     count (test-asserted). A producer thread keeps up to `prefetch`
     assembled batches queued ahead of the consumer. The native library
-    (ingest/native: the JPEG codec an image loader reads through) is built
-    and loaded here, in the calling thread, before any worker starts: its
-    lazy build takes no lock, and two workers would race it.
+    (ingest/native: the JPEG codec an image loader reads through) and,
+    where frames for a model on `device` are tiled on the card, the tiling
+    kernel's (ops/tile_frames) are built and loaded here, in the calling
+    thread, before any worker starts: their lazy builds take no lock, and
+    two workers would race them. The workers then tile on the caller's
+    current CUDA device.
     """
     import queue as queue_mod
     import threading
@@ -344,12 +373,17 @@ def prefetch_batches(
     if num_workers <= 1:
         yield from batch_iterator(samples, tokenizer, model_cfg,
                                   image_loader, batch_size, config,
-                                  drop_remainder)
+                                  drop_remainder, device)
         return
 
     from ..ingest import native
 
     native.native_available()
+    cuda_device = _tiling_cuda_device(device)
+    if cuda_device is not None:
+        from ..ops import tile_frames
+
+        tile_frames.build()
     out_q: queue_mod.Queue = queue_mod.Queue(maxsize=prefetch)
     _END = object()
     stop = threading.Event()  # set when the consumer abandons the iterator
@@ -371,7 +405,9 @@ def prefetch_batches(
 
     def produce():
         try:
-            with ThreadPoolExecutor(max_workers=num_workers) as pool:
+            with ThreadPoolExecutor(max_workers=num_workers,
+                                    initializer=_set_cuda_device,
+                                    initargs=(cuda_device,)) as pool:
                 window = 4 * num_workers
                 futures: list = []
                 buf_ids, buf_labels, buf_tiles = [], [], []
@@ -399,7 +435,7 @@ def prefetch_batches(
                         raise _Abandoned()
                     futures.append(pool.submit(
                         encode_sample, sample, tokenizer, model_cfg,
-                        image_loader, config))
+                        image_loader, config, device))
                     if len(futures) >= window:
                         drain_one()
                 while futures:

@@ -186,14 +186,17 @@ def mixture_batches(
     packed: bool = False,
     shard_index: int = 0,
     num_shards: int = 1,
+    device=None,
 ) -> Iterator[dict]:
     """Batches over the shuffled mixture stream — padded rows by default,
     sequence-packed rows (`segment_ids`/`positions`) with `packed=True`;
-    `shard_index/num_shards` stride the stream for multi-host input."""
+    `shard_index/num_shards` stride the stream for multi-host input; the
+    tiles are made for a model on `device` (`tile_image`)."""
     it = mixture_samples(entries, seed=seed, epochs=epochs,
                          shard_index=shard_index, num_shards=num_shards)
     make = packed_batch_iterator if packed else batch_iterator
-    return make(it, tokenizer, model_cfg, image_loader, batch_size, config)
+    return make(it, tokenizer, model_cfg, image_loader, batch_size, config,
+                device=device)
 
 
 def validate_mixture(entries: list[MixtureEntry],

@@ -1,18 +1,23 @@
 """Image preprocessing for the multi-frame MLLM (the port's copy of
 multi_spatialmllm_tpu/models/preprocess.py): InternVL-2 dynamic
 aspect-ratio tiling into 448x448 tiles plus a thumbnail, normalised with
-the ImageNet mean and std, on the host in numpy.
+the ImageNet mean and std.
 
-Resizing is OpenCV's INTER_AREA, as the JAX package's, done in numpy by
-models/resize.py (pixel-equal to `cv2.resize`), so no OpenCV is needed; an
-image already at the target size is returned as it is.
+For a model on a CUDA device `tile_image` tiles a frame on that device in
+one kernel launch (ops/tile_frames.py); for one on the CPU, or in a
+process without a card, it runs the plain version, `_tile_image`, on the
+host in numpy. Both give the same float32 bits. Resizing is OpenCV's INTER_AREA, as the JAX package's, done in numpy
+by models/resize.py (pixel-equal to `cv2.resize`), so no OpenCV is needed;
+an image already at the target size is returned as it is.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
+import torch
 
 from ..utils.profiling import span
 from .resize import resize_area
@@ -65,12 +70,57 @@ def _resize(image: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
     return resize_area(image, hw)
 
 
-def tile_image(image: np.ndarray, config: PreprocessConfig | None = None
-               ) -> np.ndarray:
+class FrameCount:
+    """Frames tiled by one path; threads may add to it at once."""
+
+    def __init__(self):
+        self.frames = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self.frames += 1
+
+
+# frames tiled in numpy (the card's are ops/tile_frames.TILE_FRAME.launches)
+HOST_TILED = FrameCount()
+
+
+def tile_device(device=None) -> torch.device:
+    """The device `tile_image` tiles on for a model on `device`."""
+    if device is None:
+        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return torch.device(device)
+
+
+def tile_image(image: np.ndarray, config: PreprocessConfig | None = None,
+               device=None) -> np.ndarray:
     """RGB uint8 `[H, W, 3]` -> normalized float32 tiles
-    `[n_tiles, tile, tile, 3]` (grid tiles + optional thumbnail)."""
+    `[n_tiles, tile, tile, 3]` (grid tiles + optional thumbnail), tiled
+    for the model on `device`: on it where it is a CUDA device, else in
+    numpy. The default, None, is the current CUDA device where the process
+    has one, else numpy."""
+    config = config or PreprocessConfig()
+    device = tile_device(device)
     with span("msm.image.tile"):
-        return _tile_image(image, config or PreprocessConfig())
+        if device.type == "cuda":
+            return _tile_image_card(image, config, device)
+        HOST_TILED.add()
+        return _tile_image(image, config)
+
+
+def _tile_image_card(image: np.ndarray, config: PreprocessConfig,
+                     device: torch.device) -> np.ndarray:
+    from ..ops.tile_frames import tile_frame
+
+    image = np.asarray(image)
+    hw = (tuple(config.resize_hw) if config.resize_hw is not None
+          else image.shape[:2])
+    cols, rows = select_grid(hw[1], hw[0], config.max_tiles,
+                             config.tile_size)
+    return tile_frame(image, hw, rows, cols, config.tile_size,
+                      config.use_thumbnail and rows * cols > 1, MEAN, STD,
+                      device)
 
 
 def _tile_image(image: np.ndarray, config: PreprocessConfig) -> np.ndarray:

@@ -19,7 +19,9 @@ through the same three code paths as OpenCV's imgproc/resize.cpp:
   by `(x + 2) >> 2` and saturated.
 
 `tests/test_torch_resize.py` holds it pixel-equal to cv2 5.0.0 over the
-shapes `tile_image` produces and a sweep of random sizes.
+shapes `tile_image` produces and a sweep of random sizes. `area_path`
+makes the choice of path, and `card_tables` hands it with its tables to
+the card's tiling kernel (ops/csrc/tile_frames.cu).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import numpy as np
 
 _DBL_EPSILON = np.finfo(np.float64).eps
 _COEF_SCALE = 2048                     # 1 << INTER_RESIZE_COEF_BITS
+BLOCK, AREA, GENERIC = 0, 1, 2         # the paths, numbered as the card's
 
 
 def _area_table(ssize: int, dsize: int, scale: float):
@@ -86,37 +89,78 @@ def _area_fast(src: np.ndarray, hw, iy: int, ix: int) -> np.ndarray:
 
 
 def _generic_coefs(ssize: int, dsize: int):
-    """Area-mode source index, 11-bit weights and the edge flag of each
-    destination index (resize.cpp, the generic path's coefficient loop)."""
+    """Area-mode source index and 11-bit weights of each destination index
+    (resize.cpp, the generic path's coefficient loop). At the last source
+    index the weights are 2048 and 0, which is cv2's `S[sx] * ONE` past
+    xmax."""
     inv = dsize / ssize
     scale = 1.0 / inv
     d = np.arange(dsize)
     s = np.floor(d * scale).astype(np.int64)
     f = ((d + 1) - (s + 1) * inv).astype(np.float32)
     f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
-    edge = s + 1 >= ssize                 # past xmax: S[sx] * ONE
     last = s >= ssize - 1
     s = np.where(last, ssize - 1, s)
     f = np.where(last, np.float32(0), f)
     a0 = np.rint((np.float32(1) - f) * np.float32(_COEF_SCALE))
     a1 = np.rint(f * np.float32(_COEF_SCALE))
-    return s, a0.astype(np.int32), a1.astype(np.int32), edge
+    return s, a0.astype(np.int32), a1.astype(np.int32)
 
 
 def _generic(src: np.ndarray, hw) -> np.ndarray:
     h, w, cn = src.shape
-    sx, ax0, ax1, xedge = _generic_coefs(w, hw[1])
-    sy, by0, by1, _ = _generic_coefs(h, hw[0])
+    sx, ax0, ax1 = _generic_coefs(w, hw[1])
+    sy, by0, by1 = _generic_coefs(h, hw[0])
     s = src.astype(np.int32)
-    right = s[:, np.minimum(sx + 1, w - 1)]
-    left = s[:, sx]
-    rows = np.where(xedge[:, None], left * _COEF_SCALE,
-                    left * ax0[:, None] + right * ax1[:, None])
+    rows = (s[:, sx] * ax0[:, None]
+            + s[:, np.minimum(sx + 1, w - 1)] * ax1[:, None])
     r0 = rows[sy] >> 4
     r1 = rows[np.minimum(sy + 1, h - 1)] >> 4
     out = (((r0 * by0[:, None, None]) >> 16)
            + ((r1 * by1[:, None, None]) >> 16) + 2) >> 2
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def area_path(h: int, w: int, dh: int, dw: int):
+    """Which of cv2's three paths resizes `h x w` to `dh x dw`, with what
+    it takes: `(BLOCK, (iy, ix))`, `(AREA, (scale_y, scale_x))` or
+    `(GENERIC, None)`. The same size is a 1 x 1 block mean: each pixel
+    as it is."""
+    scale_x, scale_y = 1.0 / (dw / w), 1.0 / (dh / h)
+    if scale_x >= 1 and scale_y >= 1:
+        ix, iy = round(scale_x), round(scale_y)
+        if (abs(scale_x - ix) < _DBL_EPSILON
+                and abs(scale_y - iy) < _DBL_EPSILON):
+            return BLOCK, (iy, ix)
+        return AREA, (scale_y, scale_x)
+    return GENERIC, None
+
+
+def card_tables(h: int, w: int, dh: int, dw: int):
+    """The resize as the card's kernel (ops/csrc/tile_frames.cu) reads it:
+    a header `[path, dh, dw, a, b]` and one int32 array, the y table then
+    the x table (None for a block mean, whose header holds `iy, ix`).
+
+    - `AREA`: `a, b` = ky, kx; each axis `[d, k]` source indices then
+      `[d, k]` float32 weight bits (`_area_table`).
+    - `GENERIC`: `a = b = 0`; each axis `[d, 4]`: the two source indices
+      and their 11-bit weights (`_generic_coefs`)."""
+    path, arg = area_path(h, w, dh, dw)
+    if path == BLOCK:
+        return [path, dh, dw, *arg], None
+    if path == AREA:
+        (yi, yw), (xi, xw) = (_area_table(h, dh, arg[0]),
+                              _area_table(w, dw, arg[1]))
+        tabs = [yi.astype(np.int32), yw.view(np.int32),
+                xi.astype(np.int32), xw.view(np.int32)]
+        return ([path, dh, dw, yi.shape[1], xi.shape[1]],
+                np.concatenate([t.ravel() for t in tabs]))
+    tabs = []
+    for ssize, dsize in ((h, dh), (w, dw)):
+        s, a0, a1 = _generic_coefs(ssize, dsize)
+        tabs.append(np.stack([s, np.minimum(s + 1, ssize - 1), a0, a1],
+                             axis=1).astype(np.int32).ravel())
+    return [path, dh, dw, 0, 0], np.concatenate(tabs)
 
 
 def resize_area(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
@@ -133,14 +177,11 @@ def resize_area(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
     if (h, w) == (dh, dw):
         return img.copy()
     src = img if img.ndim == 3 else img[..., None]
-    scale_x, scale_y = 1.0 / (dw / w), 1.0 / (dh / h)
-    if scale_x >= 1 and scale_y >= 1:
-        ix, iy = round(scale_x), round(scale_y)
-        if (abs(scale_x - ix) < _DBL_EPSILON
-                and abs(scale_y - iy) < _DBL_EPSILON):
-            out = _area_fast(src, (dh, dw), iy, ix)
-        else:
-            out = _area(src, (dh, dw), scale_y, scale_x)
+    path, arg = area_path(h, w, dh, dw)
+    if path == BLOCK:
+        out = _area_fast(src, (dh, dw), *arg)
+    elif path == AREA:
+        out = _area(src, (dh, dw), *arg)
     else:
         out = _generic(src, (dh, dw))
     return out if img.ndim == 3 else out[..., 0]

@@ -53,9 +53,11 @@ def build_prompt_ids(sample: dict, tokenizer, model_cfg: MLLMConfig,
     return [tokenizer.bos_id] + tokenizer.encode(HUMAN + text + ASSISTANT)
 
 
-def _tiles(sample: dict, image_loader: Callable, config: EvalRunConfig):
-    """The sample's tiles `[n, H, W, 3]` and the tile count per image."""
-    stacks = [tile_image(image_loader(p), config.data.preprocess)
+def _tiles(sample: dict, image_loader: Callable, config: EvalRunConfig,
+           device):
+    """The sample's tiles `[n, H, W, 3]` for a model on `device` and the
+    tile count per image."""
+    stacks = [tile_image(image_loader(p), config.data.preprocess, device)
               for p in sample["image"]]
     return np.concatenate(stacks, axis=0), [s.shape[0] for s in stacks]
 
@@ -84,7 +86,8 @@ def predict_sample(model: MultiFrameMLLM, tokenizer, sample: dict,
                    image_loader: Callable[[str], np.ndarray],
                    config: EvalRunConfig) -> str:
     """One record's decoded answer."""
-    tiles, per_image = _tiles(sample, image_loader, config)
+    tiles, per_image = _tiles(sample, image_loader, config,
+                               model_device(model))
     ids = build_prompt_ids(sample, tokenizer, model.cfg, per_image)
     prompt = pad_to_bucket(np.asarray([ids], dtype=np.int32),
                            config.length_bucket, tokenizer.pad_id)
@@ -101,7 +104,8 @@ def predict_batch(model: MultiFrameMLLM, tokenizer, samples: list[dict],
     each answer equals `predict_sample`'s."""
     prepped = []
     for s in samples:
-        tiles, per_image = _tiles(s, image_loader, config)
+        tiles, per_image = _tiles(s, image_loader, config,
+                                  model_device(model))
         prepped.append((tiles, build_prompt_ids(s, tokenizer, model.cfg,
                                                 per_image)))
     predictions: list[str | None] = [None] * len(samples)
@@ -150,7 +154,8 @@ def score_candidates(model: MultiFrameMLLM, tokenizer, sample: dict,
     continuation after the sample's prompt: one `[n_candidates, T]`
     forward (flash attention, no cache), the ViT run once over the shared
     tiles and its features spliced into every row."""
-    tiles, per_image = _tiles(sample, image_loader, config)
+    tiles, per_image = _tiles(sample, image_loader, config,
+                               model_device(model))
     ids = build_prompt_ids(sample, tokenizer, model.cfg, per_image)
     cand_ids = [tokenizer.encode(c) for c in candidates]
     if not all(cand_ids):
@@ -193,7 +198,7 @@ def predict_with_batcher(batcher, tokenizer, samples: list[dict],
                          f"tokenizer's eos is {tokenizer.eos_id}")
     requests = []
     for s in samples:
-        tiles, per_image = _tiles(s, image_loader, config)
+        tiles, per_image = _tiles(s, image_loader, config, batcher.device)
         ids = build_prompt_ids(s, tokenizer, batcher.model.cfg, per_image)
         requests.append((np.asarray(ids, dtype=np.int32), tiles))
     outs = batcher.generate_all(requests)     # stop-cut, request order

@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 import torch
@@ -66,14 +67,16 @@ class CudaKernel:
     """One kernel library: built at first call, then launched by calling
     the instance with the entry point's arguments (the stream is added).
 
-    `launches` counts the launches made through this wrapper; a run can
-    reset it to show that a path went through the kernel."""
+    `launches` counts the launches made through this wrapper, from any
+    thread; a run can reset it to show that a path went through the
+    kernel."""
 
     def __init__(self, name: str, argtypes: list, source: str | None = None):
         self.name = name
         self.source = source or name
         self.argtypes = argtypes
         self.launches = 0
+        self._count = threading.Lock()
         self.build_seconds: float | None = None
         self.build_log = ""
         self._fn = None
@@ -123,7 +126,8 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(
                 f"kernel {self.name!r} launch failed: cudaError_t {err}")
-        self.launches += 1
+        with self._count:
+            self.launches += 1
 
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
